@@ -1,0 +1,240 @@
+"""Iterative Charted Refinement — the paper's core algorithm (§4, Alg. 1).
+
+``ICR`` is a generative representation of a GP: it applies an O(N)
+approximate square root of the kernel matrix to a standard-normal
+excitation ξ (paper §3.2),
+
+    s = sqrt(K_ICR)(ξ)  with  <s sᵀ> ≈ K_XX.
+
+ξ is a list of tensors, one per level:
+  ξ[0]: (prod(shape0),)           — exact coarse-grid excitation
+  ξ[l]: (F_l, n_fsz^d), l=1..L    — per-family fine corrections
+with a leading sample dim on every level for the batched entry points.
+
+With ``use_pallas=True`` every level runs on its kernel route
+(``repro_torch.kernels.dispatch``); otherwise on the plain torch path with
+the joint matrices. Tensors live on ``device`` (``"cuda"`` by default).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.policy import cast_tree, resolve
+
+from .charts import Chart
+from .kernels import Kernel
+from .refine import (
+    LevelGeom,
+    axis_refinement_matrices_level,
+    level0_sqrt,
+    refine_level,
+    refinement_matrices_level,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ICR:
+    """Iterative Charted Refinement model over `chart` with `kernel`.
+
+    ``dtype_policy``: ``None`` keeps everything float32; ``"bf16"`` (or a
+    ``DtypePolicy``) stores fields, ξ and matrices in bfloat16 with f32
+    accumulation. ``use_pallas`` selects the kernel route. ``use_pyramid``,
+    the JAX package's multi-level prefix kernel, is not ported yet.
+    """
+
+    chart: Chart
+    kernel: Kernel
+    jitter: float = 1e-6
+    use_pallas: bool = False
+    dtype_policy: object = None
+    use_pyramid: bool = False
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.use_pyramid:
+            raise NotImplementedError(
+                "the pyramid prefix kernel is not ported yet: it needs a "
+                "Hopper cover rule first (ROADMAP queue 2, kernel 6); use "
+                "use_pyramid=False")
+
+    @property
+    def policy(self):
+        """The resolved DtypePolicy (fp32 when ``dtype_policy`` is None)."""
+        return resolve(self.dtype_policy)
+
+    # -- shapes ---------------------------------------------------------------
+    def xi_shapes(self) -> List[tuple]:
+        nd = self.chart.ndim
+        shapes = [(int(np.prod(self.chart.shape0)),)]
+        for lvl in range(self.chart.n_levels):
+            t = tuple(self.chart.family_count(lvl, a) for a in range(nd))
+            shapes.append((int(np.prod(t)), self.chart.n_fsz**nd))
+        return shapes
+
+    def xi_size(self) -> int:
+        return sum(int(np.prod(s)) for s in self.xi_shapes())
+
+    @property
+    def out_shape(self) -> tuple:
+        return self.chart.final_shape
+
+    # -- excitations ------------------------------------------------------------
+    def init_xi(self, gen: torch.Generator | None = None, dtype=None, *,
+                batch: int | None = None) -> List[torch.Tensor]:
+        """Standard-normal excitations drawn from `gen` (a generator on
+        ``device``); ``batch`` prepends a sample dim to every level.
+        ``dtype`` defaults to the policy's storage dtype."""
+        dtype = self.policy.storage_dtype if dtype is None else dtype
+        lead = () if batch is None else (batch,)
+        return [torch.randn(lead + s, generator=gen, device=self.device,
+                            dtype=torch.float32).to(dtype)
+                for s in self.xi_shapes()]
+
+    def zero_xi(self, dtype=None) -> List[torch.Tensor]:
+        dtype = self.policy.storage_dtype if dtype is None else dtype
+        return [torch.zeros(s, dtype=dtype, device=self.device)
+                for s in self.xi_shapes()]
+
+    # -- matrices (functions of theta) ----------------------------------------
+    def matrices(self, theta: Mapping | None = None, *,
+                 joint: bool | None = None, axes: bool | None = None) -> dict:
+        """Refinement matrices for kernel parameters θ (paper Eq. 7/8).
+
+        ``axes`` adds the per-axis Kronecker factors of the N-D kernel
+        route (default: ``use_pallas`` on an N-D chart); ``joint`` builds
+        the joint per-level matrices (default: exactly when the factors are
+        not built — a joint N-D build is ``n_csz^{3d}`` per family). The
+        math runs in float32; the result is cast to the storage dtype.
+        """
+        build_axes = (self.use_pallas and self.chart.ndim > 1
+                      if axes is None else axes)
+        build_joint = (not build_axes) if joint is None else joint
+        k = self.kernel(theta)
+        kw = dict(jitter=self.jitter, device=self.device)
+        out = {"sqrt0": level0_sqrt(self.chart, k, **kw)}
+        levels = range(self.chart.n_levels)
+        if build_joint:
+            pairs = [refinement_matrices_level(self.chart, k, lvl, **kw)
+                     for lvl in levels]
+            out["R"] = [p[0] for p in pairs]
+            out["sqrtD"] = [p[1] for p in pairs]
+        if build_axes:
+            pairs = [axis_refinement_matrices_level(self.chart, k, lvl, **kw)
+                     for lvl in levels]
+            out["Rax"] = [p[0] for p in pairs]
+            out["sqrtDax"] = [p[1] for p in pairs]
+        pol = self.policy
+        if pol.storage_dtype != torch.float32:
+            out = pol.cast_storage(out)
+        return out
+
+    @staticmethod
+    def _theta_key(theta: Mapping | None):
+        """Hashable fingerprint of θ."""
+        if theta is None:
+            return ()
+        items = []
+        for name in sorted(theta):
+            v = theta[name]
+            a = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v))
+            items.append((name, a.dtype.str, a.shape, a.tobytes()))
+        return tuple(items)
+
+    def matrices_cached(self, theta: Mapping | None = None, *,
+                        joint: bool | None = None,
+                        axes: bool | None = None) -> dict:
+        """``matrices()`` behind a per-instance LRU cache keyed on θ (the
+        instance pins chart, dtype policy and device). Hits return the
+        same dict: treat it as read-only."""
+        key = (self._theta_key(theta), joint, axes)
+        cache = self.__dict__.get("_mats_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_mats_cache", cache)
+            object.__setattr__(self, "matrices_cache_stats",
+                               {"hits": 0, "misses": 0})
+        hit = cache.pop(key, None)
+        if hit is not None:
+            self.matrices_cache_stats["hits"] += 1
+            cache[key] = hit  # re-insert: LRU order
+            return hit
+        self.matrices_cache_stats["misses"] += 1
+        out = cache[key] = self.matrices(theta, joint=joint, axes=axes)
+        while len(cache) > 8:  # bound: don't pin every historical θ's mats
+            cache.pop(next(iter(cache)))
+        return out
+
+    # -- forward --------------------------------------------------------------
+    def _refine_levels(self, mats: dict, xi: Sequence[torch.Tensor],
+                       field: torch.Tensor) -> torch.Tensor:
+        """Every refinement level on a batch of fields (S, *shape0)."""
+        if not self.use_pallas:
+            for lvl in range(self.chart.n_levels):
+                geom = LevelGeom.for_level(self.chart, lvl)
+                r, d = mats["R"][lvl], mats["sqrtD"][lvl]
+                field = torch.stack([refine_level(f, x, r, d, geom)
+                                     for f, x in zip(field, xi[lvl + 1])])
+            return field
+
+        from repro_torch.kernels import dispatch
+
+        pol = self.policy if self.dtype_policy is not None else None
+        if pol is not None:
+            field = field.to(pol.storage_dtype)
+        for lvl in range(self.chart.n_levels):
+            geom = LevelGeom.for_level(self.chart, lvl)
+            axis_mats = ((mats["Rax"][lvl], mats["sqrtDax"][lvl])
+                         if "Rax" in mats else None)
+            r = mats["R"][lvl] if "R" in mats else None
+            d = mats["sqrtD"][lvl] if "sqrtD" in mats else None
+            field = dispatch.refine(field, xi[lvl + 1], r, d, geom,
+                                    axis_mats=axis_mats, sample_axis=True,
+                                    policy=pol)
+        return field
+
+    def apply_sqrt(self, mats: dict,
+                   xi: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Apply sqrt(K_ICR) to ξ (paper Alg. 1); the finest field."""
+        return self.apply_sqrt_batch(mats, [x[None] for x in xi])[0]
+
+    def apply_sqrt_batch(self, mats: dict,
+                         xi: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Apply sqrt(K_ICR) to a batch of excitations: ξ with a leading
+        sample dim S on every level -> (S, *final_shape). On the kernel
+        route the sample dim runs inside the kernels."""
+        n_s = xi[0].shape[0]
+        field = torch.matmul(xi[0], mats["sqrt0"].T).reshape(
+            (n_s,) + self.chart.shape0)
+        return self._refine_levels(mats, xi, field)
+
+    def sample_batch(self, gen: torch.Generator | None, n: int, theta=None,
+                     dtype=None) -> torch.Tensor:
+        """Draw ``n`` approximate GP samples in one batched application —
+        (n, *final_shape)."""
+        return self.apply_sqrt_batch(self.matrices(theta),
+                                     self.init_xi(gen, dtype, batch=n))
+
+    # -- diagnostics ----------------------------------------------------------
+    def implicit_sqrt(self, theta=None,
+                      dtype=torch.float32) -> torch.Tensor:
+        """Dense sqrt(K_ICR) as an (N, n_xi) matrix: the map is linear in
+        ξ, so it is the batched apply of the identity basis. Small N only."""
+        mats = cast_tree(self.matrices(theta), dtype)
+        n_xi = self.xi_size()
+        eye = torch.eye(n_xi, dtype=dtype, device=self.device)
+        xs, o = [], 0
+        for s in self.xi_shapes():
+            n = int(np.prod(s))
+            xs.append(eye[:, o : o + n].reshape((n_xi,) + s))
+            o += n
+        return self.apply_sqrt_batch(mats, xs).reshape(n_xi, -1).T
+
+    def implicit_cov(self, theta=None, dtype=torch.float32) -> torch.Tensor:
+        """Dense K_ICR = sqrt(K_ICR) sqrt(K_ICR)ᵀ (paper Fig. 3)."""
+        a = self.implicit_sqrt(theta, dtype)
+        return a @ a.T

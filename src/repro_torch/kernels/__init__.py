@@ -1,0 +1,22 @@
+"""Hand-written CUDA kernels of the refinement levels, for Hopper.
+
+  icr_refine.py — 1-D forward levels, stationary and charted
+                  (csrc/refine_1d.cu)
+  nd_fused.py   — one launch per 2-D/3-D level (csrc/nd_fused.cu)
+  dispatch.py   — route per level, and ``plan()``
+  policy.py     — storage/accumulation dtype policy
+  ref.py        — plain PyTorch oracles the kernels are held against
+  build.py      — nvcc build, ctypes loading, launch counters
+
+Importing this package builds nothing: a kernel is compiled at its first
+launch (or by ``build.build()``).
+"""
+from . import build, dispatch, nd_fused, policy, ref
+from .icr_refine import refine_charted, refine_stationary
+from .nd_fused import refine_nd_fused
+from .policy import BF16, FP32, DtypePolicy
+
+__all__ = [
+    "build", "dispatch", "nd_fused", "policy", "ref", "refine_charted",
+    "refine_stationary", "refine_nd_fused", "BF16", "FP32", "DtypePolicy",
+]

@@ -1,0 +1,205 @@
+"""The fused N-D forward refinement level (nd = 2 and 3).
+
+One launch of ``csrc/nd_fused.cu`` computes a whole N-D level with the
+per-axis Kronecker factors: it contracts the trailing axes ``d-1..1`` with
+their factors ``R_a`` (shared, or per family on a charted axis), then
+axis 0 with ``R_0``, adds ``sqrtD_0 · ξ0`` and writes the fine field once.
+It replaces the JAX package's ``_nd_fused_kernel``. The noise factors of
+axes ``1..d-1`` are contracted into ξ beforehand (``prepare_xi0``), and the
+reflect padding is done before the launch; both are plain torch glue, as
+in the JAX package.
+
+On CPU tensors the plain version ``refine_nd_fused_plain`` runs instead;
+a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.refine import LevelGeom, reflect_pad
+
+from . import build
+from .ref import accum_dtype_for, windows_1d
+
+__all__ = ["refine_nd_fused", "refine_nd_fused_core", "refine_nd_fused_plain",
+           "nd_operands", "precontract_noise", "prepare_xi0", "nd_tile"]
+
+# shared memory a block may take; the H100 allows 227 KB, the rest is
+# headroom so that two blocks can share an SM
+_SMEM_BUDGET = 110 * 1024
+
+
+def precontract_noise(xi_nd, ds, *, off: int, accum) -> torch.Tensor:
+    """Contract the trailing-axis noise factors ``sqrt(D_a)``, a >= 1, into
+    the ``(..., T_0..T_{d-1}, f_0..f_{d-1})`` excitation tensor (``off``
+    leading sample dims). Only the axis-0 stage adds noise in the kernel."""
+    nd = (xi_nd.ndim - off) // 2
+    xi_nd = xi_nd.to(accum)
+    for a in range(1, nd):
+        x2 = torch.movedim(xi_nd, (off + a, off + nd + a), (-2, -1))
+        eq = "...tj,fj->...tf" if ds[a].ndim == 2 else "...tj,tfj->...tf"
+        x2 = torch.einsum(eq, x2, ds[a].to(accum))
+        xi_nd = torch.movedim(x2, (-2, -1), (off + a, off + nd + a))
+    return xi_nd
+
+
+def prepare_xi0(xi, ds, T: tuple, fsz: int, *, accum, storage):
+    """``(S, prod T, fsz^d)`` ξ -> the kernel layout ``(S, T_0·fsz,
+    prod_f)``, trailing noise contracted, rounded to the storage dtype."""
+    nd = len(T)
+    n_s = xi.shape[0]
+    xi_nd = precontract_noise(
+        xi.reshape((n_s,) + tuple(T) + (fsz,) * nd), ds, off=1, accum=accum)
+    perm = [0, 1, 1 + nd]
+    for a in range(1, nd):
+        perm += [1 + a, 1 + nd + a]
+    return (xi_nd.permute(perm).reshape(n_s, T[0] * fsz, -1)
+            .to(storage).contiguous())
+
+
+def refine_nd_fused_plain(field, xi0, r0, d0, rts, T) -> torch.Tensor:
+    """Plain version of the kernel on the same operands.
+
+    field: (S, L_0, ..., L_{d-1}) padded coarse field; xi0: (S, T_0·fsz,
+    prod_f); r0/d0: axis-0 factors, shared or per family; rts: trailing
+    factors R_1..R_{d-1} -> (S, T_0·fsz, prod_f). Trailing stages stay in
+    the accumulation dtype; the result is rounded once.
+    """
+    nd = field.ndim - 1
+    fsz, csz = r0.shape[-2], r0.shape[-1]
+    s = fsz // 2
+    acc = accum_dtype_for(field, xi0)
+    x = field.to(acc)
+    for a in range(nd - 1, 0, -1):
+        arr = torch.movedim(x, 1 + a, -1)
+        w = windows_1d(arr, T[a], csz, s)
+        r = rts[a - 1].to(acc)
+        eq = "...tc,tfc->...tf" if r.ndim == 3 else "...tc,fc->...tf"
+        fine = torch.einsum(eq, w, r).reshape(arr.shape[:-1] + (T[a] * fsz,))
+        x = torch.movedim(fine, -1, 1 + a)
+    n_s = x.shape[0]
+    prod_f = xi0.shape[2]
+    arr = torch.movedim(x, 1, -1)                   # (S, *F_trail, L_0)
+    w = windows_1d(arr, T[0], csz, s)
+    eq = "...tc,tfc->...tf" if r0.ndim == 3 else "...tc,fc->...tf"
+    fine = torch.einsum(eq, w, r0.to(acc))          # (S, *F_trail, T0, fsz)
+    fine = fine.reshape(n_s, prod_f, T[0], fsz).permute(0, 2, 3, 1)
+    xi3 = xi0.to(acc).reshape(n_s, T[0], fsz, prod_f)
+    eq = "stjp,tfj->stfp" if d0.ndim == 3 else "stjp,fj->stfp"
+    fine = fine + torch.einsum(eq, xi3, d0.to(acc))
+    return fine.reshape(n_s, T[0] * fsz, prod_f).to(field.dtype)
+
+
+def _smem_floats(tile, T, nd, csz, fsz, charted) -> int:
+    """Shared memory (floats) of one block of ``nd_fused.cu`` (its host
+    formula, for the 3-box with a unit middle axis on 2-D levels)."""
+    s = fsz // 2
+    b = tile if nd == 3 else (tile[0], 1, tile[1])
+    ch = charted if nd == 3 else (charted[0], False, charted[1])
+    e = [(b[0] - 1) * s + csz, (b[1] - 1) * s + csz if nd == 3 else 1,
+         (b[2] - 1) * s + csz]
+    g1 = b[1] * fsz if nd == 3 else 1
+    g2 = b[2] * fsz
+    n = max(e[0] * e[1] * e[2], e[0] * g1 * g2) + e[0] * e[1] * g2
+    n += (b[0] if ch[0] else 1) * (fsz * csz + fsz * fsz)
+    n += (b[1] if ch[1] else 1) * fsz * csz if nd == 3 else 0
+    n += (b[2] if ch[2] else 1) * fsz * csz
+    return n
+
+
+def nd_tile(T: tuple, csz: int, fsz: int, charted: tuple) -> tuple:
+    """Families per block on each axis: about 16K fine outputs per block
+    (4x8x8 families at n_fsz=4 in 3-D), clipped to the level and halved
+    along the largest axis until the block fits the shared budget."""
+    nd = len(T)
+    if nd == 3:
+        tile = [4, 8, 8] if fsz >= 4 else [8, 16, 16]
+    else:
+        tile = [16, 64] if fsz >= 4 else [32, 128]
+    tile = [max(1, min(b, t)) for b, t in zip(tile, T)]
+    while _smem_floats(tile, T, nd, csz, fsz, charted) * 4 > _SMEM_BUDGET:
+        a = max(range(nd), key=lambda i: tile[i])
+        if tile[a] == 1:
+            raise ValueError(f"no tile of {T} fits shared memory")
+        tile[a] //= 2
+    return tuple(tile)
+
+
+def refine_nd_fused_core(field, xi0, r0, d0, rts, T) -> torch.Tensor:
+    """The kernel on prepared operands (see ``nd_operands``): launches
+    ``nd_fused.cu`` on CUDA tensors, runs ``refine_nd_fused_plain`` on CPU
+    tensors. -> (S, T_0·fsz, prod_f)."""
+    build.forbid_grad(field, xi0, r0, d0, *rts)
+    if field.device.type == "cpu":
+        return refine_nd_fused_plain(field, xi0, r0, d0, rts, T)
+    nd = field.ndim - 1
+    if nd not in (2, 3):
+        raise ValueError(f"the fused N-D kernel takes 2-D and 3-D levels, "
+                         f"not {nd}-D")
+    build.check_operands(field=field, xi0=xi0, r0=r0, d0=d0,
+                         **{f"r{a + 1}": r for a, r in enumerate(rts)})
+    fsz, csz = r0.shape[-2], r0.shape[-1]
+    s = fsz // 2
+    n_s = field.shape[0]
+    prod_f = 1
+    for a in range(1, nd):
+        prod_f *= T[a] * fsz
+    if tuple(xi0.shape) != (n_s, T[0] * fsz, prod_f):
+        raise ValueError(f"xi0 {tuple(xi0.shape)} does not match T={T}")
+    for a in range(nd):
+        if field.shape[1 + a] < (T[a] - 1) * s + csz:
+            raise ValueError(f"field axis {a} too short for {T[a]} families")
+    charted = (r0.ndim == 3,) + tuple(r.ndim == 3 for r in rts)
+    if n_s > 65535:
+        raise ValueError(f"{n_s} samples exceed the launch grid")
+    tile = nd_tile(T, csz, fsz, charted)
+    out = torch.empty_like(xi0)
+    if nd == 3:
+        L, TT, B = field.shape[1:], T, tile
+        r1, r2, ch1, ch2 = rts[0], rts[1], charted[1], charted[2]
+    else:
+        L = (field.shape[1], 1, field.shape[2])
+        TT, B = (T[0], 1, T[1]), (tile[0], 1, tile[1])
+        r1, r2, ch1, ch2 = None, rts[0], False, charted[1]
+    build.launch("nd_fused", field.device, build.dtype_code(field.dtype),
+                 field.data_ptr(), xi0.data_ptr(), r0.data_ptr(),
+                 d0.data_ptr(), None if r1 is None else r1.data_ptr(),
+                 r2.data_ptr(), out.data_ptr(), n_s, *L, *TT, csz, fsz,
+                 int(charted[0]), int(ch1), int(ch2), *B, int(nd == 3))
+    build.LAUNCHES["refine_nd_fused"] += 1
+    return out
+
+
+def nd_operands(field, xi, rs, ds, geom: LevelGeom, *,
+                sample_axis: bool = False) -> tuple:
+    """The torch glue before the kernel: ξ to the kernel layout with the
+    trailing noise contracted, and the reflect padding. Returns the
+    arguments of ``refine_nd_fused_core``."""
+    nd = len(geom.coarse_shape)
+    if nd < 2:
+        raise ValueError("refine_nd_fused needs an N-D level (ndim >= 2)")
+    fsz, T = geom.n_fsz, tuple(geom.T)
+    if not sample_axis:
+        field, xi = field[None], xi[None]
+    xi0 = prepare_xi0(xi, ds, T, fsz, accum=accum_dtype_for(field, xi),
+                      storage=field.dtype)
+    if geom.boundary == "reflect":
+        field = reflect_pad(field, geom.b, nd)
+    rts = tuple(rs[a].contiguous() for a in range(1, nd))
+    return (field.contiguous(), xi0, rs[0].contiguous(), ds[0].contiguous(),
+            rts, T)
+
+
+def refine_nd_fused(field, xi, rs, ds, geom: LevelGeom, *,
+                    sample_axis: bool = False) -> torch.Tensor:
+    """One fused launch for a whole N-D refinement level.
+
+    field: (*coarse_shape) or (S, *coarse_shape); xi: (prod(T), n_fsz^d)
+    or (S, prod(T), n_fsz^d); rs[a]/ds[a]: per-axis factors from
+    ``axis_refinement_matrices_level``. Returns the fine field,
+    (*fine_shape) or (S, *fine_shape).
+    """
+    out = refine_nd_fused_core(*nd_operands(field, xi, rs, ds, geom,
+                                            sample_axis=sample_axis))
+    out = out.reshape(out.shape[:1] + tuple(geom.fine_shape))
+    return out if sample_axis else out[0]

@@ -1,0 +1,124 @@
+"""Plain PyTorch oracles of the refinement kernels.
+
+The ground truth every kernel is held against, on the CPU in the tests and
+on the card in ``chip_smoke.py``. They follow the kernels' calling
+conventions:
+
+* 1-D refinement over the last axis, with any leading batch dims (samples,
+  or chart-invariant axes folded into the batch, paper §4.3).
+* The coarse input is already halo-padded: family ``t`` reads
+  ``coarse[..., t*s : t*s + n_csz]`` with ``s = n_fsz//2``.
+
+Accumulation follows the kernels: storage narrower than float32 is
+upcast, the math runs in float32 (float64 stays float64), and the result
+is rounded to the storage dtype once.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def accum_dtype_for(*arrs) -> torch.dtype:
+    """float32 for sub-f32 storage (bf16/f16), else the storage dtype."""
+    dt = arrs[0].dtype
+    for a in arrs[1:]:
+        if a is not None:
+            dt = torch.promote_types(dt, a.dtype)
+    return torch.float32 if dt.itemsize < 4 else dt
+
+
+def coarse_len(t: int, n_csz: int, n_fsz: int) -> int:
+    """Halo-padded coarse length the JAX kernels' layout uses for T
+    families (the port's kernels need only ``(t-1)*s + n_csz``)."""
+    s = n_fsz // 2
+    return t * s + (n_csz - s)
+
+
+def windows_1d(coarse: torch.Tensor, t: int, n_csz: int,
+               s: int) -> torch.Tensor:
+    """(..., T, n_csz) family windows of a (..., L) coarse array:
+    window t is ``coarse[..., t*s : t*s + n_csz]``."""
+    return coarse[..., : (t - 1) * s + n_csz].unfold(-1, n_csz, s)
+
+
+def refine_stationary_ref(coarse, xi, r, sqrt_d=None):
+    """Stationary refinement (paper Eq. 11–12), one shared stencil.
+
+    coarse: (..., L) halo-padded; xi: (..., T, n_fsz) or None (noise-free,
+    T then recovered from L); r: (n_fsz, n_csz); sqrt_d: (n_fsz, n_fsz)
+    -> fine (..., T * n_fsz)
+    """
+    n_fsz, n_csz = r.shape
+    s = n_fsz // 2
+    t = xi.shape[-2] if xi is not None else (coarse.shape[-1] - n_csz) // s + 1
+    acc = accum_dtype_for(coarse, xi, r)
+    w = windows_1d(coarse.to(acc), t, n_csz, s)
+    fine = torch.einsum("...tc,fc->...tf", w, r.to(acc))
+    if xi is not None:
+        fine = fine + torch.einsum("...tj,fj->...tf", xi.to(acc),
+                                   sqrt_d.to(acc))
+    return fine.reshape(*fine.shape[:-2], t * n_fsz).to(coarse.dtype)
+
+
+def refine_charted_ref(coarse, xi, r, sqrt_d=None):
+    """Charted (non-stationary) refinement, per-family matrices (§4.3).
+
+    coarse: (..., L) halo-padded; xi: (..., T, n_fsz) or None;
+    r: (T, n_fsz, n_csz); sqrt_d: (T, n_fsz, n_fsz) -> fine (..., T*n_fsz)
+    """
+    t, n_fsz, n_csz = r.shape
+    s = n_fsz // 2
+    acc = accum_dtype_for(coarse, xi, r)
+    w = windows_1d(coarse.to(acc), t, n_csz, s)
+    fine = torch.einsum("...tc,tfc->...tf", w, r.to(acc))
+    if xi is not None:
+        fine = fine + torch.einsum("...tj,tfj->...tf", xi.to(acc),
+                                   sqrt_d.to(acc))
+    return fine.reshape(*fine.shape[:-2], t * n_fsz).to(coarse.dtype)
+
+
+def refine_axes_ref(field, xi, rs, ds, *, T, n_fsz: int,
+                    boundary: str = "shrink", b: int = 1):
+    """Separable N-D refinement oracle: per-axis 1-D passes.
+
+    Applies ``fine = (R_0 ⊗ … ⊗ R_{d-1}) windows(coarse)
+    + (D_0 ⊗ … ⊗ D_{d-1}) xi`` as 1-D passes over axes d-1..0, the other
+    axes folded into the batch. Only the axis-0 pass injects ξ; the noise
+    factors of the other axes are contracted into it first. Each pass
+    rounds to the storage dtype.
+
+    field: (*coarse_shape); xi: (prod(T), n_fsz^d); rs[a]: (n_fsz, n_csz)
+    shared or (T_a, n_fsz, n_csz) per family; ds[a] likewise.
+    -> fine (T_0*n_fsz, ..., T_{d-1}*n_fsz)
+    """
+    nd = field.ndim
+    T = tuple(T)
+    fsz = n_fsz
+    acc = accum_dtype_for(field, xi)
+    xi_nd = xi.reshape(T + (fsz,) * nd).to(acc)
+    for a in range(1, nd):
+        x2 = torch.movedim(xi_nd, (a, nd + a), (-2, -1))
+        eq = "...tj,fj->...tf" if ds[a].ndim == 2 else "...tj,tfj->...tf"
+        x2 = torch.einsum(eq, x2, ds[a].to(acc))
+        xi_nd = torch.movedim(x2, (-2, -1), (a, nd + a))
+    perm = []
+    for a in range(1, nd):
+        perm += [a, nd + a]
+    perm += [0, nd]
+    xi0 = xi_nd.permute(perm).reshape(-1, T[0], fsz).to(field.dtype)
+
+    out = field
+    for a in range(nd - 1, -1, -1):
+        arr = torch.movedim(out, a, -1)
+        bshape = arr.shape[:-1]
+        coarse = arr.reshape(-1, arr.shape[-1])
+        if boundary == "reflect":
+            coarse = torch.nn.functional.pad(coarse[None], (b, b),
+                                             mode="reflect")[0]
+        xi_a = (xi0 if a == 0 else
+                torch.zeros((coarse.shape[0], T[a], fsz), dtype=coarse.dtype,
+                            device=coarse.device))
+        fn = refine_stationary_ref if rs[a].ndim == 2 else refine_charted_ref
+        res = fn(coarse, xi_a, rs[a], ds[a])
+        out = torch.movedim(res.reshape(bshape + (T[a] * fsz,)), -1, a)
+    return out

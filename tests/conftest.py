@@ -40,3 +40,5 @@ def key():
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
     config.addinivalue_line("markers", "x64: requires float64")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; skips without a CUDA card")

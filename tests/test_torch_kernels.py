@@ -1,0 +1,300 @@
+"""The port's kernel modules held against the JAX package's kernels.
+
+Each kernel module of ``repro_torch.kernels`` — 1-D stationary, 1-D
+charted, fused N-D level, and the dispatch around them — runs here on CPU
+tensors, i.e. through its plain version, and is held against the JAX
+package's Pallas kernel run in interpret mode on the same numpy-seeded
+operands. Tolerances are the JAX package's own (DESIGN.md §11), relative
+to the largest magnitude: 1e-5 at float32, 5e-2 with bfloat16 storage and
+float32 accumulation.
+
+The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``
+holds them against the plain versions there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import charts as jcharts
+from repro.core import kernels as jkernels
+from repro.core import refine as jrefine
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import nd_fused as jnd
+from repro.kernels import ref as jref
+from repro.kernels.icr_refine import (
+    refine_charted_pallas,
+    refine_stationary_pallas,
+)
+from repro_torch.convert import to_torch
+from repro_torch.core import charts as tcharts
+from repro_torch.core import refine as trefine
+from repro_torch.kernels import build, dispatch, icr_refine, nd_fused, ref
+
+TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def t2n(t):
+    return t.detach().float().cpu().numpy()
+
+
+def j2n(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def pair(arr, dname):
+    """The same numpy array as a JAX array and a torch tensor of dtype."""
+    jdt, tdt = DTYPES[dname]
+    j = jnp.asarray(arr, jdt)
+    return j, to_torch(np.asarray(j)).to(tdt)
+
+
+def _1d_operands(rng, *, batch, t, n_csz, n_fsz, charted):
+    s = n_fsz // 2
+    lead = (t,) if charted else ()
+    return (rng.normal(size=(batch, (t - 1) * s + n_csz)),
+            rng.normal(size=(batch, t, n_fsz)),
+            rng.normal(size=lead + (n_fsz, n_csz)) / n_csz,
+            rng.normal(size=lead + (n_fsz, n_fsz)) / n_fsz)
+
+
+# -- 1-D levels --------------------------------------------------------------------
+@pytest.mark.parametrize("dname", sorted(TOL))
+@pytest.mark.parametrize("charted", [False, True], ids=["stationary",
+                                                        "charted"])
+@pytest.mark.parametrize("n_csz,n_fsz", [(3, 2), (5, 4)])
+def test_1d_plain_matches_reference_kernel(n_csz, n_fsz, charted, dname):
+    """refine_stationary / refine_charted (CPU: the plain version) against
+    the Pallas kernels in interpret mode, at a family count that is not a
+    multiple of the reference's block."""
+    rng = np.random.default_rng([n_csz, int(charted)])
+    ops = _1d_operands(rng, batch=3, t=37, n_csz=n_csz, n_fsz=n_fsz,
+                       charted=charted)
+    jops, tops = zip(*(pair(a, dname) for a in ops))
+    kern = refine_charted_pallas if charted else refine_stationary_pallas
+    want = kern(*jops, n_csz=n_csz, n_fsz=n_fsz, block_families=16,
+                batch_block=2, interpret=True)
+    port = icr_refine.refine_charted if charted else \
+        icr_refine.refine_stationary
+    got = port(*tops)
+    assert got.dtype == tops[0].dtype
+    assert tuple(got.shape) == tuple(want.shape)
+    assert rel(t2n(got), j2n(want)) < TOL[dname]
+
+
+def test_windows_and_coarse_len_match_reference():
+    x = np.arange(2 * 23, dtype=np.float32).reshape(2, 23)
+    for t, n_csz, n_fsz in [(10, 5, 4), (21, 3, 2)]:
+        s = n_fsz // 2
+        np.testing.assert_array_equal(
+            t2n(ref.windows_1d(torch.from_numpy(x), t, n_csz, s)),
+            np.asarray(jref.windows_1d(jnp.asarray(x), t, n_csz, s)))
+        assert ref.coarse_len(t, n_csz, n_fsz) == jref.coarse_len(
+            t, n_csz, n_fsz)
+
+
+@pytest.mark.parametrize("boundary", ["shrink", "reflect"])
+def test_refine_axes_oracle_matches_reference(boundary):
+    """The separable N-D oracle of ref.py, with a charted axis 0."""
+    c = jcharts.galactic_dust_chart((6, 8, 8), 1, boundary=boundary)
+    k = jkernels.matern32.with_defaults(rho=0.5)()
+    geom = jrefine.LevelGeom.for_level(c, 0)
+    rs, ds = jax.jit(lambda: jrefine.axis_refinement_matrices_level(
+        c, k, 0))()
+    rng = np.random.default_rng(4)
+    field = rng.normal(size=geom.coarse_shape).astype(np.float32)
+    xi = rng.normal(size=(int(np.prod(geom.T)), 64)).astype(np.float32)
+    kw = dict(T=geom.T, n_fsz=geom.n_fsz, boundary=boundary, b=geom.b)
+    want = jref.refine_axes_ref(jnp.asarray(field), jnp.asarray(xi), rs, ds,
+                                **kw)
+    got = ref.refine_axes_ref(torch.from_numpy(field), torch.from_numpy(xi),
+                              to_torch([np.asarray(r) for r in rs]),
+                              to_torch([np.asarray(d) for d in ds]), **kw)
+    assert rel(t2n(got), want) < TOL["float32"]
+
+
+# -- fused N-D level ---------------------------------------------------------------
+def _nd_level(c, k, lvl, rng, n_s=2):
+    geom = jrefine.LevelGeom.for_level(c, lvl)
+    rs, ds = jax.jit(lambda: jrefine.axis_refinement_matrices_level(
+        c, k, lvl))()
+    field = rng.normal(size=(n_s,) + geom.coarse_shape)
+    xi = rng.normal(size=(n_s, int(np.prod(geom.T)),
+                          geom.n_fsz ** len(geom.T)))
+    return geom, [np.asarray(r) for r in rs], [np.asarray(d) for d in ds], \
+        field, xi
+
+
+def _nd_check(geom, rs, ds, field, xi, dname):
+    jf, tf = pair(field, dname)
+    jx, tx = pair(xi, dname)
+    jrs, trs = zip(*(pair(r, dname) for r in rs))
+    jds, tds = zip(*(pair(d, dname) for d in ds))
+    want = jnd.refine_nd_fused(jf, jx, list(jrs), list(jds), geom,
+                               interpret=True, sample_axis=True)
+    got = nd_fused.refine_nd_fused(
+        tf, tx, list(trs), list(tds),
+        trefine.LevelGeom(**geom.__dict__), sample_axis=True)
+    assert got.dtype == tf.dtype
+    assert tuple(got.shape) == tuple(want.shape)
+    assert rel(t2n(got), j2n(want)) < TOL[dname]
+
+
+@pytest.mark.parametrize("dname", sorted(TOL))
+def test_nd_fused_plain_matches_reference_kernel_on_dust(dname):
+    """galactic_dust_chart((6,8,8), 2): charted log-r axis 0, shared
+    angular factors, reflect boundary; every level."""
+    c = jcharts.galactic_dust_chart((6, 8, 8), 2)
+    k = jkernels.matern32.with_defaults(rho=0.5)()
+    rng = np.random.default_rng(5)
+    for lvl in range(c.n_levels):
+        _nd_check(*_nd_level(c, k, lvl, rng), dname)
+
+
+@pytest.mark.parametrize("dname", sorted(TOL))
+def test_nd_fused_plain_with_charted_trailing_axes(dname):
+    """2-D shrink and 3-D levels whose trailing axes carry per-family
+    factors (random matrices: the kernel math is linear in them)."""
+    rng = np.random.default_rng(6)
+    for c in (jcharts.regular_chart((12, 14), 1),
+              jcharts.regular_chart((8, 10, 12), 1, n_csz=5, n_fsz=4)):
+        geom = jrefine.LevelGeom.for_level(c, 0)
+        f, cs = geom.n_fsz, geom.n_csz
+        rs = [rng.normal(size=(t, f, cs)) / cs for t in geom.T]
+        ds = [rng.normal(size=(t, f, f)) / f for t in geom.T]
+        rs[0], ds[0] = rs[0][0], ds[0][0]          # shared axis 0
+        field = rng.normal(size=(2,) + geom.coarse_shape)
+        xi = rng.normal(size=(2, int(np.prod(geom.T)), f ** len(geom.T)))
+        _nd_check(geom, rs, ds, field, xi, dname)
+
+
+def test_nd_fused_single_field_without_sample_axis():
+    c = tcharts.regular_chart((10, 10), 1, boundary="reflect")
+    geom = trefine.LevelGeom.for_level(c, 0)
+    g = torch.Generator().manual_seed(0)
+    rs = [torch.randn(2, 3, generator=g), torch.randn(2, 3, generator=g)]
+    ds = [torch.randn(2, 2, generator=g), torch.randn(2, 2, generator=g)]
+    field = torch.randn(10, 10, generator=g)
+    xi = torch.randn(100, 4, generator=g)
+    one = nd_fused.refine_nd_fused(field, xi, rs, ds, geom)
+    batch = nd_fused.refine_nd_fused(field[None], xi[None], rs, ds, geom,
+                                     sample_axis=True)
+    assert tuple(one.shape) == geom.fine_shape
+    torch.testing.assert_close(one, batch[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,fsz,csz,charted", [
+    ((16, 32, 32), 4, 5, (True, False, False)),    # flagship, last level
+    ((32, 64, 64), 4, 5, (True, False, False)),    # dust, 4 levels
+    ((3, 4, 4), 4, 5, (True, False, False)),
+    ((512, 512), 2, 3, (False, False)),
+    ((40, 70), 2, 3, (True, True)),
+    ((64, 64, 64), 2, 3, (True, True, True)),
+])
+def test_nd_tile_fits_shared_memory(T, fsz, csz, charted):
+    tile = nd_fused.nd_tile(T, csz, fsz, charted)
+    assert all(1 <= b <= t for b, t in zip(tile, T))
+    floats = nd_fused._smem_floats(tile, T, len(T), csz, fsz, charted)
+    assert floats * 4 <= nd_fused._SMEM_BUDGET
+
+
+def test_block_shape_1d():
+    assert icr_refine.block_shape_1d(8, 524288, 2) == (256, 8)
+    bf, bb = icr_refine.block_shape_1d(8, 1000, 4)
+    assert bf == 128 and bb == 1
+    assert icr_refine.block_shape_1d(1, 3, 2)[1] == 1
+
+
+# -- dispatch ----------------------------------------------------------------------
+@pytest.mark.parametrize("build_chart,route,n", [
+    (lambda m: m.galactic_dust_chart((8, 16, 16), 3), "nd-fused", 3),
+    (lambda m: m.regular_chart(1024, 10, boundary="reflect"),
+     "stationary-1d", 10),
+    (lambda m: m.log_chart(1024, 8, n_csz=5, n_fsz=4, delta0=0.0197 / 16),
+     "charted-1d", 8),
+    (lambda m: m.regular_chart((32, 32), 2, boundary="reflect"),
+     "nd-fused", 2),
+])
+def test_plan_routes_match_reference(build_chart, route, n):
+    """The routes of the serving charts; the JAX package's per-level
+    routes (pyramid off) agree wherever its VMEM autotuner keeps the
+    fused route."""
+    p = dispatch.plan(build_chart(tcharts))
+    assert [e["route"] for e in p] == [route] * n
+    assert all(e["launches"] == 1 for e in p)
+    assert {e["kernel"] for e in p} == {dispatch.KERNEL_OF_ROUTE[route]}
+    jp = jdispatch.plan(build_chart(jcharts), pyramid=False)
+    assert [e["route"] for e in jp] == [route] * n
+
+
+def test_nd_level_needs_axis_factors():
+    geom = trefine.LevelGeom.for_level(tcharts.regular_chart((8, 8), 1), 0)
+    with pytest.raises(ValueError, match="per-axis factors"):
+        dispatch.route_for(geom)
+
+
+@pytest.mark.parametrize("dname", sorted(TOL))
+@pytest.mark.parametrize("build_chart", [
+    lambda m: m.regular_chart(40, 2, boundary="reflect"),
+    lambda m: m.regular_chart(24, 2, n_csz=5, n_fsz=4),
+    lambda m: m.log_chart(12, 2, n_csz=5, n_fsz=4, delta0=0.05),
+], ids=["stationary-reflect", "stationary-5x4", "charted-log"])
+def test_dispatch_refine_matches_reference(build_chart, dname, monkeypatch):
+    """One 1-D level through each package's dispatch, with the policy
+    cast, sample axis and reflect padding of the glue."""
+    monkeypatch.setenv("REPRO_BACKEND", "interpret")
+    jc, tc = build_chart(jcharts), build_chart(tcharts)
+    k = jkernels.matern32.with_defaults(rho=2.0)()
+    rng = np.random.default_rng(7)
+    for lvl in range(jc.n_levels):
+        geom = jrefine.LevelGeom.for_level(jc, lvl)
+        r, d = jax.jit(lambda: jrefine.refinement_matrices_level(
+            jc, k, lvl))()
+        field = rng.normal(size=(3,) + geom.coarse_shape).astype(np.float32)
+        xi = rng.normal(size=(3, geom.T[0], geom.n_fsz)).astype(np.float32)
+        want = jdispatch.refine(jnp.asarray(field), jnp.asarray(xi), r, d,
+                                geom, sample_axis=True, policy=dname)
+        got = dispatch.refine(
+            torch.from_numpy(field), torch.from_numpy(xi),
+            to_torch(np.asarray(r)), to_torch(np.asarray(d)),
+            trefine.LevelGeom.for_level(tc, lvl), sample_axis=True,
+            policy=dname)
+        assert got.dtype == DTYPES[dname][1]
+        assert rel(t2n(got), j2n(want)) < TOL[dname]
+
+
+# -- wrapper checks ----------------------------------------------------------------
+def test_kernel_route_refuses_gradients():
+    rng = np.random.default_rng(8)
+    ops = [torch.tensor(a, dtype=torch.float32) for a in _1d_operands(
+        rng, batch=1, t=5, n_csz=3, n_fsz=2, charted=False)]
+    ops[1].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="adjoint"):
+        icr_refine.refine_stationary(*ops)
+    with torch.no_grad():
+        icr_refine.refine_stationary(*ops)
+    c = tcharts.regular_chart((8, 8), 1)
+    geom = trefine.LevelGeom.for_level(c, 0)
+    rs = [torch.randn(2, 3, requires_grad=True), torch.randn(2, 3)]
+    ds = [torch.randn(2, 2), torch.randn(2, 2)]
+    with pytest.raises(NotImplementedError):
+        nd_fused.refine_nd_fused(torch.randn(8, 8), torch.randn(36, 4), rs,
+                                 ds, geom)
+
+
+def test_operand_checks_before_a_launch():
+    with pytest.raises(ValueError, match="expected cuda"):
+        build.check_operands(x=torch.zeros(2))
+    with pytest.raises(TypeError):
+        build.dtype_code(torch.float64)
+    assert build.dtype_code(torch.bfloat16) == 1
+    assert build.library_path("nd_fused").suffix == ".so"
