@@ -10,20 +10,36 @@ Phases (any failure ends the run with a non-zero exit code):
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch``
    (one nvcc per source, in parallel); print the build time and the card.
 2. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes of every level of the three serving charts (flagship dust
+   the shapes of every level of four charts (flagship dust
    ``galactic_dust_chart((8,16,16), 3)``, ``regular_chart(1024, 10)``,
-   ``log_chart(1024, 8, n_csz=5, n_fsz=4)``), S=8 samples, real refinement
-   matrices, in float32 (max relative error <= 1e-5) and with bfloat16
-   storage (<= 5e-2).
+   ``log_chart(1024, 8, n_csz=5, n_fsz=4)``, ``log_polar_chart((64,64),
+   3)``), S=8 samples, real refinement matrices, in float32 (max relative
+   error <= 1e-5) and with bfloat16 storage (<= 5e-2): the three forward
+   kernels, and the four adjoint kernels at every launch a level's
+   backward makes (1-D levels; axis 0 and the trailing axes of N-D levels).
 3. path    — ``ICR(..., use_pallas=True).sample_batch(gen, 8)`` on each
    chart at both dtype policies, held against the same apply through the
-   plain versions on the card; every kernel's launch counter, zeroed just
-   before, must have risen.
-4. times   — per kernel at its chart's largest level: CUDA-event medians of
+   plain versions on the card; every forward kernel's launch counter,
+   zeroed just before, must have risen.
+4. train   — training on the kernel route, float32, each path with the
+   launch counters zeroed just before and read just after: ``dust`` 20
+   ``map_fit`` and 10 ``advi_fit`` steps (n_mc=2) on ``charted_gp_dataset``
+   (obs_frac 0.3, noise 0.05); ``regular`` 10 joint (ξ, ρ) MAP steps under
+   a lognormal prior, the matrices rebuilt in every step; ``log`` and
+   ``log_polar`` 10 MAP steps at fixed θ. Losses must fall and every
+   adjoint kernel the path reaches must have launched. Then, per chart,
+   one step's gradient through the kernels against the same through the
+   plain versions (ξ <= 1e-5; on ``regular`` the matrix cotangents <= 1e-4
+   and dρ reported, see ``theta_gradient``), and
+   ``ICR.apply_sqrt_T_batch`` on the kernels against autograd of the plain
+   apply at both policies.
+5. times   — per kernel at its chart's largest level: CUDA-event medians of
    the kernel, its plain version and, where one PyTorch call computes (part
    of) the same function, that call; the byte/operation bound; whole-path
-   milliseconds per chart; and, per level of each chart at float32, the
-   torch glue before a launch against the kernel.
+   milliseconds per chart; per level of each chart at float32, the torch
+   glue against the kernels, forward and backward; and one training
+   step's milliseconds (forward, backward and update) per chart, with its
+   host enqueue time.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -34,6 +50,7 @@ and convolutions run without TF32 throughout.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +66,7 @@ F32_PEAK = 67e12             # H100 SXM f32 (non-tensor) FLOP/s, data sheet
 BANDWIDTH = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12)]
 
+ADJ_SRC = "src/repro_torch/kernels/csrc/refine_1d_adjoint.cu"
 KERNEL_INFO = {
     "refine_stationary": {
         "source": "src/repro_torch/kernels/csrc/refine_1d.cu",
@@ -65,7 +83,38 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/nd_fused.py:119",
         "replaces_fn": "_nd_fused_kernel",
         "chart": "dust"},
+    "refine_stationary_adjoint": {
+        "source": ADJ_SRC,
+        "replaces": "src/repro/kernels/icr_refine.py:184",
+        "replaces_fn": "_stationary_adjoint_kernel",
+        "chart": "regular"},
+    "refine_stationary_adjoint_nn": {
+        "source": ADJ_SRC,
+        "replaces": "src/repro/kernels/icr_refine.py:204",
+        "replaces_fn": "_stationary_adjoint_nn_kernel",
+        "chart": "dust"},
+    "refine_charted_adjoint": {
+        "source": ADJ_SRC,
+        "replaces": "src/repro/kernels/icr_refine.py:220",
+        "replaces_fn": "_charted_adjoint_kernel",
+        "chart": "log"},
+    "refine_charted_adjoint_nn": {
+        "source": ADJ_SRC,
+        "replaces": "src/repro/kernels/icr_refine.py:242",
+        "replaces_fn": "_charted_adjoint_nn_kernel",
+        "chart": "log_polar"},
 }
+FORWARD = ("refine_stationary", "refine_charted", "refine_nd_fused")
+ADJOINT = tuple(k for k in KERNEL_INFO if k not in FORWARD)
+# the adjoint kernels each training path must reach
+TRAIN_REACHES = {
+    "dust": ("refine_charted_adjoint", "refine_stationary_adjoint_nn"),
+    "regular": ("refine_stationary_adjoint",),
+    "log": ("refine_charted_adjoint",),
+    "log_polar": ("refine_charted_adjoint", "refine_charted_adjoint_nn"),
+}
+NOISE = 0.05                 # observation noise of the training data
+OBS_FRAC = 0.3
 
 
 def card_line() -> str:
@@ -76,8 +125,8 @@ def card_line() -> str:
 
 
 def charts():
-    from repro_torch import (galactic_dust_chart, log_chart, matern32,
-                             regular_chart)
+    from repro_torch import (galactic_dust_chart, log_chart, log_polar_chart,
+                             matern32, regular_chart)
 
     return {
         "dust": (galactic_dust_chart((8, 16, 16), 3),
@@ -86,6 +135,8 @@ def charts():
                     matern32.with_defaults(rho=5000.0)),
         "log": (log_chart(1024, 8, n_csz=5, n_fsz=4, delta0=0.0197 / 16),
                 matern32.with_defaults(rho=1.0)),
+        "log_polar": (log_polar_chart((64, 64), 3),
+                      matern32.with_defaults(rho=2.0)),
     }
 
 
@@ -112,9 +163,66 @@ def level_inputs(icr, mats, lvl, dtype, gen):
     return geom, field, xi, r, d, axis_mats
 
 
+def adjoint_ops():
+    """name -> (kernel wrapper, plain version) of the adjoint kernels."""
+    from repro_torch.kernels import icr_refine as ir
+
+    return {
+        "refine_stationary_adjoint": (ir.refine_stationary_adjoint,
+                                      ir.refine_stationary_adjoint_plain),
+        "refine_stationary_adjoint_nn": (ir.refine_stationary_adjoint,
+                                         ir.refine_stationary_adjoint_plain),
+        "refine_charted_adjoint": (ir.refine_charted_adjoint,
+                                   ir.refine_charted_adjoint_plain),
+        "refine_charted_adjoint_nn": (ir.refine_charted_adjoint,
+                                      ir.refine_charted_adjoint_plain),
+    }
+
+
+def adjoint_cases(icr, mats, lvl, dtype, gen):
+    """Every adjoint launch of level `lvl`'s backward at S samples, with a
+    seeded cotangent: ``[(kernel name, g, r, d or None, coarse_len)]``.
+    1-D levels make one launch; N-D levels one on axis 0 with noise and one
+    per trailing axis without, over the other axes' padded or fine
+    extents (``nd_fused.refine_nd_fused_adjoint``)."""
+    import torch
+
+    from repro_torch.core.refine import LevelGeom
+    from repro_torch.kernels import dispatch
+
+    chart = icr.chart
+    geom = LevelGeom.for_level(chart, lvl)
+    fsz, csz, t = geom.n_fsz, geom.n_csz, geom.T
+    padded = [n + 2 * geom.b if geom.boundary == "reflect" else n
+              for n in geom.coarse_shape]
+    if chart.ndim == 1:
+        charted = (dispatch.route_for(geom) == dispatch.ROUTE_CHARTED_1D)
+        lead = (t[0],) if charted else ()
+        axes = [(charted, S, 0, mats["R"][lvl].reshape(lead + (fsz, csz)),
+                 mats["sqrtD"][lvl].reshape(lead + (fsz, fsz)))]
+    else:
+        rs, ds = mats["Rax"][lvl], mats["sqrtDax"][lvl]
+        fine = [n * fsz for n in t]
+        axes = [(rs[0].ndim == 3, S * math.prod(fine[1:]), 0, rs[0], ds[0])]
+        axes += [(rs[a].ndim == 3,
+                  S * math.prod(padded[:a]) * math.prod(fine[a + 1:]), a,
+                  rs[a], None) for a in range(1, chart.ndim)]
+    out = []
+    for charted, rows, a, r, d in axes:
+        name = (("refine_charted_adjoint" if charted
+                 else "refine_stationary_adjoint")
+                + ("" if d is not None else "_nn"))
+        g = torch.randn((rows, t[a] * fsz), generator=gen,
+                        device="cuda").to(dtype)
+        out.append((name, g, r.to(dtype).contiguous(),
+                    None if d is None else d.to(dtype).contiguous(),
+                    padded[a]))
+    return out
+
+
 def plain_apply(icr, mats, xi):
     """``icr.apply_sqrt_batch`` with every kernel replaced by its plain
-    version, on the same device."""
+    version, on the same device (differentiable by plain autograd)."""
     import torch
 
     from repro_torch.core.refine import LevelGeom
@@ -205,6 +313,470 @@ def kernel_fmas(route, args) -> int:
     return fmas + xi0.numel() * (csz + fsz)            # axis 0 + noise
 
 
+def adjoint_cost(g, r, d, outs) -> tuple:
+    """(bytes, multiply-adds) of one adjoint launch: g and the matrices
+    read once, dcoarse (and dxi) written once; per family ``n_fsz·n_csz``
+    multiply-adds for the overlap-add and ``n_fsz²`` for dxi."""
+    n_fsz, n_csz = r.shape[-2:]
+    moved = sum(t.numel() * t.element_size()
+                for t in (g, r, *outs) + ((d,) if d is not None else ()))
+    fam = g.numel() // n_fsz
+    return moved, fam * (n_fsz * n_csz + (n_fsz * n_fsz if d is not None
+                                          else 0))
+
+
+def bound(moved, fmas, bandwidth) -> tuple:
+    t_bytes = moved / bandwidth * 1e3
+    t_ops = 2 * fmas / F32_PEAK * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def max_rel(got, want) -> float:
+    return max(rel_err(a, b)[1] for a, b in zip(got, want))
+
+
+# -- phases ----------------------------------------------------------------------
+def check_kernels(models, gen) -> dict:
+    """Phase 2: every kernel against its plain version at every level."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.policy import cast_tree
+
+    adj = adjoint_ops()
+    errors = {k: {} for k in KERNEL_INFO}
+
+    def record(kname, dname, absd, rel, where):
+        worst = errors[kname].get(dname, (0.0, 0.0))
+        errors[kname][dname] = (max(worst[0], absd), max(worst[1], rel))
+        if not rel <= TOL[dname]:
+            raise AssertionError(f"{kname} {where} {dname}: relative error "
+                                 f"{rel:.3g} > {TOL[dname]}")
+
+    for cname, (icr, mats, _) in models.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            m = cast_tree(mats, dtype)
+            gen.manual_seed(1)
+            for lvl in range(icr.chart.n_levels):
+                geom, field, xi, r, d, axis_mats = level_inputs(
+                    icr, m, lvl, dtype, gen)
+                route, args = dispatch.level_operands(
+                    field, xi, r, d, geom, axis_mats=axis_mats,
+                    sample_axis=True)
+                got = dispatch.KERNELS[route](*args)
+                torch.cuda.synchronize()
+                ref = dispatch.PLAIN[route](*args)
+                record(dispatch.KERNEL_OF_ROUTE[route], dname,
+                       *rel_err(got, ref), f"{cname} level {lvl}")
+                for name, g, r1, d1, length in adjoint_cases(
+                        icr, m, lvl, dtype, gen):
+                    kern, plain = adj[name]
+                    got = as_tuple(kern(g, r1, d1, coarse_len=length))
+                    torch.cuda.synchronize()
+                    want = as_tuple(plain(g, r1, d1, coarse_len=length))
+                    absd = max(rel_err(a, b)[0] for a, b in zip(got, want))
+                    record(name, dname, absd, max_rel(got, want),
+                           f"{cname} level {lvl} g {tuple(g.shape)}")
+    missing = [k for k, v in errors.items() if not v]
+    if missing:
+        raise AssertionError(f"kernels never checked: {missing}")
+    return errors
+
+
+def check_path(models, gen) -> tuple:
+    """Phase 3: sample_batch on the forward kernels at both policies."""
+    import torch
+
+    from repro_torch import ICR
+    from repro_torch.kernels import build, dispatch
+
+    launches = {k: 0 for k in FORWARD}
+    path_err = {}
+    for cname, (icr0, _, _) in models.items():
+        for pol in (None, "bf16"):
+            icr = ICR(icr0.chart, icr0.kernel, use_pallas=True,
+                      dtype_policy=pol)
+            build.LAUNCHES.clear()
+            gen.manual_seed(7)
+            out = icr.sample_batch(gen, S)
+            torch.cuda.synchronize()
+            counts = {k: build.LAUNCHES[k] for k in FORWARD}
+            for k, n in counts.items():
+                launches[k] += n
+            want = dispatch.plan(icr.chart)[0]["kernel"]
+            if counts[want] != icr.chart.n_levels:
+                raise AssertionError(
+                    f"{cname} {pol}: {want} launched {counts[want]} times, "
+                    f"expected {icr.chart.n_levels}")
+            gen.manual_seed(7)
+            xi = icr.init_xi(gen, batch=S)
+            ref = plain_apply(icr, icr.matrices(), xi)
+            if (tuple(out.shape) != (S,) + icr.chart.final_shape
+                    or not bool(torch.isfinite(out).all())):
+                raise AssertionError(f"{cname} {pol}: bad output "
+                                     f"{tuple(out.shape)}")
+            _, rel = rel_err(out, ref)
+            tol = TOL["float32" if pol is None else "bfloat16"]
+            path_err[f"{cname}-{pol or 'fp32'}"] = rel
+            if not rel <= tol:
+                raise AssertionError(f"{cname} {pol}: whole path relative "
+                                     f"error {rel:.3g} > {tol}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the path: {missing}")
+    return launches, path_err
+
+
+def train_problems(models, gen) -> dict:
+    """Per chart: the float32 ICR of the training path, its data
+    (``charted_gp_dataset``), its likelihood, initial parameters, and its
+    forward map through the kernels (``forward``) and, at fixed θ, through
+    the plain versions (``plain_forward``). The regular chart learns (ξ, ρ)
+    jointly under a lognormal prior on ρ, as
+    ``examples/gp_regression_vi.py`` does: its forward rebuilds the
+    matrices from θ (``ICR.__call__``)."""
+    from repro_torch import (ICR, StandardizedModel, charted_gp_dataset,
+                             gaussian_log_likelihood, lognormal_prior)
+
+    out = {}
+    for cname, (icr, mats, _) in models.items():
+        p = {}
+        if cname == "regular":
+            n = icr.chart.size
+            icr = ICR(icr.chart, icr.kernel.with_defaults(rho=0.04 * n),
+                      use_pallas=True)
+            priors = StandardizedModel(
+                {"rho": lognormal_prior(0.06 * n, 0.03 * n)})
+
+            def joint(latent, icr=icr, priors=priors):
+                theta = dict(priors(latent[1]))
+                theta["sigma"] = 1.0
+                return icr(latent[0], theta)
+
+            p.update(priors=priors, params=(icr.zero_xi(), priors.zero_xi()),
+                     forward=joint, lr=2e-2)
+        else:
+            p.update(params=icr.zero_xi(), lr=3e-2,
+                     forward=lambda xi, icr=icr, m=mats: icr.apply_sqrt(m, xi),
+                     plain_forward=lambda xi, icr=icr, m=mats: plain_apply(
+                         icr, m, [x[None] for x in xi])[0])
+        gen.manual_seed(21)
+        _, obs_idx, y = charted_gp_dataset(icr, gen, obs_frac=OBS_FRAC,
+                                           noise_std=NOISE)
+        p.update(icr=icr, mats=mats, y=y, obs_idx=obs_idx,
+                 ll=gaussian_log_likelihood(NOISE, obs_idx))
+        out[cname] = p
+    return out
+
+
+def theta_gradient(p, point) -> dict:
+    """The regular chart's joint (ξ, ρ) gradient at ξ = `point`, ρ's latent
+    0.3: the matrices are built once from θ and the loss differentiated
+    through the kernels and through the plain versions on the card, and
+    through the plain versions on the CPU (another float32 evaluation of
+    the same function). The ξ gradients are held at 1e-5 and the matrix
+    cotangents (d sqrt0, dR, dsqrtD of every level) at 1e-4: they are
+    everything the kernel route contributes to dρ. dρ itself goes on
+    through the eigh backward of the 1024-point level-0 kernel matrix, near
+    rank-deficient at ρ ~ 6e4: it is reported, with the spread of the plain
+    version between the card and the CPU beside it, and must be finite."""
+    import torch
+
+    from repro_torch import ICR, gaussian_log_likelihood, neg_log_joint
+
+    def grads(icr, applies, obs_idx, y, point):
+        rho = torch.tensor(0.3, device=icr.device, requires_grad=True)
+        theta = dict(p["priors"]({"rho": rho}))
+        theta["sigma"] = 1.0
+        mats = icr.matrices(theta)
+        leaves = [mats["sqrt0"], *mats["R"], *mats["sqrtD"]]
+        ll = gaussian_log_likelihood(NOISE, obs_idx)
+        out = []
+        for apply in applies:
+            xi = _trainable(point)
+            loss = neg_log_joint(ll, lambda x: apply(mats, x))(xi, y)
+            g = torch.autograd.grad(loss, xi + leaves + [rho],
+                                    retain_graph=True)
+            out.append((g[:len(xi)], g[len(xi):-1], float(g[-1])))
+        return out
+
+    icr = p["icr"]
+    plain = [lambda m, xi, icr=icr: plain_apply(icr, m, [x[None]
+                                                          for x in xi])[0]]
+    (gx, gm, drho), (px, pm, prho) = grads(
+        icr, [icr.apply_sqrt] + plain, p["obs_idx"], p["y"], point)
+    cpu = ICR(icr.chart, icr.kernel, use_pallas=True, device="cpu")
+    plain_cpu = [lambda m, xi: plain_apply(cpu, m, [x[None]
+                                                     for x in xi])[0]]
+    ((_, _, crho),) = grads(cpu, plain_cpu, p["obs_idx"].cpu(),
+                            p["y"].cpu(), [x.cpu() for x in point])
+    mat_err = max_rel(gm, pm)
+    out = {"grad_xi_max_rel_err": max_rel(gx, px),
+           "grad_mats_max_rel_err": mat_err,
+           "drho": {"kernels": drho, "plain": prho, "plain_cpu": crho},
+           "drho_rel_err": abs(drho - prho) / abs(prho),
+           "drho_plain_card_vs_cpu_rel": abs(prho - crho) / abs(crho)}
+    if not mat_err <= 1e-4:
+        raise AssertionError(f"regular: matrix cotangent relative error "
+                             f"{mat_err:.3g} > 1e-4")
+    if not all(map(math.isfinite, (drho, prho, crho))):
+        raise AssertionError(f"regular: dρ not finite: {out['drho']}")
+    return out
+
+
+def _trainable(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone().requires_grad_(True)
+    if isinstance(tree, dict):
+        return {k: _trainable(v) for k, v in tree.items()}
+    return type(tree)(_trainable(v) for v in tree)
+
+
+def check_train(problems, gen) -> tuple:
+    """Phase 4: the training paths on the kernels, one step's gradient
+    against the plain versions', and apply_sqrt_T against autograd."""
+    import torch
+
+    from repro_torch import ICR, advi_fit, map_fit, neg_log_joint
+    from repro_torch.kernels import build
+    from repro_torch.kernels.policy import tree_leaves
+
+    launches = {k: 0 for k in ADJOINT}
+    report = {}
+    for cname, p in problems.items():
+        icr = p["icr"]
+        build.LAUNCHES.clear()
+        fit, losses = map_fit(p["ll"], p["forward"], p["params"], p["y"],
+                              steps=20 if cname == "dust" else 10,
+                              lr=p["lr"])
+        entry = {"map_losses": [float(v) for v in losses]}
+        if cname == "dust":
+            _, elbos = advi_fit(
+                gen, p["ll"],
+                lambda xi, icr=icr, m=p["mats"]: icr.apply_sqrt_batch(m, xi),
+                icr.zero_xi(), p["y"], steps=10, n_mc=2)
+            entry["advi_elbos"] = [float(v) for v in elbos]
+            if not (bool(torch.isfinite(elbos).all())
+                    and float(elbos[-1]) > float(elbos[0])):
+                raise AssertionError(f"dust ADVI: the ELBO did not rise: "
+                                     f"{entry['advi_elbos']}")
+        torch.cuda.synchronize()
+        counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+        entry["launches"] = counts
+        if not (bool(torch.isfinite(losses).all())
+                and float(losses[-1]) < float(losses[0])):
+            raise AssertionError(f"{cname}: the MAP loss did not fall: "
+                                 f"{entry['map_losses']}")
+        if cname == "regular":
+            entry["rho_hat"] = float(p["priors"](fit[1])["rho"])
+            if not torch.isfinite(torch.tensor(entry["rho_hat"])):
+                raise AssertionError(f"regular: rho_hat {entry['rho_hat']}")
+        silent = [k for k in TRAIN_REACHES[cname] if counts[k] == 0]
+        if silent:
+            raise AssertionError(f"{cname}: adjoint kernels never launched "
+                                 f"on the training path: {silent}")
+        for k in ADJOINT:
+            launches[k] += counts[k]
+
+        # one step's gradient, through the kernels and the plain versions
+        gen.manual_seed(23)
+        point = [0.5 * x for x in icr.init_xi(gen)]
+        if cname == "regular":
+            entry.update(theta_gradient(p, point))
+        else:
+            grads = []
+            for f in (p["forward"], p["plain_forward"]):
+                params = _trainable(point)
+                loss = neg_log_joint(p["ll"], f)(params, p["y"])
+                grads.append(torch.autograd.grad(loss, params))
+            entry["grad_xi_max_rel_err"] = max_rel(*grads)
+        if not entry["grad_xi_max_rel_err"] <= TOL["float32"]:
+            raise AssertionError(
+                f"{cname}: ξ gradient relative error "
+                f"{entry['grad_xi_max_rel_err']:.3g} > {TOL['float32']}")
+
+        # the transpose on the kernels against autograd of the plain apply
+        entry["apply_sqrt_T_max_rel_err"] = {}
+        for pol in (None, "bf16"):
+            icr_p = ICR(icr.chart, icr.kernel, use_pallas=True,
+                        dtype_policy=pol)
+            m = icr_p.matrices()
+            dt = icr_p.policy.storage_dtype
+            gen.manual_seed(29)
+            v = torch.randn((2,) + icr_p.out_shape, generator=gen,
+                            device="cuda").to(dt)
+            got = icr_p.apply_sqrt_T_batch(m, v)
+            zero = [torch.zeros((2,) + s, dtype=dt, device="cuda",
+                                requires_grad=True)
+                    for s in icr_p.xi_shapes()]
+            want = torch.autograd.grad(plain_apply(icr_p, m, zero), zero, v)
+            err = max_rel(got, want)
+            tol = TOL["float32" if pol is None else "bfloat16"]
+            entry["apply_sqrt_T_max_rel_err"][pol or "fp32"] = err
+            if not err <= tol:
+                raise AssertionError(f"{cname} {pol}: apply_sqrt_T relative "
+                                     f"error {err:.3g} > {tol}")
+        report[cname] = entry
+    return launches, report
+
+
+def kernel_times(models, bandwidth, flush, gen) -> dict:
+    """Per kernel at the largest level of its chart, float32 and bfloat16
+    storage: kernel, plain version and library call times, and the bound."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.policy import cast_tree
+
+    adj = adjoint_ops()
+    out = {}
+    for kname, info in KERNEL_INFO.items():
+        icr, mats, _ = models[info["chart"]]
+        lvl = icr.chart.n_levels - 1
+        per_dtype = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            m = cast_tree(mats, dtype)
+            gen.manual_seed(3)
+            library_ms = library_call = None
+            if kname in FORWARD:
+                geom, field, xi, r, d, axis_mats = level_inputs(
+                    icr, m, lvl, dtype, gen)
+                route, args = dispatch.level_operands(
+                    field, xi, r, d, geom, axis_mats=axis_mats,
+                    sample_axis=True)
+                kern, plain = dispatch.KERNELS[route], dispatch.PLAIN[route]
+                ms = time_ms(lambda: kern(*args), flush)
+                plain_ms = time_ms(lambda: plain(*args), flush)
+                if route == "stationary-1d":
+                    coarse, _, r1, _ = args
+                    c3, w = coarse[:, None, :], r1[:, None, :]
+                    library_call = ("F.conv1d(coarse, R, stride=n_fsz//2): "
+                                    "the window contraction without the "
+                                    "noise term")
+                    library_ms = time_ms(lambda: torch.nn.functional.conv1d(
+                        c3, w, stride=geom.n_fsz // 2), flush)
+                moved = operand_bytes(route, args, kern(*args))
+                fmas = kernel_fmas(route, args)
+                enq = enqueue_ms(lambda: kern(*args))
+                shape = {"coarse": list(field.shape),
+                         "fine": [S] + list(geom.fine_shape)}
+            else:
+                cases = [c for c in adjoint_cases(icr, m, lvl, dtype, gen)
+                         if c[0] == kname]
+                _, g, r, d, length = max(cases, key=lambda c: c[1].numel())
+                kern, plain = adj[kname]
+                ms = time_ms(lambda: kern(g, r, d, coarse_len=length), flush)
+                plain_ms = time_ms(lambda: plain(g, r, d, coarse_len=length),
+                                   flush)
+                if kname.startswith("refine_stationary"):
+                    n_fsz = r.shape[-2]
+                    gc = g.reshape(g.shape[0], -1, n_fsz).transpose(1, 2)
+                    gc, w = gc.contiguous(), r[:, None, :].contiguous()
+                    library_call = (
+                        "F.conv_transpose1d(g, R, stride=n_fsz//2) on g in "
+                        "channel-major layout: the overlap-add without dxi")
+                    library_ms = time_ms(
+                        lambda: torch.nn.functional.conv_transpose1d(
+                            gc, w, stride=n_fsz // 2), flush)
+                outs = as_tuple(kern(g, r, d, coarse_len=length))
+                moved, fmas = adjoint_cost(g, r, d, outs)
+                enq = enqueue_ms(lambda: kern(g, r, d, coarse_len=length))
+                shape = {"g": list(g.shape), "coarse_len": length}
+            bound_ms, bound_by = bound(moved, fmas, bandwidth)
+            per_dtype[dname] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "enqueue_ms": enq, "library_call": library_call,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                "level": lvl, "shape": shape}
+        out[kname] = per_dtype
+    return out
+
+
+def level_split(models, flush, gen) -> dict:
+    """Per level of each chart at float32: the torch glue before a forward
+    launch against the kernel, and a level's whole transpose
+    (``dispatch.refine_T``: adjoint kernels, movedim copies and the
+    transposed glue) against its adjoint kernels alone."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+
+    adj = adjoint_ops()
+    split = {}
+    for cname, (icr, mats, _) in models.items():
+        gen.manual_seed(5)
+        rows = []
+        for lvl in range(icr.chart.n_levels):
+            geom, field, xi, r, d, axis_mats = level_inputs(
+                icr, mats, lvl, torch.float32, gen)
+
+            def glue():
+                return dispatch.level_operands(
+                    field, xi, r, d, geom, axis_mats=axis_mats,
+                    sample_axis=True)
+
+            route, args = glue()
+            kern = dispatch.KERNELS[route]
+            g = torch.randn((S,) + tuple(geom.fine_shape), generator=gen,
+                            device="cuda")
+            bwd_ms = time_ms(lambda: dispatch.refine_T(
+                g, r, d, geom, axis_mats=axis_mats), flush)
+            adj_ms = sum(
+                time_ms(lambda c=c: adj[c[0]][0](c[1], c[2], c[3],
+                                                 coarse_len=c[4]), flush)
+                for c in adjoint_cases(icr, mats, lvl, torch.float32, gen))
+            rows.append({"level": lvl, "glue_ms": time_ms(glue, flush),
+                         "kernel_ms": time_ms(lambda: kern(*args), flush),
+                         "bwd_ms": bwd_ms, "adjoint_kernel_ms": adj_ms,
+                         "bwd_glue_ms": bwd_ms - adj_ms})
+        split[cname] = rows
+    return split
+
+
+def train_step_times(problems, flush) -> dict:
+    """One float32 training step per chart (loss, backward through the
+    kernels, AdamW update): CUDA-event milliseconds and host enqueue, and
+    where they go: the loss alone (forward, recording the graph), the
+    update alone, and the backward as the rest."""
+    import torch
+
+    from repro_torch import neg_log_joint
+    from repro_torch.kernels.policy import tree_leaves
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    out = {}
+    for cname, p in problems.items():
+        params = _trainable(p["params"])
+        leaves = tree_leaves(params)
+        opt = adamw(linear_warmup_cosine(p["lr"], 2, 20))
+        loss_fn = neg_log_joint(p["ll"], p["forward"])
+
+        def loss(params=params, loss_fn=loss_fn, y=p["y"]):
+            return loss_fn(params, y)
+
+        def step(leaves=leaves, opt=opt, loss=loss):
+            opt.update(torch.autograd.grad(loss(), leaves), leaves)
+
+        grads = torch.autograd.grad(loss(), leaves)
+        step_ms, loss_ms = time_ms(step, flush), time_ms(loss, flush)
+        update_ms = time_ms(lambda: opt.update(grads, leaves), flush)
+        out[cname] = {"train_step_ms": step_ms,
+                      "train_step_enqueue_ms": enqueue_ms(step),
+                      "loss_ms": loss_ms, "update_ms": update_ms,
+                      "backward_ms": step_ms - loss_ms - update_ms,
+                      "points": p["icr"].chart.size,
+                      "learns_theta": cname == "regular"}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -220,8 +792,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import ICR
-    from repro_torch.kernels import build, dispatch
-    from repro_torch.kernels.policy import cast_tree
+    from repro_torch.kernels import build
 
     t_start = time.perf_counter()
     card = card_line()
@@ -250,113 +821,33 @@ def main() -> int:
         models[cname] = (icr, mats, time.perf_counter() - t0)
 
     # -- 2. each kernel against its plain version -------------------------------
-    errors = {k: {} for k in KERNEL_INFO}
-    for cname, (icr, mats, _) in models.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[1]
-            m = cast_tree(mats, dtype)
-            gen.manual_seed(1)
-            for lvl in range(icr.chart.n_levels):
-                geom, field, xi, r, d, axis_mats = level_inputs(
-                    icr, m, lvl, dtype, gen)
-                route, args = dispatch.level_operands(
-                    field, xi, r, d, geom, axis_mats=axis_mats,
-                    sample_axis=True)
-                got = dispatch.KERNELS[route](*args)
-                torch.cuda.synchronize()
-                ref = dispatch.PLAIN[route](*args)
-                absd, rel = rel_err(got, ref)
-                kname = dispatch.KERNEL_OF_ROUTE[route]
-                worst = errors[kname].get(dname, (0.0, 0.0))
-                errors[kname][dname] = (max(worst[0], absd),
-                                        max(worst[1], rel))
-                if not rel <= TOL[dname]:
-                    raise AssertionError(
-                        f"{kname} {cname} level {lvl} {dname}: relative "
-                        f"error {rel:.3g} > {TOL[dname]}")
+    errors = check_kernels(models, gen)
     print("kernels: " + json.dumps(
         {k: {d: {"max_abs_err": e[0], "max_rel_err": e[1]}
              for d, e in v.items()} for k, v in errors.items()}),
           flush=True)
+    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
-    # -- 3. the main path through the kernels -----------------------------------
-    launches = {k: 0 for k in KERNEL_INFO}
-    path_err = {}
-    for cname, (icr0, _, _) in models.items():
-        for pol in (None, "bf16"):
-            icr = ICR(icr0.chart, icr0.kernel, use_pallas=True,
-                      dtype_policy=pol)
-            build.LAUNCHES.clear()
-            gen.manual_seed(7)
-            out = icr.sample_batch(gen, S)
-            torch.cuda.synchronize()
-            counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
-            for k, n in counts.items():
-                launches[k] += n
-            want = dispatch.KERNEL_OF_ROUTE[dispatch.plan(icr.chart)[0]
-                                            ["route"]]
-            if counts[want] != icr.chart.n_levels:
-                raise AssertionError(
-                    f"{cname} {pol}: {want} launched {counts[want]} times, "
-                    f"expected {icr.chart.n_levels}")
-            gen.manual_seed(7)
-            xi = icr.init_xi(gen, batch=S)
-            ref = plain_apply(icr, icr.matrices(), xi)
-            if (tuple(out.shape) != (S,) + icr.chart.final_shape
-                    or not bool(torch.isfinite(out).all())):
-                raise AssertionError(f"{cname} {pol}: bad output "
-                                     f"{tuple(out.shape)}")
-            _, rel = rel_err(out, ref)
-            tol = TOL["float32" if pol is None else "bfloat16"]
-            path_err[f"{cname}-{pol or 'fp32'}"] = rel
-            if not rel <= tol:
-                raise AssertionError(f"{cname} {pol}: whole path relative "
-                                     f"error {rel:.3g} > {tol}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the path: {missing}")
+    # -- 3. the sampling path through the forward kernels -----------------------
+    launches, path_err = check_path(models, gen)
     print("path: " + json.dumps({"launches": launches,
                                  "max_rel_err": path_err}), flush=True)
 
-    # -- 4. times ---------------------------------------------------------------
+    # -- 4. training through the adjoint kernels --------------------------------
+    problems = train_problems(models, gen)
+    adj_launches, train = check_train(problems, gen)
+    launches.update(adj_launches)
+    print("train: " + json.dumps(train), flush=True)
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 5. times ---------------------------------------------------------------
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
+    times = kernel_times(models, bandwidth, flush, gen)
     entries = []
     for kname, info in KERNEL_INFO.items():
-        icr, mats, _ = models[info["chart"]]
-        per_dtype = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[1]
-            m = cast_tree(mats, dtype)
-            gen.manual_seed(3)
-            lvl = icr.chart.n_levels - 1
-            geom, field, xi, r, d, axis_mats = level_inputs(
-                icr, m, lvl, dtype, gen)
-            route, args = dispatch.level_operands(
-                field, xi, r, d, geom, axis_mats=axis_mats, sample_axis=True)
-            kern, plain = dispatch.KERNELS[route], dispatch.PLAIN[route]
-            ms = time_ms(lambda: kern(*args), flush)
-            plain_ms = time_ms(lambda: plain(*args), flush)
-            library_ms, library_call = None, None
-            if route == "stationary-1d":
-                coarse, _, r1, _ = args
-                c3, w = coarse[:, None, :], r1[:, None, :]
-                library_call = ("F.conv1d(coarse, R, stride=n_fsz//2): the "
-                                "window contraction without the noise term")
-                library_ms = time_ms(lambda: torch.nn.functional.conv1d(
-                    c3, w, stride=geom.n_fsz // 2), flush)
-            moved = operand_bytes(route, args, kern(*args))
-            t_bytes = moved / bandwidth * 1e3
-            t_ops = 2 * kernel_fmas(route, args) / F32_PEAK * 1e3
-            per_dtype[dname] = {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "enqueue_ms": enqueue_ms(lambda: kern(*args)),
-                "library_call": library_call,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": moved, "level": lvl,
-                "shape": {"coarse": list(field.shape),
-                          "fine": [S] + list(geom.fine_shape)}}
-        f32 = per_dtype["float32"]
+        f32 = times[kname]["float32"]
         entry = {"name": kname, "route": "cuda", "source": info["source"],
                  "replaces": info["replaces"],
                  "replaces_fn": info["replaces_fn"],
@@ -366,7 +857,7 @@ def main() -> int:
                  "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
                  "library_ms": f32["library_ms"],
                  "max_rel_err": {d: e[1] for d, e in errors[kname].items()},
-                 "chart": info["chart"], "per_dtype": per_dtype}
+                 "chart": info["chart"], "per_dtype": times[kname]}
         entries.append(entry)
         print(json.dumps(entry), flush=True)
 
@@ -388,29 +879,10 @@ def main() -> int:
                 "matrices_s": mats_s, "points": icr.chart.size,
                 "samples": S}
     print("whole_path: " + json.dumps(whole), flush=True)
-
-    # where a float32 apply's time goes, level by level: the torch glue
-    # before a launch (reflect pad, ξ layout and trailing-noise
-    # contraction) and the kernel itself
-    split = {}
-    for cname, (icr, mats, _) in models.items():
-        gen.manual_seed(5)
-        rows = []
-        for lvl in range(icr.chart.n_levels):
-            geom, field, xi, r, d, axis_mats = level_inputs(
-                icr, mats, lvl, torch.float32, gen)
-
-            def glue():
-                return dispatch.level_operands(
-                    field, xi, r, d, geom, axis_mats=axis_mats,
-                    sample_axis=True)
-
-            route, args = glue()
-            kern = dispatch.KERNELS[route]
-            rows.append({"level": lvl, "glue_ms": time_ms(glue, flush),
-                         "kernel_ms": time_ms(lambda: kern(*args), flush)})
-        split[cname] = rows
-    print("levels_fp32: " + json.dumps(split), flush=True)
+    print("levels_fp32: " + json.dumps(level_split(models, flush, gen)),
+          flush=True)
+    print("train_step: " + json.dumps(train_step_times(problems, flush)),
+          flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))

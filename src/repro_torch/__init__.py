@@ -1,35 +1,59 @@
 """PyTorch/CUDA port of the ICR system (Iterative Charted Refinement).
 
 A second package beside the JAX reference ``repro``: it imports torch and
-numpy only. ``ICR`` applies the generative square root on the kernel
-route (``use_pallas=True``) with hand-written Hopper kernels, or on the
-plain torch path. Tensors default to the ``cuda`` device; pass
-``device="cpu"`` to run the kernels' plain versions instead.
+numpy only. ``ICR`` applies the generative square root and its transpose
+on the kernel route (``use_pallas=True``) with hand-written Hopper
+kernels, forward and backward, or on the plain torch path; ``map_fit``
+and ``advi_fit`` train on it. Tensors default to the ``cuda`` device;
+pass ``device="cpu"`` to run the kernels' plain versions instead.
 """
 from .core import (
     ICR,
     Chart,
     Kernel,
+    Posterior,
+    Prior,
+    StandardizedModel,
+    advi_fit,
+    advi_posterior,
     exponential,
     galactic_dust_chart,
+    gaussian_log_likelihood,
     log_chart,
+    log_polar_chart,
+    lognormal_prior,
+    map_fit,
+    map_posterior,
     matern32,
     matern52,
+    neg_log_joint,
+    normal_prior,
+    poisson_log_likelihood,
     rbf,
     regular_chart,
+    uniform_prior,
 )
+from .data import charted_gp_dataset
 from .kernels import (
     BF16,
     FP32,
     DtypePolicy,
     refine_charted,
+    refine_charted_adjoint,
     refine_nd_fused,
     refine_stationary,
+    refine_stationary_adjoint,
 )
+from .optim import adamw, linear_warmup_cosine
 
 __all__ = [
-    "ICR", "Chart", "Kernel", "exponential", "galactic_dust_chart",
-    "log_chart", "matern32", "matern52", "rbf", "regular_chart", "BF16",
-    "FP32", "DtypePolicy", "refine_charted", "refine_nd_fused",
-    "refine_stationary",
+    "ICR", "Chart", "Kernel", "Posterior", "Prior", "StandardizedModel",
+    "advi_fit", "advi_posterior", "exponential", "galactic_dust_chart",
+    "gaussian_log_likelihood", "log_chart", "log_polar_chart",
+    "lognormal_prior", "map_fit", "map_posterior", "matern32", "matern52",
+    "neg_log_joint", "normal_prior", "poisson_log_likelihood", "rbf", "regular_chart",
+    "uniform_prior", "charted_gp_dataset", "BF16", "FP32", "DtypePolicy",
+    "refine_charted", "refine_charted_adjoint", "refine_nd_fused",
+    "refine_stationary", "refine_stationary_adjoint", "adamw",
+    "linear_warmup_cosine",
 ]

@@ -5,6 +5,10 @@ The JAX package's matrices dict (``sqrt0``; ``R``/``sqrtD`` per level;
 numpy arrays (``np.asarray`` of each leaf) and become tensors here, with
 the nesting kept. bfloat16 arrays (numpy's ml_dtypes extension type) go
 through float32, which holds every bfloat16 value exactly.
+
+A fit carries across the same way: ``posterior_to_torch`` turns a JAX
+``Posterior``'s ``mean``/``log_std`` lists and θ dict, as numpy arrays,
+into the port's ``Posterior``.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import torch
 
 from repro_torch.dtypes import as_dtype
 
-__all__ = ["to_torch", "matrices_to_torch", "xi_to_torch"]
+__all__ = ["to_torch", "matrices_to_torch", "xi_to_torch",
+           "posterior_to_torch"]
 
 
 def to_torch(tree, *, device="cpu", dtype=None):
@@ -43,3 +48,20 @@ def matrices_to_torch(mats: dict, *, device="cpu", dtype=None) -> dict:
 def xi_to_torch(xi, *, device="cpu", dtype=None) -> list:
     """A ξ list (one array per level) as the port's."""
     return list(to_torch(list(xi), device=device, dtype=dtype))
+
+
+def posterior_to_torch(icr, mean, log_std=None, theta=None, *, dtype=None):
+    """A JAX fit as the port's ``Posterior`` over `icr`: ``mean`` and
+    ``log_std`` are ξ-shaped lists of numpy arrays (``log_std`` None for a
+    MAP fit), ``theta`` a dict of numpy scalars or None. Tensors land on
+    ``icr.device``; ``dtype`` defaults to the policy's storage dtype for ξ,
+    and θ stays float32."""
+    from repro_torch.core.vi import Posterior
+
+    dtype = icr.policy.storage_dtype if dtype is None else dtype
+    kw = dict(device=icr.device, dtype=dtype)
+    return Posterior(
+        icr=icr, mean=xi_to_torch(mean, **kw),
+        log_std=None if log_std is None else xi_to_torch(log_std, **kw),
+        theta=None if theta is None else to_torch(
+            dict(theta), device=icr.device, dtype=torch.float32))

@@ -24,6 +24,7 @@ the chart maps are torch functions.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -217,6 +218,13 @@ class _LogMap:
         return self.base_scale * torch.exp(x)
 
 
+def _log_polar_map(x):
+    # (log r, azimuth) -> the plane
+    r = torch.exp(x[..., 0])
+    return torch.stack([r * torch.cos(x[..., 1]), r * torch.sin(x[..., 1])],
+                       dim=-1)
+
+
 def _dust_map(x):
     # log-r axis maps to true radii; the angular axes stay chart distances
     # (flat patch at each shell)
@@ -239,6 +247,18 @@ def log_chart(shape0, n_levels, *, n_csz=3, n_fsz=2, delta0=1.0, origin0=0.0,
     return Chart(shape0=shape0, n_levels=n_levels, n_csz=n_csz, n_fsz=n_fsz,
                  delta0=delta0, origin0=origin0, boundary=boundary,
                  phi_inv=_LogMap(base_scale), invariant=(False,))
+
+
+def log_polar_chart(shape0, n_levels, *, n_csz=3, n_fsz=2, delta_logr=0.05,
+                    origin_logr=0.0, boundary="reflect") -> Chart:
+    """2-D (log r, azimuth) chart mapped to the plane. Neither axis is
+    translation invariant, so both carry per-family matrices: the one
+    chart whose trailing axis is charted."""
+    n_phi = shape0[1] if not np.isscalar(shape0) else shape0
+    return Chart(shape0=shape0, n_levels=n_levels, n_csz=n_csz, n_fsz=n_fsz,
+                 delta0=(delta_logr, 2 * math.pi / n_phi),
+                 origin0=(origin_logr, 0.0), boundary=boundary,
+                 phi_inv=_log_polar_map, invariant=(False, False))
 
 
 def galactic_dust_chart(shape0, n_levels, *, n_csz=5, n_fsz=4,

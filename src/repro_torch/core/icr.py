@@ -6,6 +6,11 @@ excitation ξ (paper §3.2),
 
     s = sqrt(K_ICR)(ξ)  with  <s sᵀ> ≈ K_XX.
 
+``apply_sqrt_T`` applies the transpose, the second half of one inference
+evaluation ("two applications of the square root and its VJP", paper §1).
+Both are differentiable in ξ on every route, and in θ through
+``matrices(theta)`` on 1-D charts and on the plain path.
+
 ξ is a list of tensors, one per level:
   ξ[0]: (prod(shape0),)           — exact coarse-grid excitation
   ξ[l]: (F_l, n_fsz^d), l=1..L    — per-family fine corrections
@@ -23,7 +28,7 @@ from typing import List, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.policy import cast_tree, resolve
+from repro_torch.kernels.policy import cast_tree, resolve, tree_leaves
 
 from .charts import Chart
 from .kernels import Kernel
@@ -32,6 +37,7 @@ from .refine import (
     axis_refinement_matrices_level,
     level0_sqrt,
     refine_level,
+    refine_level_T,
     refinement_matrices_level,
 )
 
@@ -188,10 +194,7 @@ class ICR:
             field = field.to(pol.storage_dtype)
         for lvl in range(self.chart.n_levels):
             geom = LevelGeom.for_level(self.chart, lvl)
-            axis_mats = ((mats["Rax"][lvl], mats["sqrtDax"][lvl])
-                         if "Rax" in mats else None)
-            r = mats["R"][lvl] if "R" in mats else None
-            d = mats["sqrtD"][lvl] if "sqrtD" in mats else None
+            r, d, axis_mats = _level_mats(mats, lvl)
             field = dispatch.refine(field, xi[lvl + 1], r, d, geom,
                                     axis_mats=axis_mats, sample_axis=True,
                                     policy=pol)
@@ -219,6 +222,60 @@ class ICR:
         return self.apply_sqrt_batch(self.matrices(theta),
                                      self.init_xi(gen, dtype, batch=n))
 
+    def apply_sqrt_T(self, mats: dict, v: torch.Tensor) -> List[torch.Tensor]:
+        """Apply sqrt(K_ICR)ᵀ to a field-space vector (paper §3.2, Eq. 3):
+        v (*final_shape) -> ξ-shaped list (see ``xi_shapes``)."""
+        return [x[0] for x in self.apply_sqrt_T_batch(mats, v[None])]
+
+    def apply_sqrt_T_batch(self, mats: dict,
+                           v: torch.Tensor) -> List[torch.Tensor]:
+        """The transpose on a batch, v (S, *final_shape) -> ξ-shaped list
+        with a leading S. ``apply_sqrt`` is linear in ξ at fixed matrices,
+        so this is its VJP; on the kernel route it runs the adjoint
+        kernels level by level, finest first, then ``sqrt0ᵀ``, without the
+        forward pass an autograd VJP would run. That route is a transpose
+        at fixed matrices: its inputs must not require grad (differentiate
+        ``apply_sqrt`` instead)."""
+        n_s = v.shape[0]
+        g = v.to(mats["sqrt0"].dtype)
+        xi = [None] * (self.chart.n_levels + 1)
+        if self.use_pallas:
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in [v, *tree_leaves(mats)]):
+                raise NotImplementedError(
+                    "apply_sqrt_T on the kernel route is not "
+                    "differentiable; differentiate apply_sqrt instead")
+            from repro_torch.kernels import dispatch
+
+            pol = self.policy if self.dtype_policy is not None else None
+            for lvl in reversed(range(self.chart.n_levels)):
+                geom = LevelGeom.for_level(self.chart, lvl)
+                r, d, axis_mats = _level_mats(mats, lvl)
+                g, xi[lvl + 1] = dispatch.refine_T(
+                    g, r, d, geom, axis_mats=axis_mats, policy=pol)
+        else:
+            for lvl in reversed(range(self.chart.n_levels)):
+                geom = LevelGeom.for_level(self.chart, lvl)
+                r, d = mats["R"][lvl], mats["sqrtD"][lvl]
+                parts = [refine_level_T(x, r, d, geom) for x in g]
+                g = torch.stack([p[0] for p in parts])
+                xi[lvl + 1] = torch.stack([p[1] for p in parts])
+        xi[0] = torch.matmul(g.reshape(n_s, -1), mats["sqrt0"])
+        return xi
+
+    def __call__(self, xi: Sequence[torch.Tensor],
+                 theta: Mapping | None = None) -> torch.Tensor:
+        """The finest field for excitations ξ at kernel parameters θ:
+        ``apply_sqrt(matrices(theta), xi)``, differentiable in ξ, and in θ
+        where the route allows (see the module docstring)."""
+        return self.apply_sqrt(self.matrices(theta), xi)
+
+    def sample(self, gen: torch.Generator | None = None, theta=None,
+               dtype=None) -> torch.Tensor:
+        """Draw one approximate GP sample (paper Alg. 1; dtype defaults to
+        the policy's storage dtype)."""
+        return self(self.init_xi(gen, dtype), theta)
+
     # -- diagnostics ----------------------------------------------------------
     def implicit_sqrt(self, theta=None,
                       dtype=torch.float32) -> torch.Tensor:
@@ -238,3 +295,12 @@ class ICR:
         """Dense K_ICR = sqrt(K_ICR) sqrt(K_ICR)ᵀ (paper Fig. 3)."""
         a = self.implicit_sqrt(theta, dtype)
         return a @ a.T
+
+
+def _level_mats(mats: dict, lvl: int) -> tuple:
+    """(R, sqrtD, per-axis factors or None) of level `lvl`; each absent
+    kind is None."""
+    axis_mats = ((mats["Rax"][lvl], mats["sqrtDax"][lvl])
+                 if "Rax" in mats else None)
+    return (mats["R"][lvl] if "R" in mats else None,
+            mats["sqrtD"][lvl] if "sqrtD" in mats else None, axis_mats)

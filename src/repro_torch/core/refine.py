@@ -225,6 +225,18 @@ def reflect_pad(x: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
     return y.reshape(lead + y.shape[2:])
 
 
+def reflect_pad_T(y: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
+    """Transpose of ``reflect_pad``: fold the `b` reflected entries of each
+    side of the last `ndim` axes back onto the entries they copy."""
+    for ax in range(y.ndim - ndim, y.ndim):
+        n = y.shape[ax] - 2 * b
+        core = y.narrow(ax, b, n).clone()
+        core.narrow(ax, 1, b).add_(y.narrow(ax, 0, b).flip(ax))
+        core.narrow(ax, n - 1 - b, b).add_(y.narrow(ax, n + b, b).flip(ax))
+        y = core
+    return y
+
+
 def refine_level(coarse: torch.Tensor, xi: torch.Tensor, r: torch.Tensor,
                  sqrt_d: torch.Tensor, geom: LevelGeom) -> torch.Tensor:
     """One refinement application (paper Eq. 9 / Alg. 1 inner loop), the
@@ -267,3 +279,26 @@ def refine_level(coarse: torch.Tensor, xi: torch.Tensor, r: torch.Tensor,
         interleave += [a, nd + a]
     return fine.permute(interleave).reshape(geom.fine_shape)
 
+
+
+def refine_level_T(fine_cot: torch.Tensor, r: torch.Tensor,
+                   sqrt_d: torch.Tensor, geom: LevelGeom) -> tuple:
+    """Adjoint of ``refine_level`` in (coarse, xi) at fixed matrices: the
+    level is linear in (coarse, xi), so its VJP at the origin is the
+    transpose. The plain path's building block of ``ICR.apply_sqrt_T``;
+    differentiable in the cotangent and the matrices where grad is on.
+
+    fine_cot: (*fine_shape) -> (dcoarse: (*coarse_shape),
+    dxi: (prod(T), n_fsz^d)).
+    """
+    nd = len(geom.coarse_shape)
+    kw = dict(dtype=fine_cot.dtype, device=fine_cot.device,
+              requires_grad=True)
+    zc = torch.zeros(geom.coarse_shape, **kw)
+    zx = torch.zeros((int(np.prod(geom.T)), geom.n_fsz**nd), **kw)
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        out = refine_level(zc, zx, r, sqrt_d, geom)
+        dc, dx = torch.autograd.grad(out, (zc, zx), fine_cot,
+                                     create_graph=create)
+    return dc, dx

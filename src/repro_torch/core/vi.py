@@ -1,0 +1,194 @@
+"""Inference over the standardized model (paper §3.2, Eq. 3).
+
+The joint is ``log p(y, ξ) = log p(y | s(ξ)) - ||ξ||²/2 + const``. Because
+``s(ξ) = sqrt(K_ICR)(ξ)``, its value and gradient never invert the kernel
+matrix, the paper's central point. On the kernel route
+(``ICR(use_pallas=True)``) every gradient runs the adjoint kernels.
+
+* ``map_fit`` — MAP over ξ (the mode of Eq. 3), or over (ξ, θ) jointly;
+* ``advi_fit`` — mean-field Gaussian VI with the reparametrization trick.
+  Its Monte Carlo draws are a leading sample axis of ξ, so through
+  ``ICR.apply_sqrt_batch`` they ride inside the kernels, forward and
+  backward.
+
+Both take any likelihood. ξ is a tensor, or a list, tuple or dict of them
+(dicts in sorted key order, as the JAX package's pytrees).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.kernels.policy import tree_leaves
+from repro_torch.optim import adamw, linear_warmup_cosine
+
+Tree = Any
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
+
+
+def _sqnorm(tree) -> torch.Tensor:
+    return sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+
+
+def _trainable(tree):
+    return _tree_map(lambda x: x.detach().clone().requires_grad_(True), tree)
+
+
+def _detached(tree):
+    return _tree_map(lambda x: x.detach(), tree)
+
+
+def neg_log_joint(log_likelihood: Callable, forward: Callable):
+    """-log p(y, ξ) up to a constant (paper Eq. 3)."""
+
+    def loss(xi, y):
+        return -log_likelihood(y, forward(xi)) + 0.5 * _sqnorm(xi)
+
+    return loss
+
+
+def _fit(loss_fn, params, steps: int, lr: float) -> list:
+    """``steps`` AdamW steps on the tree `params` in place; the losses
+    before each step, as device scalars."""
+    leaves = tree_leaves(params)
+    opt = adamw(linear_warmup_cosine(lr, steps // 10 + 1, steps),
+                weight_decay=0.0)
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn(params)
+        opt.update(torch.autograd.grad(loss, leaves), leaves)
+        losses.append(loss.detach())
+    return losses
+
+
+def map_fit(log_likelihood, forward, xi0: Tree, y, steps: int = 300,
+            lr: float = 3e-2):
+    """MAP estimate of ξ (deterministic). Returns ``(xi_hat, losses)``,
+    losses (steps,) taken before each update. The JAX package's ``jit``
+    scan is a Python loop here."""
+    loss_fn = neg_log_joint(log_likelihood, forward)
+    xi = _trainable(xi0)
+    losses = _fit(lambda p: loss_fn(p, y), xi, steps, lr)
+    return _detached(xi), torch.stack(losses)
+
+
+def advi_fit(gen: torch.Generator, log_likelihood, forward, xi0: Tree, y,
+             steps: int = 300, lr: float = 2e-2, n_mc: int = 2):
+    """Mean-field ADVI over ξ with the closed-form Gaussian KL.
+
+    ``forward`` maps ξ with a leading axis of ``n_mc`` draws on every leaf
+    to ``n_mc`` fields (``lambda xi: icr.apply_sqrt_batch(mats, xi)``);
+    the draws come from `gen`. Returns ``((mean, log_std), elbos)``; a
+    sample is ``mean + exp(log_std) * eps``.
+    """
+    mean = _trainable(xi0)
+    log_std = _tree_map(
+        lambda x: torch.full_like(x, -2.0).requires_grad_(True), xi0)
+
+    def loss_fn(params):
+        mean, log_std = params
+        xi = _tree_map(
+            lambda m, ls: m + torch.exp(ls) * torch.randn(
+                (n_mc,) + m.shape, generator=gen, device=m.device,
+                dtype=torch.float32).to(m.dtype), mean, log_std)
+        fields = forward(xi)
+        ll = torch.stack([log_likelihood(y, f) for f in fields]).mean()
+        kl = sum(torch.sum(0.5 * (torch.exp(2 * ls.float())
+                                  + torch.square(m.float()) - 1.0)
+                           - ls.float())
+                 for m, ls in zip(tree_leaves(mean), tree_leaves(log_std)))
+        return -(ll - kl)
+
+    losses = _fit(loss_fn, (mean, log_std), steps, lr)
+    return (_detached(mean), _detached(log_std)), -torch.stack(losses)
+
+
+# -- posterior export ------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Posterior:
+    """A fitted GP posterior: mean-field Gaussian ``q(ξ)`` plus θ.
+
+    ``mean`` is a ξ-shaped list; ``log_std`` is ξ-shaped too, or None for
+    a MAP fit's delta posterior (every draw is ξ̂ and the predictive std is
+    zero). A field draw is ``sqrt(K_ICR)(mean + exp(log_std)·ε)``, one
+    batched application of the square root for all draws.
+    """
+
+    icr: Any
+    mean: list
+    log_std: list | None = None
+    theta: Any = None
+
+    def matrices(self) -> dict:
+        """The (cached) refinement matrices at the fitted θ."""
+        return self.icr.matrices_cached(self.theta)
+
+    def std(self) -> list:
+        """Per-level excitation std (zeros for a MAP delta posterior)."""
+        if self.log_std is None:
+            return [torch.zeros_like(m) for m in self.mean]
+        return [torch.exp(ls) for ls in self.log_std]
+
+    def sample_xi(self, gen: torch.Generator | None, n: int) -> list:
+        """n ξ draws from q, sample dim leading (``apply_sqrt_batch``'s
+        layout)."""
+        if self.log_std is None:
+            return [m.expand((n,) + m.shape) for m in self.mean]
+        return [m[None] + torch.exp(ls)[None] * torch.randn(
+                    (n,) + m.shape, generator=gen, device=m.device,
+                    dtype=torch.float32).to(m.dtype)
+                for m, ls in zip(self.mean, self.log_std)]
+
+    def sample_fields(self, gen: torch.Generator | None, n: int):
+        """n posterior field draws, (n, *final_shape)."""
+        return self.icr.apply_sqrt_batch(self.matrices(),
+                                         self.sample_xi(gen, n))
+
+    def moments(self, gen: torch.Generator | None, n: int) -> tuple:
+        """Monte Carlo predictive mean and std over n draws."""
+        f = self.sample_fields(gen, n).float()
+        return f.mean(0), f.std(0, correction=0)
+
+
+def map_posterior(icr, xi_hat, theta=None) -> Posterior:
+    """A MAP fit (``map_fit``'s ξ̂) as a delta Posterior."""
+    return Posterior(icr=icr, mean=list(xi_hat), theta=theta)
+
+
+def advi_posterior(icr, params, theta=None) -> Posterior:
+    """An ADVI fit (``advi_fit``'s ``(mean, log_std)``) as a Posterior."""
+    mean, log_std = params
+    return Posterior(icr=icr, mean=list(mean), log_std=list(log_std),
+                     theta=theta)
+
+
+def gaussian_log_likelihood(noise_std: float, obs_idx=None):
+    """Gaussian likelihood on the field, or on its flat entries
+    ``obs_idx``."""
+
+    def ll(y, s):
+        pred = s.reshape(-1) if obs_idx is None else s.reshape(-1)[obs_idx]
+        return -0.5 * torch.sum(torch.square((y - pred) / noise_std))
+
+    return ll
+
+
+def poisson_log_likelihood(obs_idx=None):
+    """Poisson counts with log-rate = field: a non-Gaussian likelihood
+    (the 'arbitrary likelihood' of paper §3.2)."""
+
+    def ll(y, s):
+        lam = s.reshape(-1) if obs_idx is None else s.reshape(-1)[obs_idx]
+        return torch.sum(y * lam - torch.exp(lam) - torch.lgamma(y + 1.0))
+
+    return ll

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the refinement levels, for Hopper.
 
-  icr_refine.py — 1-D forward levels, stationary and charted
-                  (csrc/refine_1d.cu)
-  nd_fused.py   — one launch per 2-D/3-D level (csrc/nd_fused.cu)
+  icr_refine.py — 1-D levels, stationary and charted: forward
+                  (csrc/refine_1d.cu) and adjoint
+                  (csrc/refine_1d_adjoint.cu), with autograd
+  nd_fused.py   — one launch per 2-D/3-D level (csrc/nd_fused.cu); its
+                  backward composes the 1-D adjoints
   dispatch.py   — route per level, and ``plan()``
   policy.py     — storage/accumulation dtype policy
   ref.py        — plain PyTorch oracles the kernels are held against
@@ -12,11 +14,18 @@ Importing this package builds nothing: a kernel is compiled at its first
 launch (or by ``build.build()``).
 """
 from . import build, dispatch, nd_fused, policy, ref
-from .icr_refine import refine_charted, refine_stationary
+from .icr_refine import (
+    refine_charted,
+    refine_charted_adjoint,
+    refine_stationary,
+    refine_stationary_adjoint,
+)
 from .nd_fused import refine_nd_fused
 from .policy import BF16, FP32, DtypePolicy
 
 __all__ = [
     "build", "dispatch", "nd_fused", "policy", "ref", "refine_charted",
-    "refine_stationary", "refine_nd_fused", "BF16", "FP32", "DtypePolicy",
+    "refine_charted_adjoint", "refine_stationary",
+    "refine_stationary_adjoint", "refine_nd_fused", "BF16", "FP32",
+    "DtypePolicy",
 ]

@@ -34,6 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # ending in (int device, void* stream)
 SIGNATURES = {
     "refine_1d": ("refine_1d_fwd", [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]),
+    "refine_1d_adjoint": ("refine_1d_adj",
+                          [_I, _I, _I] + [_P] * 5 + [_I] * 9 + [_P]),
     "nd_fused": ("refine_nd_fused_fwd", [_I] + [_P] * 7 + [_I] * 17 + [_P]),
 }
 
@@ -131,9 +133,12 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def check_operands(**tensors) -> None:
     """Wrapper-side checks before pointers go to C: every operand is a
-    contiguous CUDA tensor of one storage dtype, and none requires grad."""
+    contiguous CUDA tensor of one storage dtype. ``None`` operands (an
+    absent noise factor) are skipped."""
     dtypes, devices = set(), set()
     for name, t in tensors.items():
+        if t is None:
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, expected cuda")
         devices.add(t.device)
@@ -147,13 +152,3 @@ def check_operands(**tensors) -> None:
             f"operands on several devices {sorted(map(str, devices))}")
     dtype_code(dtypes.pop())
 
-
-def forbid_grad(*tensors) -> None:
-    """The kernel route is forward only in this port: the adjoint kernels
-    come with training. Refuse instead of autograd through plain code."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "gradients through the kernel route need the adjoint kernels, "
-            "which are not ported yet; use ICR(use_pallas=False) or "
-            "torch.no_grad()")

@@ -1,4 +1,4 @@
-"""The 1-D forward refinement kernels (paper Eq. 11–12, §4.3).
+"""The 1-D refinement kernels (paper Eq. 11–12, §4.3), forward and adjoint.
 
 One 1-D level reads the coarse field once, builds overlapping
 ``n_csz``-windows, contracts them with the stencil(s) and adds the
@@ -11,21 +11,36 @@ correlated correction ``sqrt(D) ξ``:
   axes); replaces the JAX package's ``_stationary_kernel``.
 * ``refine_charted`` — per-family matrices ``R[t]``, ``sqrtD[t]``
   (charted axes); replaces ``_charted_kernel``.
+* ``refine_stationary_adjoint`` / ``refine_charted_adjoint`` — the
+  transpose in (coarse, ξ): the overlap-add ``dcoarse`` of ``g·R`` and
+  ``dξ = g·sqrtD``, or ``dcoarse`` alone when no ``sqrtD`` is given;
+  replace the four ``_*_adjoint[_nn]_kernel``s.
 
-Both launch ``csrc/refine_1d.cu`` on CUDA tensors and run their plain
-version, the oracles of ``ref.py``, on CPU tensors. A CUDA tensor never
-reaches the plain version: the kernel launches or the wrapper raises.
+The forward launches ``csrc/refine_1d.cu`` and the adjoint
+``csrc/refine_1d_adjoint.cu`` on CUDA tensors; on CPU tensors each runs
+its plain version, the oracles of ``ref.py``. A CUDA tensor never reaches
+the plain version: the kernel launches or the wrapper raises.
+
+The forward wrappers are differentiable: where an operand requires grad
+they run inside a ``torch.autograd.Function`` whose backward is the
+adjoint kernel, plus the matrix cotangents (torch einsums) only for the
+matrices that require grad.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+from .ref import matrix_cotangents_1d
 from .ref import refine_charted_ref as refine_charted_plain
+from .ref import refine_charted_vjp_ref, refine_stationary_vjp_ref
 from .ref import refine_stationary_ref as refine_stationary_plain
 
 __all__ = ["refine_stationary", "refine_charted", "refine_stationary_plain",
-           "refine_charted_plain", "block_shape_1d"]
+           "refine_charted_plain", "refine_stationary_adjoint",
+           "refine_charted_adjoint", "refine_stationary_adjoint_plain",
+           "refine_charted_adjoint_plain", "block_shape_1d",
+           "block_shape_adjoint"]
 
 # outputs per sample staged by one block: two per thread of 256
 _OUTPUTS_PER_BLOCK = 512
@@ -42,8 +57,47 @@ def block_shape_1d(batch: int, t: int, n_fsz: int) -> tuple:
     return bf, bb
 
 
+def block_shape_adjoint(batch: int, t: int, n_fsz: int) -> tuple:
+    """(families, samples, samples staged at once) of one block of
+    ``refine_1d_adjoint.cu``: up to 512 g values per staged sample, rows
+    shorter than that staged several at a time, and ~528 blocks."""
+    bf = max(1, min(t, _OUTPUTS_PER_BLOCK // n_fsz))
+    sb = max(1, _OUTPUTS_PER_BLOCK // (bf * n_fsz))
+    nbf = -(-t // bf)
+    bb = max(1, min(batch, nbf * batch // _TARGET_BLOCKS))
+    bb = -(-bb // sb) * sb
+    return bf, bb, sb
+
+
+def refine_stationary_adjoint_plain(g, r, d=None, *, coarse_len: int):
+    """Plain version of ``refine_stationary_adjoint``, on any device."""
+    dc, dxi, _, _ = refine_stationary_vjp_ref(None, None, r, d, g,
+                                              coarse_len=coarse_len)
+    return (dc, dxi) if d is not None else dc
+
+
+def refine_charted_adjoint_plain(g, r, d=None, *, coarse_len: int):
+    """Plain version of ``refine_charted_adjoint``, on any device."""
+    dc, dxi, _, _ = refine_charted_vjp_ref(None, None, r, d, g,
+                                           coarse_len=coarse_len)
+    return (dc, dxi) if d is not None else dc
+
+
+def _check_1d(name, batch, t, n_fsz, n_csz, length, *, mat_lead, r, d):
+    if (r.shape != mat_lead + (n_fsz, n_csz)
+            or (d is not None and d.shape != mat_lead + (n_fsz, n_fsz))):
+        raise ValueError(
+            f"{name}: r {tuple(r.shape)} / d "
+            f"{None if d is None else tuple(d.shape)} do not fit {t} "
+            f"families of ({n_fsz}, {n_csz})")
+    if length < (t - 1) * (n_fsz // 2) + n_csz:
+        raise ValueError(f"{name}: coarse length {length} too short for "
+                         f"{t} families of ({n_fsz}, {n_csz})")
+    if max(t * n_fsz, length) >= 2**31:
+        raise ValueError(f"{name}: level too large for 32-bit indices")
+
+
 def _refine_1d(coarse, xi, r, d, *, charted: bool) -> torch.Tensor:
-    build.forbid_grad(coarse, xi, r, d)
     if coarse.device.type == "cpu":
         plain = refine_charted_plain if charted else refine_stationary_plain
         return plain(coarse, xi, r, d)
@@ -51,17 +105,11 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool) -> torch.Tensor:
     batch, length = coarse.shape
     _, t, n_fsz = xi.shape
     n_csz = r.shape[-1]
-    mat_lead = (t,) if charted else ()
-    if (xi.shape[0] != batch or r.shape != mat_lead + (n_fsz, n_csz)
-            or d.shape != mat_lead + (n_fsz, n_fsz)):
-        raise ValueError(
-            f"shape mismatch: coarse {tuple(coarse.shape)}, xi "
-            f"{tuple(xi.shape)}, r {tuple(r.shape)}, d {tuple(d.shape)}")
-    if length < (t - 1) * (n_fsz // 2) + n_csz:
-        raise ValueError(f"coarse length {length} too short for {t} "
-                         f"families of ({n_fsz}, {n_csz})")
-    if t * n_fsz >= 2**31:
-        raise ValueError("level too large for 32-bit family indices")
+    if xi.shape[0] != batch:
+        raise ValueError(f"xi {tuple(xi.shape)} does not match coarse "
+                         f"{tuple(coarse.shape)}")
+    _check_1d("refine_1d", batch, t, n_fsz, n_csz, length,
+              mat_lead=(t,) if charted else (), r=r, d=d)
     bf, bb = block_shape_1d(batch, t, n_fsz)
     if -(-batch // bb) > 65535:
         raise ValueError(f"batch {batch} exceeds the launch grid")
@@ -75,20 +123,105 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool) -> torch.Tensor:
     return out
 
 
+def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
+    noise = d is not None
+    if g.device.type == "cpu":
+        plain = (refine_charted_adjoint_plain if charted
+                 else refine_stationary_adjoint_plain)
+        return plain(g, r, d, coarse_len=coarse_len)
+    build.check_operands(g=g, r=r, d=d)
+    n_fsz, n_csz = r.shape[-2:]
+    batch, width = g.shape
+    t = width // n_fsz
+    if t * n_fsz != width:
+        raise ValueError(f"g width {width} is not a multiple of n_fsz "
+                         f"{n_fsz}")
+    _check_1d("refine_1d_adjoint", batch, t, n_fsz, n_csz, coarse_len,
+              mat_lead=(t,) if charted else (), r=r, d=d)
+    bf, bb, sb = block_shape_adjoint(batch, t, n_fsz)
+    if -(-batch // bb) > 65535:
+        raise ValueError(f"batch {batch} exceeds the launch grid")
+    dc = torch.empty((batch, coarse_len), dtype=g.dtype, device=g.device)
+    dxi = (torch.empty((batch, t, n_fsz), dtype=g.dtype, device=g.device)
+           if noise else None)
+    build.launch("refine_1d_adjoint", g.device, build.dtype_code(g.dtype),
+                 int(charted), int(noise), g.data_ptr(), r.data_ptr(),
+                 d.data_ptr() if noise else None, dc.data_ptr(),
+                 dxi.data_ptr() if noise else None, batch, coarse_len, t,
+                 n_csz, n_fsz, bf, bb, sb)
+    name = ("refine_charted_adjoint" if charted
+            else "refine_stationary_adjoint") + ("" if noise else "_nn")
+    build.LAUNCHES[name] += 1
+    return (dc, dxi) if noise else dc
+
+
+class _Refine1D(torch.autograd.Function):
+    """A 1-D forward level whose backward is the adjoint kernel."""
+
+    @staticmethod
+    def forward(ctx, coarse, xi, r, d, charted):
+        ctx.charted, ctx.coarse_len = charted, coarse.shape[-1]
+        mats = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        ctx.save_for_backward(r, d, *((coarse, xi) if mats else ()))
+        return _refine_1d(coarse, xi, r, d, charted=charted)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, d, *saved = ctx.saved_tensors
+        need_c, need_x, need_r, need_d = ctx.needs_input_grad[:4]
+        g = g.contiguous()
+        dc = dxi = dr = dd = None
+        if need_c or need_x:
+            out = _adjoint_1d(g, r, d if need_x else None, ctx.coarse_len,
+                              charted=ctx.charted)
+            dc, dxi = out if need_x else (out, None)
+        if need_r or need_d:
+            coarse, xi = saved
+            dr, dd = matrix_cotangents_1d(coarse, xi, r, g,
+                                          charted=ctx.charted, need_r=need_r,
+                                          need_d=need_d)
+        return dc if need_c else None, dxi, dr, dd, None
+
+
+def _refine_1d_autograd(coarse, xi, r, d, *, charted: bool):
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (coarse, xi, r, d)):
+        return _Refine1D.apply(coarse, xi, r, d, charted)
+    return _refine_1d(coarse, xi, r, d, charted=charted)
+
+
 def refine_stationary(coarse, xi, r, d) -> torch.Tensor:
     """Stationary 1-D refinement, one shared stencil.
 
     coarse: (B, L) halo-padded, L >= (T-1)*s + n_csz; xi: (B, T, n_fsz);
     r: (n_fsz, n_csz); d: (n_fsz, n_fsz) -> fine (B, T*n_fsz), in the
-    storage dtype of the operands with f32 accumulation.
+    storage dtype of the operands with f32 accumulation. Differentiable in
+    every operand.
     """
-    return _refine_1d(coarse, xi, r, d, charted=False)
+    return _refine_1d_autograd(coarse, xi, r, d, charted=False)
 
 
 def refine_charted(coarse, xi, r, d) -> torch.Tensor:
     """Charted 1-D refinement with per-family matrices.
 
     coarse: (B, L); xi: (B, T, n_fsz); r: (T, n_fsz, n_csz);
-    d: (T, n_fsz, n_fsz) -> fine (B, T*n_fsz).
+    d: (T, n_fsz, n_fsz) -> fine (B, T*n_fsz). Differentiable in every
+    operand.
     """
-    return _refine_1d(coarse, xi, r, d, charted=True)
+    return _refine_1d_autograd(coarse, xi, r, d, charted=True)
+
+
+def refine_stationary_adjoint(g, r, d=None, *, coarse_len: int):
+    """Transpose of ``refine_stationary`` in (coarse, ξ) at fixed matrices.
+
+    g: (B, T*n_fsz) cotangent of fine; r: (n_fsz, n_csz); d: (n_fsz,
+    n_fsz) or None -> (dcoarse (B, coarse_len), dxi (B, T, n_fsz)), or
+    dcoarse alone when d is None. dcoarse is zero where no window reaches.
+    """
+    return _adjoint_1d(g, r, d, coarse_len, charted=False)
+
+
+def refine_charted_adjoint(g, r, d=None, *, coarse_len: int):
+    """Transpose of ``refine_charted``: r (T, n_fsz, n_csz), d (T, n_fsz,
+    n_fsz) or None; otherwise as ``refine_stationary_adjoint``."""
+    return _adjoint_1d(g, r, d, coarse_len, charted=True)

@@ -11,33 +11,46 @@ in the JAX package.
 
 On CPU tensors the plain version ``refine_nd_fused_plain`` runs instead;
 a CUDA tensor launches the kernel or raises.
+
+The level is differentiable in the field and ξ at fixed matrices: its
+backward (``refine_nd_fused_adjoint``) composes the 1-D adjoint kernels in
+reverse axis order, axis 0 with noise (giving ``dξ0``) and the trailing
+axes without. Learned θ through this route (factors that require grad) is
+not ported yet and raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.refine import LevelGeom, reflect_pad
+from repro_torch.core.refine import LevelGeom, reflect_pad, reflect_pad_T
 
 from . import build
+from .icr_refine import refine_charted_adjoint, refine_stationary_adjoint
 from .ref import accum_dtype_for, windows_1d
 
 __all__ = ["refine_nd_fused", "refine_nd_fused_core", "refine_nd_fused_plain",
-           "nd_operands", "precontract_noise", "prepare_xi0", "nd_tile"]
+           "refine_nd_fused_adjoint", "nd_operands", "nd_operands_T",
+           "precontract_noise", "prepare_xi0", "prepare_xi0_T", "nd_tile"]
 
 # shared memory a block may take; the H100 allows 227 KB, the rest is
 # headroom so that two blocks can share an SM
 _SMEM_BUDGET = 110 * 1024
 
 
-def precontract_noise(xi_nd, ds, *, off: int, accum) -> torch.Tensor:
+def precontract_noise(xi_nd, ds, *, off: int, accum,
+                      transpose: bool = False) -> torch.Tensor:
     """Contract the trailing-axis noise factors ``sqrt(D_a)``, a >= 1, into
     the ``(..., T_0..T_{d-1}, f_0..f_{d-1})`` excitation tensor (``off``
-    leading sample dims). Only the axis-0 stage adds noise in the kernel."""
+    leading sample dims). Only the axis-0 stage adds noise in the kernel.
+    ``transpose=True`` contracts with ``sqrt(D_a)ᵀ`` instead."""
     nd = (xi_nd.ndim - off) // 2
     xi_nd = xi_nd.to(accum)
     for a in range(1, nd):
         x2 = torch.movedim(xi_nd, (off + a, off + nd + a), (-2, -1))
-        eq = "...tj,fj->...tf" if ds[a].ndim == 2 else "...tj,tfj->...tf"
+        if ds[a].ndim == 2:
+            eq = "...tf,fj->...tj" if transpose else "...tj,fj->...tf"
+        else:
+            eq = "...tf,tfj->...tj" if transpose else "...tj,tfj->...tf"
         x2 = torch.einsum(eq, x2, ds[a].to(accum))
         xi_nd = torch.movedim(x2, (-2, -1), (off + a, off + nd + a))
     return xi_nd
@@ -55,6 +68,21 @@ def prepare_xi0(xi, ds, T: tuple, fsz: int, *, accum, storage):
         perm += [1 + a, 1 + nd + a]
     return (xi_nd.permute(perm).reshape(n_s, T[0] * fsz, -1)
             .to(storage).contiguous())
+
+
+def prepare_xi0_T(dxi0, ds, T: tuple, fsz: int, *, accum, storage):
+    """Transpose of ``prepare_xi0``: ``(S, T_0·fsz, prod_f)`` -> ``(S,
+    prod T, fsz^d)``."""
+    nd = len(T)
+    n_s = dxi0.shape[0]
+    perm = [0, 1, 1 + nd]
+    for a in range(1, nd):
+        perm += [1 + a, 1 + nd + a]
+    x = dxi0.reshape([n_s] + [(tuple(T) + (fsz,) * nd)[p - 1]
+                              for p in perm[1:]])
+    x = x.permute([perm.index(i) for i in range(len(perm))])
+    x = precontract_noise(x, ds, off=1, accum=accum, transpose=True)
+    return x.reshape(n_s, -1, fsz**nd).to(storage)
 
 
 def refine_nd_fused_plain(field, xi0, r0, d0, rts, T) -> torch.Tensor:
@@ -125,11 +153,7 @@ def nd_tile(T: tuple, csz: int, fsz: int, charted: tuple) -> tuple:
     return tuple(tile)
 
 
-def refine_nd_fused_core(field, xi0, r0, d0, rts, T) -> torch.Tensor:
-    """The kernel on prepared operands (see ``nd_operands``): launches
-    ``nd_fused.cu`` on CUDA tensors, runs ``refine_nd_fused_plain`` on CPU
-    tensors. -> (S, T_0·fsz, prod_f)."""
-    build.forbid_grad(field, xi0, r0, d0, *rts)
+def _nd_fused(field, xi0, r0, d0, rts, T) -> torch.Tensor:
     if field.device.type == "cpu":
         return refine_nd_fused_plain(field, xi0, r0, d0, rts, T)
     nd = field.ndim - 1
@@ -170,6 +194,73 @@ def refine_nd_fused_core(field, xi0, r0, d0, rts, T) -> torch.Tensor:
     return out
 
 
+def refine_nd_fused_adjoint(g, r0, d0, rts, T, field_shape) -> tuple:
+    """Transpose of the level at fixed matrices: the 1-D adjoint kernels in
+    reverse axis order. g: (S, T_0·fsz, prod_f) cotangent of the output ->
+    (dfield (S, L_0, ..., L_{d-1}) of the padded field, dxi0 (S, T_0·fsz,
+    prod_f)). Axis 0 runs with noise; each trailing axis without, over its
+    whole padded length, so entries no window reaches come back zero. The
+    ``movedim`` copies between the axes are torch glue."""
+    nd = len(field_shape) - 1
+    fsz = r0.shape[-2]
+    n_s, l0 = field_shape[0], field_shape[1]
+    prod_f = g.shape[2]
+    f_trail = tuple(T[a] * fsz for a in range(1, nd))
+
+    def adjoint(r):
+        return refine_charted_adjoint if r.ndim == 3 else \
+            refine_stationary_adjoint
+
+    gb = g.reshape(n_s, T[0] * fsz, prod_f).movedim(1, -1)
+    dc0, dxi0 = adjoint(r0)(gb.reshape(n_s * prod_f, -1).contiguous(), r0,
+                            d0, coarse_len=l0)
+    dxi = (dxi0.reshape(n_s, prod_f, T[0], fsz).permute(0, 2, 3, 1)
+           .reshape(n_s, T[0] * fsz, prod_f))
+    cur = dc0.reshape((n_s,) + f_trail + (l0,)).movedim(-1, 1)
+    for a in range(1, nd):
+        arr = cur.movedim(1 + a, -1)
+        la = field_shape[1 + a]
+        dca = adjoint(rts[a - 1])(
+            arr.reshape(-1, T[a] * fsz).contiguous(), rts[a - 1],
+            coarse_len=la)
+        cur = dca.reshape(arr.shape[:-1] + (la,)).movedim(-1, 1 + a)
+    return cur, dxi
+
+
+class _NDFused(torch.autograd.Function):
+    """The fused N-D level at fixed matrices; backward by 1-D adjoints."""
+
+    @staticmethod
+    def forward(ctx, field, xi0, r0, d0, T, *rts):
+        ctx.T, ctx.field_shape = T, tuple(field.shape)
+        ctx.save_for_backward(r0, d0, *rts)
+        return _nd_fused(field, xi0, r0, d0, rts, T)
+
+    @staticmethod
+    def backward(ctx, g):
+        r0, d0, *rts = ctx.saved_tensors
+        dfield, dxi0 = refine_nd_fused_adjoint(g.contiguous(), r0, d0, rts,
+                                               ctx.T, ctx.field_shape)
+        return (dfield, dxi0) + (None,) * (3 + len(rts))
+
+
+def refine_nd_fused_core(field, xi0, r0, d0, rts, T) -> torch.Tensor:
+    """The kernel on prepared operands (see ``nd_operands``): launches
+    ``nd_fused.cu`` on CUDA tensors, runs ``refine_nd_fused_plain`` on CPU
+    tensors. -> (S, T_0·fsz, prod_f). Differentiable in ``field`` and
+    ``xi0``; factors that require grad raise ``NotImplementedError``."""
+    if torch.is_grad_enabled():
+        if any(m.requires_grad for m in (r0, d0, *rts)):
+            raise NotImplementedError(
+                "learned θ through the N-D route is not ported yet "
+                "(ROADMAP, open items: 'Learned θ through the N-D route'): "
+                "the N-D factors must not require grad; learn θ on a 1-D "
+                "chart or with ICR(use_pallas=False)")
+        if field.requires_grad or xi0.requires_grad:
+            return _NDFused.apply(field, xi0, r0, d0, tuple(T), *rts)
+    return _nd_fused(field, xi0, r0, d0, rts, T)
+
+
 def nd_operands(field, xi, rs, ds, geom: LevelGeom, *,
                 sample_axis: bool = False) -> tuple:
     """The torch glue before the kernel: ξ to the kernel layout with the
@@ -188,6 +279,18 @@ def nd_operands(field, xi, rs, ds, geom: LevelGeom, *,
     rts = tuple(rs[a].contiguous() for a in range(1, nd))
     return (field.contiguous(), xi0, rs[0].contiguous(), ds[0].contiguous(),
             rts, T)
+
+
+def nd_operands_T(dfield, dxi0, ds, geom: LevelGeom) -> tuple:
+    """Transpose of the glue of ``nd_operands`` (sample axis leading):
+    the padded field's and the kernel-layout ξ's cotangents -> those of the
+    field (S, *coarse_shape) and ξ (S, prod T, fsz^d)."""
+    nd = len(geom.coarse_shape)
+    if geom.boundary == "reflect":
+        dfield = reflect_pad_T(dfield, geom.b, nd)
+    dxi = prepare_xi0_T(dxi0, ds, tuple(geom.T), geom.n_fsz,
+                        accum=accum_dtype_for(dxi0), storage=dxi0.dtype)
+    return dfield, dxi
 
 
 def refine_nd_fused(field, xi, rs, ds, geom: LevelGeom, *,

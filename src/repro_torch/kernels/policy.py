@@ -53,6 +53,16 @@ def cast_tree(tree, dtype: torch.dtype):
     raise TypeError(f"cannot cast {type(tree)}")
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested list/tuple/dict, dicts in sorted key order
+    (the JAX package's pytree order)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [leaf for sub in tree for leaf in tree_leaves(sub)]
+
+
 BF16 = DtypePolicy()                                   # the mixed policy
 FP32 = DtypePolicy(torch.float32, torch.float32)       # the opt-out
 

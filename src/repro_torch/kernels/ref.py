@@ -77,6 +77,83 @@ def refine_charted_ref(coarse, xi, r, sqrt_d=None):
     return fine.reshape(*fine.shape[:-2], t * n_fsz).to(coarse.dtype)
 
 
+# -- adjoints (the plain versions of the adjoint kernels) -----------------------
+def overlap_add_1d(dw: torch.Tensor, coarse_len: int, s: int) -> torch.Tensor:
+    """Adjoint of ``windows_1d``: add the overlapping window cotangents back
+    onto the coarse grid, ``dcoarse[..., t*s + k] += dw[..., t, k]``.
+    dw: (..., T, n_csz) -> (..., coarse_len); entries no window covers are
+    zero."""
+    t, n_csz = dw.shape[-2], dw.shape[-1]
+    dc = torch.zeros(dw.shape[:-2] + (coarse_len,), dtype=dw.dtype,
+                     device=dw.device)
+    for k in range(n_csz):
+        dc[..., k : k + s * (t - 1) + 1 : s] += dw[..., k]
+    return dc
+
+
+def matrix_cotangents_1d(coarse, xi, r, g, *, charted: bool,
+                        need_r: bool = True, need_d: bool = True):
+    """Cotangents of a 1-D level's matrices: ``dr = Σ g ⊗ windows`` and
+    ``dd = Σ g ⊗ ξ`` over samples (and, for a shared stencil, families),
+    in float32 for narrower storage, rounded to r's dtype once. Either is
+    None when not asked for; at fixed matrices the window tensor is never
+    built."""
+    n_fsz, n_csz = r.shape[-2:]
+    t = g.shape[-1] // n_fsz
+    acc = accum_dtype_for(g, r)
+    g3 = g.to(acc).reshape(g.shape[:-1] + (t, n_fsz))
+    mat = "tf" if charted else "f"
+    dr = dd = None
+    if need_r:
+        w = windows_1d(coarse.to(acc), t, n_csz, n_fsz // 2)
+        dr = torch.einsum(f"...tf,...tc->{mat}c", g3, w).to(r.dtype)
+    if need_d:
+        dd = torch.einsum(f"...tf,...tj->{mat}j", g3, xi.to(acc)).to(r.dtype)
+    return dr, dd
+
+
+def _vjp_1d(coarse, xi, r, sqrt_d, g, coarse_len, *, charted: bool):
+    n_fsz = r.shape[-2]
+    t = g.shape[-1] // n_fsz
+    coarse_len = coarse.shape[-1] if coarse_len is None else coarse_len
+    acc = accum_dtype_for(g, r)
+    g3 = g.to(acc).reshape(g.shape[:-1] + (t, n_fsz))
+    mat = "tf" if charted else "f"
+    dw = torch.einsum(f"...tf,{mat}c->...tc", g3, r.to(acc))
+    dcoarse = overlap_add_1d(dw, coarse_len, n_fsz // 2).to(g.dtype)
+    dxi = None
+    if sqrt_d is not None:
+        dxi = torch.einsum(f"...tf,{mat}j->...tj", g3,
+                           sqrt_d.to(acc)).to(g.dtype)
+    dr, dd = matrix_cotangents_1d(
+        coarse, xi, r, g, charted=charted, need_r=coarse is not None,
+        need_d=xi is not None and sqrt_d is not None)
+    return dcoarse, dxi, dr, dd
+
+
+def refine_stationary_vjp_ref(coarse, xi, r, sqrt_d, g, *,
+                              coarse_len: int | None = None):
+    """VJP of ``refine_stationary_ref``: the plain version of the
+    stationary adjoint kernels.
+
+    g: (..., T*n_fsz) cotangent of fine -> (dcoarse (..., coarse_len),
+    dxi (..., T, n_fsz), dr (n_fsz, n_csz), dd (n_fsz, n_fsz)). ``coarse``
+    and ``xi`` are needed only for dr and dd: pass None (and
+    ``coarse_len``) for the kernel's outputs alone, and dr/dd come back
+    None. ``sqrt_d=None`` is the noise-free variant: dxi and dd are None.
+    The sums run in float32 for narrower storage and are rounded once.
+    """
+    return _vjp_1d(coarse, xi, r, sqrt_d, g, coarse_len, charted=False)
+
+
+def refine_charted_vjp_ref(coarse, xi, r, sqrt_d, g, *,
+                           coarse_len: int | None = None):
+    """VJP of ``refine_charted_ref`` (per-family matrices r: (T, n_fsz,
+    n_csz), sqrt_d: (T, n_fsz, n_fsz)); conventions as
+    ``refine_stationary_vjp_ref``."""
+    return _vjp_1d(coarse, xi, r, sqrt_d, g, coarse_len, charted=True)
+
+
 def refine_axes_ref(field, xi, rs, ds, *, T, n_fsz: int,
                     boundary: str = "shrink", b: int = 1):
     """Separable N-D refinement oracle: per-axis 1-D passes.

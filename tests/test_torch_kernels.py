@@ -274,19 +274,23 @@ def test_dispatch_refine_matches_reference(build_chart, dname, monkeypatch):
 
 # -- wrapper checks ----------------------------------------------------------------
 def test_kernel_route_refuses_gradients():
+    """The kernel route refuses only the gradients it has no kernel for:
+    a 1-D level carries them through its adjoint, while N-D factors that
+    require grad (learned θ through the N-D route) raise."""
     rng = np.random.default_rng(8)
     ops = [torch.tensor(a, dtype=torch.float32) for a in _1d_operands(
         rng, batch=1, t=5, n_csz=3, n_fsz=2, charted=False)]
     ops[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="adjoint"):
-        icr_refine.refine_stationary(*ops)
+    out = icr_refine.refine_stationary(*ops)
+    (dxi,) = torch.autograd.grad(out.sum(), ops[1])
+    assert dxi.shape == ops[1].shape
     with torch.no_grad():
         icr_refine.refine_stationary(*ops)
     c = tcharts.regular_chart((8, 8), 1)
     geom = trefine.LevelGeom.for_level(c, 0)
     rs = [torch.randn(2, 3, requires_grad=True), torch.randn(2, 3)]
     ds = [torch.randn(2, 2), torch.randn(2, 2)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         nd_fused.refine_nd_fused(torch.randn(8, 8), torch.randn(36, 4), rs,
                                  ds, geom)
 
