@@ -15,31 +15,39 @@ Phases (any failure ends the run with a non-zero exit code):
    ``log_chart(1024, 8, n_csz=5, n_fsz=4)``, ``log_polar_chart((64,64),
    3)``), S=8 samples, real refinement matrices, in float32 (max relative
    error <= 1e-5) and with bfloat16 storage (<= 5e-2): the three forward
-   kernels, and the four adjoint kernels at every launch a level's
-   backward makes (1-D levels; axis 0 and the trailing axes of N-D levels).
+   kernels, the two noise-free forward kernels at every non-final pass the
+   nd-axes route makes on the N-D levels, the pyramid at each chart's
+   cover (``dispatch.pyramid_cover`` at S=8), and the four adjoint kernels
+   at every launch a level's backward makes (1-D levels; axis 0 and the
+   trailing axes of N-D levels).
 3. path    — ``ICR(..., use_pallas=True).sample_batch(gen, 8)`` on each
-   chart at both dtype policies, held against the same apply through the
-   plain versions on the card; every forward kernel's launch counter,
-   zeroed just before, must have risen.
+   chart at both dtype policies, twice: with the pyramid (the default),
+   which must launch once for its cover plus the per-level kernel once per
+   uncovered level, and with ``use_pyramid=False``, every level on its
+   per-level kernel; each held against the same apply through the plain
+   versions on the card, the launch counters zeroed just before.
 4. train   — training on the kernel route, float32, each path with the
    launch counters zeroed just before and read just after: ``dust`` 20
    ``map_fit`` and 10 ``advi_fit`` steps (n_mc=2) on ``charted_gp_dataset``
-   (obs_frac 0.3, noise 0.05); ``regular`` 10 joint (ξ, ρ) MAP steps under
-   a lognormal prior, the matrices rebuilt in every step; ``log`` and
-   ``log_polar`` 10 MAP steps at fixed θ. Losses must fall and every
-   adjoint kernel the path reaches must have launched. Then, per chart,
-   one step's gradient through the kernels against the same through the
-   plain versions (ξ <= 1e-5; on ``regular`` the matrix cotangents <= 1e-4
-   and dρ reported, see ``theta_gradient``), and
-   ``ICR.apply_sqrt_T_batch`` on the kernels against autograd of the plain
-   apply at both policies.
-5. times   — per kernel at its chart's largest level: CUDA-event medians of
-   the kernel, its plain version and, where one PyTorch call computes (part
-   of) the same function, that call; the byte/operation bound; whole-path
-   milliseconds per chart; per level of each chart at float32, the torch
-   glue against the kernels, forward and backward; and one training
-   step's milliseconds (forward, backward and update) per chart, with its
-   host enqueue time.
+   (obs_frac 0.3, noise 0.05); ``regular``, ``dust_theta`` and
+   ``log_polar_theta`` 10 joint (ξ, ρ) MAP steps under a lognormal prior,
+   the matrices rebuilt in every step (the N-D ones through the pyramid's
+   replay over the nd-axes route); ``log`` and ``log_polar`` 10 MAP steps
+   at fixed θ. Losses must fall and every kernel the path reaches must
+   have launched. Then, per path, one step's gradient through the kernels
+   against the same through the plain versions (ξ <= 1e-5; on the
+   learned-θ paths the matrix cotangents <= 1e-4 and dρ reported, see
+   ``theta_gradient``), and ``ICR.apply_sqrt_T_batch`` on the kernels
+   against autograd of the plain apply at both policies.
+5. times   — per kernel at its chart's largest level (the pyramid at the
+   dust cover, with the per-level kernels it replaces beside it):
+   CUDA-event medians of the kernel, its plain version and, where one
+   PyTorch call computes (part of) the same function, that call; the
+   byte/operation bound; whole-path milliseconds per chart with the
+   pyramid on and off; per level of each chart at float32, the torch glue
+   against the kernels, forward and backward; and one training step's
+   milliseconds (forward, backward and update) per path, with its host
+   enqueue time.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -66,23 +74,32 @@ F32_PEAK = 67e12             # H100 SXM f32 (non-tensor) FLOP/s, data sheet
 BANDWIDTH = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12)]
 
+FWD_SRC = "src/repro_torch/kernels/csrc/refine_1d.cu"
 ADJ_SRC = "src/repro_torch/kernels/csrc/refine_1d_adjoint.cu"
+# per kernel: its source, the TPU kernel it replaces, and the chart (and
+# level axis, for the noise-free passes and the trailing-axis adjoints)
+# whose largest level it is timed at
 KERNEL_INFO = {
     "refine_stationary": {
-        "source": "src/repro_torch/kernels/csrc/refine_1d.cu",
+        "source": FWD_SRC,
         "replaces": "src/repro/kernels/icr_refine.py:98",
         "replaces_fn": "_stationary_kernel",
         "chart": "regular"},
+    "refine_stationary_nn": {
+        "source": FWD_SRC,
+        "replaces": "src/repro/kernels/icr_refine.py:115",
+        "replaces_fn": "_stationary_nn_kernel",
+        "chart": "dust", "axis": 1},
     "refine_charted": {
-        "source": "src/repro_torch/kernels/csrc/refine_1d.cu",
+        "source": FWD_SRC,
         "replaces": "src/repro/kernels/icr_refine.py:129",
         "replaces_fn": "_charted_kernel",
         "chart": "log"},
-    "refine_nd_fused": {
-        "source": "src/repro_torch/kernels/csrc/nd_fused.cu",
-        "replaces": "src/repro/kernels/nd_fused.py:119",
-        "replaces_fn": "_nd_fused_kernel",
-        "chart": "dust"},
+    "refine_charted_nn": {
+        "source": FWD_SRC,
+        "replaces": "src/repro/kernels/icr_refine.py:145",
+        "replaces_fn": "_charted_nn_kernel",
+        "chart": "log_polar", "axis": 1},
     "refine_stationary_adjoint": {
         "source": ADJ_SRC,
         "replaces": "src/repro/kernels/icr_refine.py:184",
@@ -103,15 +120,38 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/icr_refine.py:242",
         "replaces_fn": "_charted_adjoint_nn_kernel",
         "chart": "log_polar"},
+    "refine_nd_fused": {
+        "source": "src/repro_torch/kernels/csrc/nd_fused.cu",
+        "replaces": "src/repro/kernels/nd_fused.py:119",
+        "replaces_fn": "_nd_fused_kernel",
+        "chart": "dust"},
+    "refine_pyramid": {
+        "source": "src/repro_torch/kernels/csrc/pyramid.cu",
+        "replaces": "src/repro/kernels/pyramid.py:150",
+        "replaces_fn": "_pyramid_kernel",
+        "chart": "dust"},
 }
 FORWARD = ("refine_stationary", "refine_charted", "refine_nd_fused")
-ADJOINT = tuple(k for k in KERNEL_INFO if k not in FORWARD)
-# the adjoint kernels each training path must reach
+NOISE_FREE = ("refine_stationary_nn", "refine_charted_nn")
+PYRAMID = "refine_pyramid"
+ADJOINT = tuple(k for k in KERNEL_INFO
+                if k not in FORWARD + NOISE_FREE + (PYRAMID,))
+# the kernels each training path must reach: the fixed-θ paths through
+# the pyramid's forward and its adjoint chain (regular: the pyramid's
+# replay), the learned-θ N-D paths through the pyramid's replay over the
+# nd-axes route
 TRAIN_REACHES = {
-    "dust": ("refine_charted_adjoint", "refine_stationary_adjoint_nn"),
-    "regular": ("refine_stationary_adjoint",),
-    "log": ("refine_charted_adjoint",),
-    "log_polar": ("refine_charted_adjoint", "refine_charted_adjoint_nn"),
+    "dust": (PYRAMID, "refine_charted_adjoint",
+             "refine_stationary_adjoint_nn"),
+    "regular": (PYRAMID, "refine_stationary", "refine_stationary_adjoint"),
+    "log": (PYRAMID, "refine_charted_adjoint"),
+    "log_polar": (PYRAMID, "refine_charted_adjoint",
+                  "refine_charted_adjoint_nn"),
+    "dust_theta": (PYRAMID, "refine_charted", "refine_stationary_nn",
+                   "refine_charted_adjoint", "refine_stationary_adjoint_nn"),
+    "log_polar_theta": (PYRAMID, "refine_charted", "refine_charted_nn",
+                        "refine_charted_adjoint",
+                        "refine_charted_adjoint_nn"),
 }
 NOISE = 0.05                 # observation noise of the training data
 OBS_FRAC = 0.3
@@ -220,6 +260,72 @@ def adjoint_cases(icr, mats, lvl, dtype, gen):
     return out
 
 
+def nn_cases(icr, mats, lvl, dtype, gen):
+    """Every noise-free pass the nd-axes route makes on N-D level `lvl`
+    (axes d-1..1, before axis 0's pass with noise) at S samples, with a
+    seeded coarse input of that pass's shape: ``[(kernel name, coarse, r,
+    families, axis)]``. The rows of axis a's pass are the samples times the
+    other axes: coarse extents before a, fine extents after it."""
+    import torch
+
+    from repro_torch.core.refine import LevelGeom
+
+    geom = LevelGeom.for_level(icr.chart, lvl)
+    fsz, t = geom.n_fsz, geom.T
+    b = geom.b if geom.boundary == "reflect" else 0
+    out = []
+    for a in range(icr.chart.ndim - 1, 0, -1):
+        r = mats["Rax"][lvl][a].to(dtype).contiguous()
+        rows = (S * math.prod(geom.coarse_shape[:a])
+                * math.prod(n * fsz for n in t[a + 1:]))
+        coarse = torch.randn((rows, geom.coarse_shape[a] + 2 * b),
+                             generator=gen, device="cuda").to(dtype)
+        name = "refine_charted_nn" if r.ndim == 3 else "refine_stationary_nn"
+        out.append((name, coarse, r, t[a], a))
+    return out
+
+
+def nn_ops():
+    """name -> (kernel wrapper, plain version) of the noise-free kernels,
+    each called as f(coarse, r, families)."""
+    from repro_torch.kernels import icr_refine as ir
+
+    return {
+        "refine_stationary_nn": (ir.refine_stationary_nn,
+                                 ir.refine_stationary_nn_plain),
+        "refine_charted_nn": (lambda c, r, t: ir.refine_charted_nn(c, r),
+                              lambda c, r, t: ir.refine_charted_nn_plain(
+                                  c, r)),
+    }
+
+
+def pyramid_case(icr, mats, dtype, gen, samples=S):
+    """The pyramid's operands at the chart's cover for `samples` samples
+    of `dtype` (seeded field and ξ): ``(geoms, field, levels)``, or None
+    when the chart has no cover."""
+    import torch
+
+    from repro_torch.core.icr import _pyramid_mats
+    from repro_torch.core.refine import LevelGeom
+    from repro_torch.kernels import dispatch, pyramid
+
+    k = dispatch.pyramid_cover(icr.chart, samples=samples,
+                               itemsize=dtype.itemsize)
+    if k is None:
+        return None
+    geoms = [LevelGeom.for_level(icr.chart, lvl) for lvl in range(k)]
+    field = torch.randn((samples,) + geoms[0].coarse_shape, generator=gen,
+                        device="cuda").to(dtype)
+    xis = [torch.randn((samples,) + icr.xi_shapes()[lvl + 1], generator=gen,
+                       device="cuda").to(dtype) for lvl in range(k)]
+    pm = [_pyramid_mats(mats, g, lvl) for lvl, g in enumerate(geoms)]
+    pm = [([r.to(dtype) for r in rs], [d.to(dtype) for d in ds])
+          for rs, ds in pm]
+    field, levels = pyramid.pyramid_operands(field, xis, pm, geoms,
+                                             sample_axis=True)
+    return geoms, field, levels
+
+
 def plain_apply(icr, mats, xi):
     """``icr.apply_sqrt_batch`` with every kernel replaced by its plain
     version, on the same device (differentiable by plain autograd)."""
@@ -249,10 +355,11 @@ def plain_apply(icr, mats, xi):
 
 def time_ms(fn, flush) -> float:
     """Median milliseconds of `fn` by CUDA events, L2 flushed before each
-    repetition. The flush (a 512 MB memset, ~0.15 ms on the card) also
+    repetition. The flush (a 2 GiB memset, ~0.64 ms on the card) also
     keeps the card busy while the host enqueues `fn`, so the events time
     the device work and not the host's launch overhead, unless `fn` takes
-    the host longer than that to enqueue (``enqueue_ms``)."""
+    the host longer than that to enqueue (``enqueue_ms``; the pyramid's
+    wrapper takes 0.1-0.3 ms, more than a 512 MB memset hid)."""
     import torch
 
     for _ in range(3):
@@ -357,12 +464,32 @@ def check_kernels(models, gen) -> dict:
             raise AssertionError(f"{kname} {where} {dname}: relative error "
                                  f"{rel:.3g} > {TOL[dname]}")
 
+    from repro_torch.kernels import pyramid
+
+    nn = nn_ops()
     for cname, (icr, mats, _) in models.items():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             m = cast_tree(mats, dtype)
             gen.manual_seed(1)
+            case = pyramid_case(icr, m, dtype, gen)
+            if case is not None:
+                geoms, field, levels = case
+                got = pyramid.refine_pyramid_core(field, geoms, levels)
+                torch.cuda.synchronize()
+                ref = pyramid.refine_pyramid_plain(field, geoms, levels)
+                record(PYRAMID, dname, *rel_err(got, ref),
+                       f"{cname} cover {len(geoms)}")
             for lvl in range(icr.chart.n_levels):
+                if icr.chart.ndim > 1:
+                    for name, coarse, r, t, _ in nn_cases(icr, m, lvl,
+                                                          dtype, gen):
+                        kern, plain = nn[name]
+                        got = kern(coarse, r, t)
+                        torch.cuda.synchronize()
+                        record(name, dname,
+                               *rel_err(got, plain(coarse, r, t)),
+                               f"{cname} level {lvl} rows {coarse.shape[0]}")
                 geom, field, xi, r, d, axis_mats = level_inputs(
                     icr, m, lvl, dtype, gen)
                 route, args = dispatch.level_operands(
@@ -389,77 +516,114 @@ def check_kernels(models, gen) -> dict:
 
 
 def check_path(models, gen) -> tuple:
-    """Phase 3: sample_batch on the forward kernels at both policies."""
+    """Phase 3: sample_batch at both policies, twice per chart: with the
+    pyramid (the default), which must launch once for its cover and the
+    per-level kernel once for every other level, and with
+    ``use_pyramid=False``, every level on its per-level kernel."""
     import torch
 
     from repro_torch import ICR
     from repro_torch.kernels import build, dispatch
 
-    launches = {k: 0 for k in FORWARD}
-    path_err = {}
+    launches = {k: 0 for k in KERNEL_INFO}
+    path_err, covers = {}, {}
     for cname, (icr0, _, _) in models.items():
         for pol in (None, "bf16"):
-            icr = ICR(icr0.chart, icr0.kernel, use_pallas=True,
-                      dtype_policy=pol)
-            build.LAUNCHES.clear()
-            gen.manual_seed(7)
-            out = icr.sample_batch(gen, S)
-            torch.cuda.synchronize()
-            counts = {k: build.LAUNCHES[k] for k in FORWARD}
-            for k, n in counts.items():
-                launches[k] += n
-            want = dispatch.plan(icr.chart)[0]["kernel"]
-            if counts[want] != icr.chart.n_levels:
-                raise AssertionError(
-                    f"{cname} {pol}: {want} launched {counts[want]} times, "
-                    f"expected {icr.chart.n_levels}")
-            gen.manual_seed(7)
-            xi = icr.init_xi(gen, batch=S)
-            ref = plain_apply(icr, icr.matrices(), xi)
-            if (tuple(out.shape) != (S,) + icr.chart.final_shape
-                    or not bool(torch.isfinite(out).all())):
-                raise AssertionError(f"{cname} {pol}: bad output "
-                                     f"{tuple(out.shape)}")
-            _, rel = rel_err(out, ref)
-            tol = TOL["float32" if pol is None else "bfloat16"]
-            path_err[f"{cname}-{pol or 'fp32'}"] = rel
-            if not rel <= tol:
-                raise AssertionError(f"{cname} {pol}: whole path relative "
-                                     f"error {rel:.3g} > {tol}")
-    missing = [k for k, n in launches.items() if n == 0]
+            for use_pyramid in (True, False):
+                icr = ICR(icr0.chart, icr0.kernel, use_pallas=True,
+                          dtype_policy=pol, use_pyramid=use_pyramid)
+                build.LAUNCHES.clear()
+                gen.manual_seed(7)
+                out = icr.sample_batch(gen, S)
+                torch.cuda.synchronize()
+                counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+                for k, n in counts.items():
+                    launches[k] += n
+                key = f"{cname}-{pol or 'fp32'}" + (
+                    "" if use_pyramid else "-per-level")
+                cover = (dispatch.pyramid_cover(
+                    icr.chart, samples=S,
+                    itemsize=icr.policy.storage_dtype.itemsize)
+                    if use_pyramid else None) or 0
+                if use_pyramid:
+                    covers[key] = cover
+                want = dispatch.plan(icr.chart)[0]["kernel"]
+                expect = {want: icr.chart.n_levels - cover,
+                          PYRAMID: int(cover > 0)}
+                if {k: counts[k] for k in expect} != expect or sum(
+                        counts.values()) != sum(expect.values()):
+                    raise AssertionError(f"{key}: launches {counts}, "
+                                         f"expected {expect}")
+                gen.manual_seed(7)
+                xi = icr.init_xi(gen, batch=S)
+                ref = plain_apply(icr, icr.matrices(), xi)
+                if (tuple(out.shape) != (S,) + icr.chart.final_shape
+                        or not bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"{key}: bad output "
+                                         f"{tuple(out.shape)}")
+                _, rel = rel_err(out, ref)
+                tol = TOL["float32" if pol is None else "bfloat16"]
+                path_err[key] = rel
+                if not rel <= tol:
+                    raise AssertionError(f"{key}: whole path relative "
+                                         f"error {rel:.3g} > {tol}")
+    missing = [k for k in FORWARD + (PYRAMID,) if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
-    return launches, path_err
+    return launches, path_err, covers
+
+
+# learned-θ paths: chart -> (ρ of the data, mean and std of ρ's lognormal
+# prior); regular's are multiples of its point count
+THETA_PATHS = {"regular": (0.04, 0.06, 0.03), "dust_theta": (0.5, 0.8, 0.4),
+               "log_polar_theta": (2.0, 3.0, 1.5)}
+
+
+# dρ through the kernels against the float64 witness: the float32 build
+# of the level-0 square root rounds its eigenvalues near the clip by
+# ~1e-7 ‖K‖, which its derivative 1/(2 sqrt λ) amplifies (0.38 % on a
+# (6, 8, 8) dust chart on the CPU; PERF.md)
+DRHO_F64_TOL = 1e-2
 
 
 def train_problems(models, gen) -> dict:
-    """Per chart: the float32 ICR of the training path, its data
+    """Per path: the float32 ICR of the training path, its data
     (``charted_gp_dataset``), its likelihood, initial parameters, and its
     forward map through the kernels (``forward``) and, at fixed θ, through
-    the plain versions (``plain_forward``). The regular chart learns (ξ, ρ)
-    jointly under a lognormal prior on ρ, as
-    ``examples/gp_regression_vi.py`` does: its forward rebuilds the
-    matrices from θ (``ICR.__call__``)."""
+    the plain versions (``plain_forward``). ``regular``, ``dust_theta`` and
+    ``log_polar_theta`` learn (ξ, ρ) jointly under a lognormal prior on ρ,
+    as ``examples/gp_regression_vi.py`` does: their forward rebuilds the
+    matrices from θ (``ICR.__call__``); the N-D ones train through the
+    pyramid's replay over the nd-axes route."""
     from repro_torch import (ICR, StandardizedModel, charted_gp_dataset,
                              gaussian_log_likelihood, lognormal_prior)
 
     out = {}
-    for cname, (icr, mats, _) in models.items():
+    paths = [(c, c) for c in models] + [("dust_theta", "dust"),
+                                        ("log_polar_theta", "log_polar")]
+    for pname, cname in paths:
+        icr, mats, _ = models[cname]
         p = {}
-        if cname == "regular":
-            n = icr.chart.size
-            icr = ICR(icr.chart, icr.kernel.with_defaults(rho=0.04 * n),
+        if pname in THETA_PATHS:
+            scale = icr.chart.size if pname == "regular" else 1
+            rho, mean, std = (scale * v for v in THETA_PATHS[pname])
+            icr = ICR(icr.chart, icr.kernel.with_defaults(rho=rho),
                       use_pallas=True)
-            priors = StandardizedModel(
-                {"rho": lognormal_prior(0.06 * n, 0.03 * n)})
+            priors = StandardizedModel({"rho": lognormal_prior(mean, std)})
 
             def joint(latent, icr=icr, priors=priors):
                 theta = dict(priors(latent[1]))
                 theta["sigma"] = 1.0
                 return icr(latent[0], theta)
 
+            # the example's lr (2e-2 at n0 = 64 level-0 points) at the
+            # same step of the dominant level-0 mode: every one of the n0
+            # coordinates of ξ0 reaches it through the symmetric root
+            # V sqrt(Λ) Vᵀ, so Adam's per-coordinate step moves it by
+            # lr·sqrt(n0)
+            n0 = math.prod(icr.chart.shape(0))
             p.update(priors=priors, params=(icr.zero_xi(), priors.zero_xi()),
-                     forward=joint, lr=2e-2)
+                     forward=joint, lr=2e-2 * math.sqrt(64 / n0))
         else:
             p.update(params=icr.zero_xi(), lr=3e-2,
                      forward=lambda xi, icr=icr, m=mats: icr.apply_sqrt(m, xi),
@@ -470,36 +634,42 @@ def train_problems(models, gen) -> dict:
                                            noise_std=NOISE)
         p.update(icr=icr, mats=mats, y=y, obs_idx=obs_idx,
                  ll=gaussian_log_likelihood(NOISE, obs_idx))
-        out[cname] = p
+        out[pname] = p
     return out
 
 
-def theta_gradient(p, point) -> dict:
-    """The regular chart's joint (ξ, ρ) gradient at ξ = `point`, ρ's latent
+def theta_gradient(pname, p, point) -> dict:
+    """A learned-θ path's joint (ξ, ρ) gradient at ξ = `point`, ρ's latent
     0.3: the matrices are built once from θ and the loss differentiated
-    through the kernels and through the plain versions on the card, and
-    through the plain versions on the CPU (another float32 evaluation of
-    the same function). The ξ gradients are held at 1e-5 and the matrix
-    cotangents (d sqrt0, dR, dsqrtD of every level) at 1e-4: they are
-    everything the kernel route contributes to dρ. dρ itself goes on
-    through the eigh backward of the 1024-point level-0 kernel matrix, near
-    rank-deficient at ρ ~ 6e4: it is reported, with the spread of the plain
-    version between the card and the CPU beside it, and must be finite."""
+    through the kernels and through the plain versions on the card. The
+    ξ gradients are held at 1e-5 and the matrix cotangents (d sqrt0 and
+    every level's dR, dsqrtD, or on N-D charts every per-axis factor's)
+    at 1e-4: they are everything the kernel route contributes to dρ. dρ
+    sums them through the square roots' backward, which weighs modes near
+    the clip by up to 1/(2 sqrt(eps)), so dρ through the kernels is held
+    against the plain versions' at 1e-3. The witness of dρ itself is the plain versions in float64 on the
+    card, matrices built in float64 (``ICR.matrices(dtype=)``): dρ through
+    the kernels is held against it at ``DRHO_F64_TOL``, the float32
+    rounding of the level-0 eigenvalues near the clip (PERF.md). The plain
+    versions in float32 on the CPU are reported beside them."""
     import torch
 
     from repro_torch import ICR, gaussian_log_likelihood, neg_log_joint
+    from repro_torch.kernels.policy import tree_leaves
 
-    def grads(icr, applies, obs_idx, y, point):
-        rho = torch.tensor(0.3, device=icr.device, requires_grad=True)
+    def grads(icr, applies, obs_idx, y, point, dtype=torch.float32):
+        rho = torch.tensor(0.3, device=icr.device, dtype=dtype,
+                           requires_grad=True)
         theta = dict(p["priors"]({"rho": rho}))
         theta["sigma"] = 1.0
-        mats = icr.matrices(theta)
-        leaves = [mats["sqrt0"], *mats["R"], *mats["sqrtD"]]
+        mats = icr.matrices(theta, dtype=dtype)
+        leaves = tree_leaves(mats)
         ll = gaussian_log_likelihood(NOISE, obs_idx)
         out = []
         for apply in applies:
-            xi = _trainable(point)
-            loss = neg_log_joint(ll, lambda x: apply(mats, x))(xi, y)
+            xi = _trainable([x.to(dtype) for x in point])
+            loss = neg_log_joint(ll, lambda x: apply(mats, x))(
+                xi, y.to(dtype))
             g = torch.autograd.grad(loss, xi + leaves + [rho],
                                     retain_graph=True)
             out.append((g[:len(xi)], g[len(xi):-1], float(g[-1])))
@@ -510,6 +680,8 @@ def theta_gradient(p, point) -> dict:
                                                           for x in xi])[0]]
     (gx, gm, drho), (px, pm, prho) = grads(
         icr, [icr.apply_sqrt] + plain, p["obs_idx"], p["y"], point)
+    ((_, _, wrho),) = grads(icr, plain, p["obs_idx"], p["y"], point,
+                            dtype=torch.float64)
     cpu = ICR(icr.chart, icr.kernel, use_pallas=True, device="cpu")
     plain_cpu = [lambda m, xi: plain_apply(cpu, m, [x[None]
                                                      for x in xi])[0]]
@@ -518,14 +690,25 @@ def theta_gradient(p, point) -> dict:
     mat_err = max_rel(gm, pm)
     out = {"grad_xi_max_rel_err": max_rel(gx, px),
            "grad_mats_max_rel_err": mat_err,
-           "drho": {"kernels": drho, "plain": prho, "plain_cpu": crho},
+           "drho": {"kernels": drho, "plain": prho, "plain_f64": wrho,
+                    "plain_cpu": crho},
            "drho_rel_err": abs(drho - prho) / abs(prho),
+           "drho_vs_f64_rel_err": abs(drho - wrho) / abs(wrho),
+           "drho_plain_vs_f64_rel_err": abs(prho - wrho) / abs(wrho),
+           "drho_plain_cpu_vs_f64_rel_err": abs(crho - wrho) / abs(wrho),
            "drho_plain_card_vs_cpu_rel": abs(prho - crho) / abs(crho)}
+    print(f"{pname} θ-gradient: {json.dumps(out)}", file=sys.stderr)
     if not mat_err <= 1e-4:
-        raise AssertionError(f"regular: matrix cotangent relative error "
+        raise AssertionError(f"{pname}: matrix cotangent relative error "
                              f"{mat_err:.3g} > 1e-4")
-    if not all(map(math.isfinite, (drho, prho, crho))):
-        raise AssertionError(f"regular: dρ not finite: {out['drho']}")
+    if not out["drho_rel_err"] <= 1e-3:
+        raise AssertionError(f"{pname}: dρ through the kernels is "
+                             f"{out['drho_rel_err']:.3g} > 1e-3 from the "
+                             f"plain versions'")
+    if not out["drho_vs_f64_rel_err"] <= DRHO_F64_TOL:
+        raise AssertionError(f"{pname}: dρ through the kernels is "
+                             f"{out['drho_vs_f64_rel_err']:.3g} > "
+                             f"{DRHO_F64_TOL} from the float64 witness")
     return out
 
 
@@ -541,14 +724,14 @@ def _trainable(tree):
 
 def check_train(problems, gen) -> tuple:
     """Phase 4: the training paths on the kernels, one step's gradient
-    against the plain versions', and apply_sqrt_T against autograd."""
+    against the plain versions', and apply_sqrt_T against autograd (on
+    the fixed-θ twin of each chart)."""
     import torch
 
     from repro_torch import ICR, advi_fit, map_fit, neg_log_joint
     from repro_torch.kernels import build
-    from repro_torch.kernels.policy import tree_leaves
 
-    launches = {k: 0 for k in ADJOINT}
+    launches = {k: 0 for k in KERNEL_INFO}
     report = {}
     for cname, p in problems.items():
         icr = p["icr"]
@@ -574,22 +757,22 @@ def check_train(problems, gen) -> tuple:
                 and float(losses[-1]) < float(losses[0])):
             raise AssertionError(f"{cname}: the MAP loss did not fall: "
                                  f"{entry['map_losses']}")
-        if cname == "regular":
+        if cname in THETA_PATHS:
             entry["rho_hat"] = float(p["priors"](fit[1])["rho"])
             if not torch.isfinite(torch.tensor(entry["rho_hat"])):
-                raise AssertionError(f"regular: rho_hat {entry['rho_hat']}")
+                raise AssertionError(f"{cname}: rho_hat {entry['rho_hat']}")
         silent = [k for k in TRAIN_REACHES[cname] if counts[k] == 0]
         if silent:
-            raise AssertionError(f"{cname}: adjoint kernels never launched "
-                                 f"on the training path: {silent}")
-        for k in ADJOINT:
+            raise AssertionError(f"{cname}: kernels never launched on the "
+                                 f"training path: {silent}")
+        for k in KERNEL_INFO:
             launches[k] += counts[k]
 
         # one step's gradient, through the kernels and the plain versions
         gen.manual_seed(23)
         point = [0.5 * x for x in icr.init_xi(gen)]
-        if cname == "regular":
-            entry.update(theta_gradient(p, point))
+        if cname in THETA_PATHS:
+            entry.update(theta_gradient(cname, p, point))
         else:
             grads = []
             for f in (p["forward"], p["plain_forward"]):
@@ -603,6 +786,9 @@ def check_train(problems, gen) -> tuple:
                 f"{entry['grad_xi_max_rel_err']:.3g} > {TOL['float32']}")
 
         # the transpose on the kernels against autograd of the plain apply
+        report[cname] = entry
+        if cname.endswith("_theta"):
+            continue
         entry["apply_sqrt_T_max_rel_err"] = {}
         for pol in (None, "bf16"):
             icr_p = ICR(icr.chart, icr.kernel, use_pallas=True,
@@ -623,16 +809,46 @@ def check_train(problems, gen) -> tuple:
             if not err <= tol:
                 raise AssertionError(f"{cname} {pol}: apply_sqrt_T relative "
                                      f"error {err:.3g} > {tol}")
-        report[cname] = entry
     return launches, report
 
 
+def per_level_chain(field, geoms, levels) -> list:
+    """The per-level kernels the pyramid replaces, on its operands: per
+    level ``(kernel wrapper, its operands, route)``, each level's coarse
+    input the previous level's kernel output, reflect-padded."""
+    from repro_torch.core.refine import reflect_pad
+    from repro_torch.kernels import dispatch
+
+    chain, x = [], field
+    n_s = field.shape[0]
+    for geom, (xi0, rs, d0) in zip(geoms, levels):
+        nd = len(geom.coarse_shape)
+        if geom.boundary == "reflect":
+            x = reflect_pad(x, geom.b, nd)
+        if nd == 1:
+            route = (dispatch.ROUTE_CHARTED_1D if rs[0].ndim == 3
+                     else dispatch.ROUTE_STATIONARY_1D)
+            args = (x.contiguous(), xi0.reshape(n_s, geom.T[0], geom.n_fsz),
+                    rs[0], d0)
+        else:
+            route = dispatch.ROUTE_ND_FUSED
+            args = (x.contiguous(), xi0, rs[0], d0, tuple(rs[1:]),
+                    tuple(geom.T))
+        kern = dispatch.KERNELS[route]
+        x = kern(*args).reshape((n_s,) + tuple(geom.fine_shape))
+        chain.append((kern, args, route))
+    return chain
+
+
 def kernel_times(models, bandwidth, flush, gen) -> dict:
-    """Per kernel at the largest level of its chart, float32 and bfloat16
-    storage: kernel, plain version and library call times, and the bound."""
+    """Per kernel at the largest level of its chart (the noise-free passes
+    at their axis; the pyramid at its cover), float32 and bfloat16
+    storage: kernel, plain version and library call times, and the bound.
+    The pyramid has no library call; beside it stand the per-level kernels
+    it replaces, timed one by one on the same operands."""
     import torch
 
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dispatch, pyramid
     from repro_torch.kernels.policy import cast_tree
 
     adj = adjoint_ops()
@@ -668,6 +884,49 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 enq = enqueue_ms(lambda: kern(*args))
                 shape = {"coarse": list(field.shape),
                          "fine": [S] + list(geom.fine_shape)}
+            elif kname in NOISE_FREE:
+                (_, coarse, r, t, a), = [
+                    c for c in nn_cases(icr, m, lvl, dtype, gen)
+                    if c[4] == info["axis"]]
+                kern, plain = nn_ops()[kname]
+                ms = time_ms(lambda: kern(coarse, r, t), flush)
+                plain_ms = time_ms(lambda: plain(coarse, r, t), flush)
+                if kname == "refine_stationary_nn":
+                    c3, w = coarse[:, None, :], r[:, None, :].contiguous()
+                    library_call = ("F.conv1d(coarse, R, stride=n_fsz//2): "
+                                    "the same function in channel-major "
+                                    "layout")
+                    library_ms = time_ms(lambda: torch.nn.functional.conv1d(
+                        c3, w, stride=r.shape[-2] // 2), flush)
+                fine = kern(coarse, r, t)
+                moved = sum(x.numel() * x.element_size()
+                            for x in (coarse, r, fine))
+                fmas = fine.numel() * r.shape[-1]
+                enq = enqueue_ms(lambda: kern(coarse, r, t))
+                shape = {"coarse": list(coarse.shape),
+                         "fine": list(fine.shape), "level": lvl, "axis": a}
+            elif kname == PYRAMID:
+                geoms, field, levels = pyramid_case(icr, m, dtype, gen)
+                ms = time_ms(lambda: pyramid.refine_pyramid_core(
+                    field, geoms, levels), flush)
+                grid = pyramid.last_grid
+                plain_ms = time_ms(lambda: pyramid.refine_pyramid_plain(
+                    field, geoms, levels), flush)
+                chain = per_level_chain(field, geoms, levels)
+                chain_ms = [time_ms(lambda k=k, a=a: k(*a), flush)
+                            for k, a, _ in chain]
+                fine = pyramid.refine_pyramid_core(field, geoms, levels)
+                moved = sum(x.numel() * x.element_size() for x in (
+                    field, fine, *(t for xi0, rs, d0 in levels
+                                   for t in (xi0, *rs, d0))))
+                fmas = sum(kernel_fmas(route, a) for _, a, route in chain)
+                enq = enqueue_ms(lambda: pyramid.refine_pyramid_core(
+                    field, geoms, levels))
+                shape = {"coarse": list(field.shape),
+                         "fine": list(fine.shape), "levels": len(geoms),
+                         "grid_blocks": grid,
+                         "per_level_kernels_ms": chain_ms,
+                         "per_level_kernels_sum_ms": sum(chain_ms)}
             else:
                 cases = [c for c in adjoint_cases(icr, m, lvl, dtype, gen)
                          if c[0] == kname]
@@ -697,6 +956,33 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                 "level": lvl, "shape": shape}
         out[kname] = per_dtype
+    return out
+
+
+def pyramid_covers(models, flush, gen) -> dict:
+    """Per chart and storage dtype, the pyramid at its cover (S=8) against
+    the per-level kernels it replaces, each timed alone on the same
+    operands: the pyramid's yardstick, since no PyTorch call computes it."""
+    import torch
+
+    from repro_torch.kernels import pyramid
+    from repro_torch.kernels.policy import cast_tree
+
+    out = {}
+    for cname, (icr, mats, _) in models.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            gen.manual_seed(13)
+            geoms, field, levels = pyramid_case(
+                icr, cast_tree(mats, dtype), dtype, gen)
+            ms = time_ms(lambda: pyramid.refine_pyramid_core(
+                field, geoms, levels), flush)
+            chain = [time_ms(lambda k=k, a=a: k(*a), flush)
+                     for k, a, _ in per_level_chain(field, geoms, levels)]
+            out[f"{cname}-{str(dtype).split('.')[1]}"] = {
+                "cover": len(geoms), "levels": icr.chart.n_levels,
+                "ms": ms, "grid_blocks": pyramid.last_grid,
+                "per_level_kernels_ms": chain,
+                "per_level_kernels_sum_ms": sum(chain)}
     return out
 
 
@@ -773,7 +1059,7 @@ def train_step_times(problems, flush) -> dict:
                       "loss_ms": loss_ms, "update_ms": update_ms,
                       "backward_ms": step_ms - loss_ms - update_ms,
                       "points": p["icr"].chart.size,
-                      "learns_theta": cname == "regular"}
+                      "learns_theta": cname in THETA_PATHS}
     return out
 
 
@@ -829,21 +1115,22 @@ def main() -> int:
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # -- 3. the sampling path through the forward kernels -----------------------
-    launches, path_err = check_path(models, gen)
-    print("path: " + json.dumps({"launches": launches,
+    # -- 3. the sampling path, with the pyramid and per level ------------------
+    launches, path_err, covers = check_path(models, gen)
+    print("path: " + json.dumps({"launches": launches, "covers": covers,
                                  "max_rel_err": path_err}), flush=True)
 
-    # -- 4. training through the adjoint kernels --------------------------------
+    # -- 4. training through the adjoint kernels and nd-axes --------------------
     problems = train_problems(models, gen)
-    adj_launches, train = check_train(problems, gen)
-    launches.update(adj_launches)
+    train_launches, train = check_train(problems, gen)
+    for k, n in train_launches.items():
+        launches[k] += n
     print("train: " + json.dumps(train), flush=True)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     # -- 5. times ---------------------------------------------------------------
-    flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
+    flush = torch.empty(512 * 2**20, dtype=torch.float32, device="cuda")
     times = kernel_times(models, bandwidth, flush, gen)
     entries = []
     for kname, info in KERNEL_INFO.items():
@@ -867,18 +1154,27 @@ def main() -> int:
             icr = ICR(icr0.chart, icr0.kernel, use_pallas=True,
                       dtype_policy=pol)
             m = icr.matrices()
+            per_level = ICR(icr0.chart, icr0.kernel, use_pallas=True,
+                            dtype_policy=pol, use_pyramid=False)
             gen.manual_seed(11)
             xi = icr.init_xi(gen, batch=S)
             whole[f"{cname}-{pol or 'fp32'}"] = {
                 "apply_ms": time_ms(lambda: icr.apply_sqrt_batch(m, xi),
                                     flush),
+                "apply_per_level_ms": time_ms(
+                    lambda: per_level.apply_sqrt_batch(m, xi), flush),
                 "plain_apply_ms": time_ms(lambda: plain_apply(icr, m, xi),
                                           flush),
                 "apply_enqueue_ms": enqueue_ms(
                     lambda: icr.apply_sqrt_batch(m, xi)),
+                "apply_per_level_enqueue_ms": enqueue_ms(
+                    lambda: per_level.apply_sqrt_batch(m, xi)),
+                "cover": covers[f"{cname}-{pol or 'fp32'}"],
                 "matrices_s": mats_s, "points": icr.chart.size,
                 "samples": S}
     print("whole_path: " + json.dumps(whole), flush=True)
+    print("pyramid_covers: " + json.dumps(pyramid_covers(models, flush, gen)),
+          flush=True)
     print("levels_fp32: " + json.dumps(level_split(models, flush, gen)),
           flush=True)
     print("train_step: " + json.dumps(train_step_times(problems, flush)),

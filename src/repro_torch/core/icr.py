@@ -8,17 +8,22 @@ excitation ξ (paper §3.2),
 
 ``apply_sqrt_T`` applies the transpose, the second half of one inference
 evaluation ("two applications of the square root and its VJP", paper §1).
-Both are differentiable in ξ on every route, and in θ through
-``matrices(theta)`` on 1-D charts and on the plain path.
+Both are differentiable in ξ on every route; ``apply_sqrt`` also in θ
+through ``matrices(theta)`` on every route (on the kernel route N-D levels
+then take ``nd-axes``, and the pyramid's backward replays its levels
+through the per-level kernels).
 
 ξ is a list of tensors, one per level:
   ξ[0]: (prod(shape0),)           — exact coarse-grid excitation
   ξ[l]: (F_l, n_fsz^d), l=1..L    — per-family fine corrections
 with a leading sample dim on every level for the batched entry points.
 
-With ``use_pallas=True`` every level runs on its kernel route
-(``repro_torch.kernels.dispatch``); otherwise on the plain torch path with
-the joint matrices. Tensors live on ``device`` (``"cuda"`` by default).
+With ``use_pallas=True`` the chart's first levels run as one launch of
+the pyramid kernel (``use_pyramid``, the default, as in the JAX package;
+``dispatch.pyramid_cover`` says how many) and every other level on its
+kernel route (``repro_torch.kernels.dispatch``); otherwise everything
+runs on the plain torch path with the joint matrices. Tensors live on
+``device`` (``"cuda"`` by default).
 """
 from __future__ import annotations
 
@@ -48,8 +53,10 @@ class ICR:
 
     ``dtype_policy``: ``None`` keeps everything float32; ``"bf16"`` (or a
     ``DtypePolicy``) stores fields, ξ and matrices in bfloat16 with f32
-    accumulation. ``use_pallas`` selects the kernel route. ``use_pyramid``,
-    the JAX package's multi-level prefix kernel, is not ported yet.
+    accumulation. ``use_pallas`` selects the kernel route.
+    ``use_pyramid`` (with ``use_pallas``): run the chart's first levels,
+    as many as ``dispatch.pyramid_cover`` covers, as ONE launch of the
+    pyramid kernel; the remaining levels run one by one.
     """
 
     chart: Chart
@@ -57,15 +64,8 @@ class ICR:
     jitter: float = 1e-6
     use_pallas: bool = False
     dtype_policy: object = None
-    use_pyramid: bool = False
+    use_pyramid: bool = True
     device: str = "cuda"
-
-    def __post_init__(self):
-        if self.use_pyramid:
-            raise NotImplementedError(
-                "the pyramid prefix kernel is not ported yet: it needs a "
-                "Hopper cover rule first (ROADMAP queue 2, kernel 6); use "
-                "use_pyramid=False")
 
     @property
     def policy(self):
@@ -107,20 +107,22 @@ class ICR:
 
     # -- matrices (functions of theta) ----------------------------------------
     def matrices(self, theta: Mapping | None = None, *,
-                 joint: bool | None = None, axes: bool | None = None) -> dict:
+                 joint: bool | None = None, axes: bool | None = None,
+                 dtype=torch.float32) -> dict:
         """Refinement matrices for kernel parameters θ (paper Eq. 7/8).
 
         ``axes`` adds the per-axis Kronecker factors of the N-D kernel
         route (default: ``use_pallas`` on an N-D chart); ``joint`` builds
         the joint per-level matrices (default: exactly when the factors are
         not built — a joint N-D build is ``n_csz^{3d}`` per family). The
-        math runs in float32; the result is cast to the storage dtype.
+        math runs in `dtype` (float32; float64 gives a reference on the
+        plain versions); a float32 result is cast to the storage dtype.
         """
         build_axes = (self.use_pallas and self.chart.ndim > 1
                       if axes is None else axes)
         build_joint = (not build_axes) if joint is None else joint
         k = self.kernel(theta)
-        kw = dict(jitter=self.jitter, device=self.device)
+        kw = dict(jitter=self.jitter, device=self.device, dtype=dtype)
         out = {"sqrt0": level0_sqrt(self.chart, k, **kw)}
         levels = range(self.chart.n_levels)
         if build_joint:
@@ -134,7 +136,7 @@ class ICR:
             out["Rax"] = [p[0] for p in pairs]
             out["sqrtDax"] = [p[1] for p in pairs]
         pol = self.policy
-        if pol.storage_dtype != torch.float32:
+        if dtype == torch.float32 and pol.storage_dtype != torch.float32:
             out = pol.cast_storage(out)
         return out
 
@@ -187,12 +189,25 @@ class ICR:
                                      for f, x in zip(field, xi[lvl + 1])])
             return field
 
-        from repro_torch.kernels import dispatch
+        from repro_torch.kernels import dispatch, pyramid
 
         pol = self.policy if self.dtype_policy is not None else None
         if pol is not None:
             field = field.to(pol.storage_dtype)
-        for lvl in range(self.chart.n_levels):
+        start = 0
+        cover = (dispatch.pyramid_cover(
+            self.chart, samples=field.shape[0],
+            itemsize=field.element_size(), have_axis_mats="Rax" in mats)
+            if self.use_pyramid else None)
+        if cover is not None:
+            start = cover
+            geoms = [LevelGeom.for_level(self.chart, lvl)
+                     for lvl in range(cover)]
+            field = pyramid.refine_pyramid(
+                field, xi[1:cover + 1],
+                [_pyramid_mats(mats, g, lvl) for lvl, g in enumerate(geoms)],
+                geoms, sample_axis=True, policy=pol)
+        for lvl in range(start, self.chart.n_levels):
             geom = LevelGeom.for_level(self.chart, lvl)
             r, d, axis_mats = _level_mats(mats, lvl)
             field = dispatch.refine(field, xi[lvl + 1], r, d, geom,
@@ -233,7 +248,9 @@ class ICR:
         with a leading S. ``apply_sqrt`` is linear in ξ at fixed matrices,
         so this is its VJP; on the kernel route it runs the adjoint
         kernels level by level, finest first, then ``sqrt0ᵀ``, without the
-        forward pass an autograd VJP would run. That route is a transpose
+        forward pass an autograd VJP would run. Over the pyramid's levels
+        that chain is the pyramid's transpose: its backward at fixed
+        matrices runs the same adjoint kernels. That route is a transpose
         at fixed matrices: its inputs must not require grad (differentiate
         ``apply_sqrt`` instead)."""
         n_s = v.shape[0]
@@ -295,6 +312,17 @@ class ICR:
         """Dense K_ICR = sqrt(K_ICR) sqrt(K_ICR)ᵀ (paper Fig. 3)."""
         a = self.implicit_sqrt(theta, dtype)
         return a @ a.T
+
+
+def _pyramid_mats(mats: dict, geom: LevelGeom, lvl: int) -> tuple:
+    """(rs, ds) per-axis factors of level `lvl` for the pyramid: the N-D
+    Kronecker factors, or a 1-D chart's joint matrices in its route's
+    shapes (shared (n_fsz, n_csz), or per family (T, n_fsz, n_csz))."""
+    if "Rax" in mats:
+        return mats["Rax"][lvl], mats["sqrtDax"][lvl]
+    lead = (geom.T[0],) if geom.kept_T[0] > 1 else ()
+    return ([mats["R"][lvl].reshape(lead + (geom.n_fsz, geom.n_csz))],
+            [mats["sqrtD"][lvl].reshape(lead + (geom.n_fsz,) * 2)])
 
 
 def _level_mats(mats: dict, lvl: int) -> tuple:

@@ -70,18 +70,67 @@ def _eigh(mat: torch.Tensor):
             torch.cat([p[1] for p in parts]).reshape(mat.shape))
 
 
+class _PsdSqrt(torch.autograd.Function):
+    """``S = V f(Λ) Vᵀ`` with ``f(λ) = sqrt(max(λ, eps))``: the symmetric
+    square root of a symmetric (nearly) PSD matrix ``A = V Λ Vᵀ``, with
+    its eigenvalues clipped at ``eps``.
+
+    Its derivative is the Daleckii–Krein form
+    ``dS = V (Φ ∘ Vᵀ dA V) Vᵀ`` with the divided differences
+    ``Φ_ij = (f(λ_i) − f(λ_j)) / (λ_i − λ_j)``, written here as
+    ``c[λ_i, λ_j] / (f(λ_i) + f(λ_j))`` with ``c(λ) = max(λ, eps)``:
+    ``c[·,·]`` is 1 where both eigenvalues are kept, 0 where both are
+    clipped and in (0, 1] between the two, so ``Φ`` is exact at ties
+    (``f'(λ)``) and loses no digits at near-ties. It does not depend on
+    the eigenvectors that eigh picks within a (nearly) repeated
+    eigenspace, which the backward of eigh itself does (``1/(λ_j − λ_i)``
+    terms): through eigh, θ-gradients came out NaN at exact ties and
+    changed from one float32 evaluation to the next at near-ties."""
+
+    @staticmethod
+    def forward(ctx, mat, eps):
+        evals, evecs = _eigh(mat)
+        root = torch.sqrt(torch.maximum(evals, eps[..., 0]))
+        ctx.save_for_backward(evals, evecs, root, eps)
+        return (evecs * root[..., None, :]) @ evecs.transpose(-1, -2)
+
+    @staticmethod
+    def backward(ctx, g):
+        evals, evecs, root, eps = ctx.saved_tensors
+        inner = evecs.transpose(-1, -2) @ g @ evecs
+        kept = evals > eps[..., 0]
+        both = kept[..., :, None] & kept[..., None, :]
+        mixed = kept[..., :, None] ^ kept[..., None, :]
+        c = torch.maximum(evals, eps[..., 0])
+        gap = torch.where(mixed, evals[..., :, None] - evals[..., None, :],
+                          1.0)
+        slope = torch.where(mixed, (c[..., :, None] - c[..., None, :]) / gap,
+                            both.to(c.dtype))
+        phi = slope / (root[..., :, None] + root[..., None, :])
+        g_mat = evecs @ (phi * inner) @ evecs.transpose(-1, -2)
+        g_eps = None
+        if ctx.needs_input_grad[1]:
+            # dS/d eps = V diag(1[clipped] / (2 sqrt(eps))) Vᵀ
+            diag = inner.diagonal(dim1=-2, dim2=-1)
+            g_eps = torch.where(kept, 0.0, diag / (2 * root)).sum(
+                -1, keepdim=True)[..., None].sum_to_size(eps.shape)
+        return g_mat, g_eps
+
+
 def _psd_sqrt(mat: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-    """A square root of a (nearly) PSD matrix by eigh with eigenvalues
-    clipped at ``eps``. Any ``S`` with ``S Sᵀ = D`` will do (paper §3.2);
-    eigh stays finite where Cholesky fails on the numerically
-    semi-definite ``D`` of strongly correlated fine points. The column
-    signs are arbitrary."""
-    evals, evecs = _eigh(mat)
-    evals = torch.maximum(evals, eps[..., 0])
-    return evecs * torch.sqrt(evals)[..., None, :]
+    """A square root of a (nearly) PSD matrix, with eigenvalues clipped at
+    ``eps`` (shape ``(..., 1, 1)``). Any ``S`` with ``S Sᵀ = D`` will do
+    (paper §3.2); eigh stays finite where Cholesky fails on the
+    numerically semi-definite ``D`` of strongly correlated fine points.
+    The JAX package returns ``V sqrt(Λ)``; this is the symmetric root
+    ``V sqrt(Λ) Vᵀ``, which differs from it by an orthogonal factor on
+    the right, invisible to the standard normal ξ it multiplies, and
+    whose θ-derivative does not depend on the eigenvectors eigh picks
+    (``_PsdSqrt``)."""
+    return _PsdSqrt.apply(mat, eps)
 
 
-def _family_points(windows, device) -> torch.Tensor:
+def _family_points(windows, device, dtype=torch.float32) -> torch.Tensor:
     """Tensor product of per-axis family windows.
 
     windows[a]: (K_a, W) chart coords -> (*K, W^d, ndim): for every family
@@ -92,7 +141,7 @@ def _family_points(windows, device) -> torch.Tensor:
     width = windows[0].shape[1]
     cols = []
     for a in range(nd):
-        t = torch.as_tensor(windows[a], dtype=torch.float32, device=device)
+        t = torch.as_tensor(windows[a], dtype=dtype, device=device)
         shape = [1] * (2 * nd)
         shape[a], shape[nd + a] = kk[a], width
         cols.append(t.reshape(shape).expand(*kk, *([width] * nd)))
@@ -114,16 +163,17 @@ def _conditional(k_cc, k_fc, k_ff, jitter, *, scale=None):
 
 
 def refinement_matrices_level(chart: Chart, kernel_fn: Callable, level: int,
-                              *, jitter: float = 1e-6, device="cpu"):
+                              *, jitter: float = 1e-6, device="cpu",
+                              dtype=torch.float32):
     """Joint refinement matrices (R, sqrt(D)) for all families refining
     `level`, batched over the families.
 
     Returns R: (*kept_T, n_fsz^d, n_csz^d), sqrtD: (*kept_T, n_fsz^d,
-    n_fsz^d), float32 on `device`.
+    n_fsz^d), `dtype` on `device`.
     """
     coarse_axes, fine_axes, _, _ = _family_positions(chart, level)
-    cpos = chart.map_to_D(_family_points(coarse_axes, device))
-    fpos = chart.map_to_D(_family_points(fine_axes, device))
+    cpos = chart.map_to_D(_family_points(coarse_axes, device, dtype))
+    fpos = chart.map_to_D(_family_points(fine_axes, device, dtype))
     return _conditional(kernel_matrix(kernel_fn, cpos),
                         kernel_matrix(kernel_fn, fpos, cpos),
                         kernel_matrix(kernel_fn, fpos), jitter)
@@ -131,7 +181,7 @@ def refinement_matrices_level(chart: Chart, kernel_fn: Callable, level: int,
 
 def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
                                    level: int, *, jitter: float = 1e-6,
-                                   device="cpu"):
+                                   device="cpu", dtype=torch.float32):
     """Per-axis 1-D refinement factors for the separable N-D route.
 
     Axis ``a``'s factors come from its 1-D coarse/fine windows with every
@@ -149,12 +199,13 @@ def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
     """
     nd = chart.ndim
     k0 = kernel_matrix(kernel_fn,
-                       torch.zeros((1, max(1, nd)), device=device))[0, 0]
+                       torch.zeros((1, max(1, nd)), device=device,
+                                   dtype=dtype))[0, 0]
     rep_coord = [chart.axis_coords(level, o)[chart.shape(level)[o] // 2]
                  for o in range(nd)]
 
     def pts(wins, axis):
-        wins = torch.as_tensor(wins, dtype=torch.float32, device=device)
+        wins = torch.as_tensor(wins, dtype=dtype, device=device)
         cols = [wins if o == axis else torch.full_like(wins, rep_coord[o])
                 for o in range(nd)]
         return chart.map_to_D(torch.stack(cols, dim=-1))
@@ -179,9 +230,10 @@ def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
 
 
 def level0_sqrt(chart: Chart, kernel_fn: Callable, *, jitter: float = 1e-6,
-                device="cpu") -> torch.Tensor:
+                device="cpu", dtype=torch.float32) -> torch.Tensor:
     """Exact square root of the level-0 kernel matrix (small by design)."""
-    k = kernel_matrix(kernel_fn, chart.grid_positions(0, device=device))
+    k = kernel_matrix(kernel_fn, chart.grid_positions(0, device=device,
+                                                      dtype=dtype))
     return _psd_sqrt(0.5 * (k + k.T), jitter * _mean_diag(k))
 
 

@@ -33,10 +33,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every library: the exported launch function's argtypes,
 # ending in (int device, void* stream)
 SIGNATURES = {
-    "refine_1d": ("refine_1d_fwd", [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]),
+    "refine_1d": ("refine_1d_fwd", [_I] * 3 + [_P] * 5 + [_I] * 8 + [_P]),
     "refine_1d_adjoint": ("refine_1d_adj",
                           [_I, _I, _I] + [_P] * 5 + [_I] * 9 + [_P]),
     "nd_fused": ("refine_nd_fused_fwd", [_I] + [_P] * 7 + [_I] * 17 + [_P]),
+    "pyramid": ("refine_pyramid_fwd",
+                [_I, _P] + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -60,7 +62,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -25,6 +25,19 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// A load of *p. COHERENT loads go through the L2 only (ld.global.cg): the
+// pyramid reads fields that other blocks of the same launch wrote before a
+// grid.sync(), and the read-only path (ld.global.nc, which __restrict__
+// const pointers let nvcc pick) is defined only for data that no one
+// writes during the launch. Other loads are plain.
+template <bool COHERENT, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (COHERENT)
+    return __ldcg(p);
+  else
+    return *p;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -39,6 +52,16 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// Stored index of padded coordinate `p` of an axis of `n` stored entries
+// reflect-padded by `pad` on each side (numpy's "reflect": the edge is not
+// repeated). With pad = 0 and p in [0, n) it is p itself: the per-level
+// kernels read fields padded beforehand, the pyramid pads in this index.
+__host__ __device__ __forceinline__ int reflect_index(int p, int pad, int n) {
+  int i = p - pad;
+  i = i < 0 ? -i : i;
+  return i >= n ? 2 * (n - 1) - i : i;
 }
 
 constexpr int kThreads = 256;

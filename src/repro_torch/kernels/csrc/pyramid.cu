@@ -1,0 +1,236 @@
+// The pyramid: the first k refinement levels of a chart in ONE launch.
+//
+// Replaces the Pallas kernel src/repro/kernels/pyramid.py:_pyramid_kernel
+// (l.150), which keeps whole early levels resident in a TPU core's VMEM
+// and writes only the last one. A Hopper block has at most 227 KB of
+// shared memory, far less than one such level, so this kernel does not
+// carry over the TPU's block structure. What it keeps is the point of the
+// reference: the fields that one covered level hands to the next are
+// never sent out to be re-read by another launch. Here they stay in the
+// H100's 50 MB L2 between grid-wide barriers:
+//  * one cooperative launch (cudaLaunchCooperativeKernel), its grid sized
+//    by the occupancy calculator to every block that can be co-resident;
+//  * the levels run in turn: the blocks walk each level's tiles with a
+//    grid stride, then meet at cooperative_groups::this_grid().sync()
+//    before the next level reads what they wrote;
+//  * a tile is the per-level kernel's own tile body (nd_tile.cuh for 2-D
+//    and 3-D levels, refine_1d_tile.cuh for 1-D stationary and charted
+//    levels), so every level computes exactly what its per-level kernel
+//    computes;
+//  * a level reads its coarse field through the L2 only (ld.global.cg,
+//    the tiles' COHERENT flag): the field was written by other blocks
+//    before the grid.sync(), where the read-only path is not defined;
+//  * reflect padding is done in the read index (reflect_index), the
+//    counterpart of _reflect_pad_axis: no padded copy is made;
+//  * intermediate fields live in two ping-pong scratch fields of the
+//    storage dtype, allocated by the wrapper, so every level's output is
+//    rounded to the storage dtype as the reference rounds it (l.128-130);
+//  * the per-level operands (xi0 with the trailing noise contracted, R_a,
+//    sqrtD_0, shapes and tiles) come in one by-value parameter struct of at
+//    most kMaxLevels levels, read in place (__grid_constant__);
+//  * a chart's levels are all 1-D or all N-D, so the kernel is compiled
+//    once per kind (ND): each instance holds one tile body's registers,
+//    not the union of both, and more blocks fit on an SM.
+// What bounds it: bytes, as each of its levels (~2-4 FLOP per byte at
+// f32): the first field read, every level's xi0 and matrices read once and
+// the last field written once are the device-memory traffic it cannot
+// avoid; the intermediate fields should be L2 traffic. The cover rule
+// (dispatch.pyramid_cover) keeps their sum within half the L2.
+// Storage is float or bf16; accumulation is f32.
+#include <cooperative_groups.h>
+
+#include "nd_tile.cuh"
+#include "refine_1d_tile.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace repro {
+
+constexpr int kMaxLevels = 16;
+// int64 fields of one level in the host table (see refine_pyramid_fwd)
+constexpr int kLevelFields = 22;
+
+struct PyrLevel {
+  const void* xi0;
+  const void* r0;
+  const void* d0;
+  const void* r1;  // 3-D levels only
+  const void* r2;  // N-D levels only
+  NdParams q;      // a 1-D level uses L0, pad0, T0, ch0, B0, C, F
+  int ndim;        // 1, 2 or 3
+  int BB;          // samples per tile of a 1-D level
+  int tiles;       // tiles of this level, samples included
+};
+
+struct PyrParams {
+  const void* field;  // (S, *coarse shape of level 0), unpadded
+  void* out;          // (S, *fine shape of the last level)
+  void* scratch[2];   // ping-pong intermediate fields
+  int S, n_levels;
+  PyrLevel lv[kMaxLevels];
+};
+
+template <typename T, bool ND>
+__global__ void __launch_bounds__(kThreads)
+    refine_pyramid_kernel(const __grid_constant__ PyrParams p) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  for (int l = 0; l < p.n_levels; ++l) {
+    const PyrLevel& lv = p.lv[l];
+    const NdParams& q = lv.q;
+    const T* in = static_cast<const T*>(l == 0 ? p.field
+                                               : p.scratch[(l - 1) & 1]);
+    T* out = static_cast<T*>(l + 1 == p.n_levels ? p.out : p.scratch[l & 1]);
+    const T* xi0 = static_cast<const T*>(lv.xi0);
+    const T* r0 = static_cast<const T*>(lv.r0);
+    const T* d0 = static_cast<const T*>(lv.d0);
+    if (!ND) {
+      const int nfb = (q.T0 + q.B0 - 1) / q.B0;
+      for (int tile = blockIdx.x; tile < lv.tiles; tile += gridDim.x) {
+        if (q.ch0)
+          refine_1d_tile<T, true, true, true>(in, xi0, r0, d0, out, p.S,
+                                              q.L0, q.pad0, q.T0, q.C, q.F,
+                                              q.B0, lv.BB, tile % nfb,
+                                              tile / nfb, smem);
+        else
+          refine_1d_tile<T, false, true, true>(in, xi0, r0, d0, out, p.S,
+                                               q.L0, q.pad0, q.T0, q.C, q.F,
+                                               q.B0, lv.BB, tile % nfb,
+                                               tile / nfb, smem);
+        __syncthreads();  // the next tile reuses shared memory
+      }
+    } else {
+      const int per = nd_tiles_per_sample(q);
+      for (int tile = blockIdx.x; tile < lv.tiles; tile += gridDim.x) {
+        nd_fused_tile<T, true>(in, xi0, r0, d0,
+                               static_cast<const T*>(lv.r1),
+                               static_cast<const T*>(lv.r2), out, q,
+                               tile % per, (size_t)(tile / per), smem);
+        __syncthreads();
+      }
+    }
+    // the next level reads what every block wrote; grid.sync() orders the
+    // writes before those reads
+    if (l + 1 < p.n_levels) grid.sync();
+  }
+}
+
+template <typename T, bool ND>
+cudaError_t launch_pyramid(const PyrParams& p, size_t smem, int max_tiles,
+                           int max_blocks, int* grid_out,
+                           cudaStream_t stream) {
+  auto kernel = refine_pyramid_kernel<T, ND>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  // every co-resident block, but no more than the largest level has tiles;
+  // max_blocks > 0 caps it further (the tests' striding check)
+  int grid = per_sm * sms;
+  if (grid > max_tiles) grid = max_tiles;
+  if (max_blocks > 0 && grid > max_blocks) grid = max_blocks;
+  *grid_out = grid;
+  void* args[] = {const_cast<PyrParams*>(&p)};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                  dim3(grid), dim3(kThreads), args, smem,
+                                  stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace repro
+
+// dtype: 0 float32, 1 bfloat16. `table` holds kLevelFields int64 per
+// level, in order: ndim, xi0, r0, d0, r1, r2 (device pointers, r1/r2 0
+// where absent), L0, L1, L2 (stored coarse extents), pad0, pad1, pad2
+// (reflect padding per axis), T0, T1, T2, ch0, ch1, ch2 (charted axes),
+// B0, B1, B2 (families per tile), BB (samples per tile of a 1-D level);
+// 2-D levels set the middle axis to extent 1, 1-D levels the two
+// trailing axes; the levels are all 1-D or all 2-D/3-D. field (S, *coarse
+// shape of level 0), out (S, *fine shape of the last level),
+// scratch0/scratch1 each holding the largest intermediate field; all
+// contiguous on `device`, launched on `stream`. max_blocks > 0 caps the
+// grid. Writes the grid size to *grid_out and
+// returns the launch's cudaError_t: a grid that cannot be co-resident, or
+// a device without cooperative launch, is an error, never a fallback.
+extern "C" int refine_pyramid_fwd(int dtype, const long long* table,
+                                  int n_levels, int S, int C, int F,
+                                  const void* field, void* out,
+                                  void* scratch0, void* scratch1,
+                                  int max_blocks, int* grid_out, int device,
+                                  void* stream) {
+  if (C > repro::kMaxCsz || F > repro::kMaxFsz || n_levels < 1 ||
+      n_levels > repro::kMaxLevels)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  repro::PyrParams p{};
+  p.field = field;
+  p.out = out;
+  p.scratch[0] = scratch0;
+  p.scratch[1] = scratch1;
+  p.S = S;
+  p.n_levels = n_levels;
+  size_t smem_floats = 0;
+  int max_tiles = 1;
+  for (int l = 0; l < n_levels; ++l) {
+    const long long* f = table + (size_t)l * repro::kLevelFields;
+    repro::PyrLevel& lv = p.lv[l];
+    lv.ndim = (int)f[0];
+    lv.xi0 = reinterpret_cast<const void*>(f[1]);
+    lv.r0 = reinterpret_cast<const void*>(f[2]);
+    lv.d0 = reinterpret_cast<const void*>(f[3]);
+    lv.r1 = reinterpret_cast<const void*>(f[4]);
+    lv.r2 = reinterpret_cast<const void*>(f[5]);
+    repro::NdParams& q = lv.q;
+    q.L0 = (int)f[6]; q.L1 = (int)f[7]; q.L2 = (int)f[8];
+    q.pad0 = (int)f[9]; q.pad1 = (int)f[10]; q.pad2 = (int)f[11];
+    q.T0 = (int)f[12]; q.T1 = (int)f[13]; q.T2 = (int)f[14];
+    q.ch0 = (int)f[15]; q.ch1 = (int)f[16]; q.ch2 = (int)f[17];
+    q.B0 = (int)f[18]; q.B1 = (int)f[19]; q.B2 = (int)f[20];
+    lv.BB = (int)f[21];
+    q.C = C;
+    q.F = F;
+    q.contract1 = lv.ndim == 3;
+    if (lv.ndim < 1 || lv.ndim > 3 || q.B0 < 1 || q.B1 < 1 || q.B2 < 1 ||
+        lv.BB < 1 || (lv.ndim == 1) != (p.lv[0].ndim == 1))
+      return (int)cudaErrorInvalidValue;
+    size_t floats;
+    long long tiles;
+    if (lv.ndim == 1) {
+      floats = repro::refine_1d_smem_floats(q.ch0, true, q.B0, C, F);
+      tiles = (long long)((q.T0 + q.B0 - 1) / q.B0) *
+              ((S + lv.BB - 1) / lv.BB);
+    } else {
+      floats = repro::nd_smem_floats(q);
+      tiles = (long long)repro::nd_tiles_per_sample(q) * S;
+    }
+    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    lv.tiles = (int)tiles;
+    if (floats > smem_floats) smem_floats = floats;
+    if (lv.tiles > max_tiles) max_tiles = lv.tiles;
+  }
+  const size_t smem = smem_floats * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool nd = p.lv[0].ndim > 1;
+  if (dtype == 0)
+    return (int)(nd ? repro::launch_pyramid<float, true>(
+                          p, smem, max_tiles, max_blocks, grid_out, st)
+                    : repro::launch_pyramid<float, false>(
+                          p, smem, max_tiles, max_blocks, grid_out, st));
+  if (dtype == 1)
+    return (int)(nd ? repro::launch_pyramid<__nv_bfloat16, true>(
+                          p, smem, max_tiles, max_blocks, grid_out, st)
+                    : repro::launch_pyramid<__nv_bfloat16, false>(
+                          p, smem, max_tiles, max_blocks, grid_out, st));
+  return (int)cudaErrorInvalidValue;
+}

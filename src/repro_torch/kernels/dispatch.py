@@ -1,16 +1,27 @@
 """Route each refinement level to its kernel.
 
-The route of a level follows from its geometry alone:
+The route of a level follows from its geometry, and on N-D levels from
+whether a per-axis factor requires grad:
 
   1-D, all ``kept_T == 1``        -> ``stationary-1d`` (one shared stencil)
   1-D, per-family matrices        -> ``charted-1d``
   N-D with the per-axis factors   -> ``nd-fused`` (one launch per level)
+  ... of which a factor requires
+      grad (learned θ)            -> ``nd-axes`` (one 1-D pass per axis)
 
-The Hopper N-D kernel tiles the families on every axis, so every 2-D and
-3-D level that carries per-axis factors fits it; the JAX package's
-``nd-axes`` fallback and its VMEM autotuners are not needed on this card.
-An N-D level without per-axis factors has no kernel route: it runs on the
-plain path (``ICR(use_pallas=False)``).
+The JAX package takes ``nd-axes`` when the fused level's tile does not
+fit VMEM. The Hopper N-D kernel tiles the families on every axis, so every
+2-D and 3-D level fits it and that question does not arise here. What the
+fused level has no kernel for is the backward in its factors: the passes
+of ``nd-axes`` (``nd.refine_axes``) are 1-D ``Function``s whose backward
+gives the factors' cotangents, so a level whose factors require grad (with
+grad enabled) takes that route. An N-D level without per-axis factors has
+no kernel route: it runs on the plain path (``ICR(use_pallas=False)``).
+
+On top of the per-level routes, ``ICR(use_pyramid=True)`` (the default, as
+in the JAX package) runs the chart's first levels as one launch
+(``pyramid.refine_pyramid``): ``pyramid_cover`` says how many, and
+``plan(pyramid=True)`` shows them as the ``pyramid`` route.
 
 CUDA tensors launch the kernels; CPU tensors take each kernel's plain
 version. There is no override.
@@ -18,7 +29,8 @@ version. There is no override.
 Every route is differentiable in the field and ξ: the backward of a 1-D
 level is its adjoint kernel (with the noise transpose), that of an N-D
 level the 1-D adjoints in reverse axis order (axis 0 with noise, the
-trailing axes without). ``refine_T`` runs the same adjoints directly: the
+trailing axes without); on ``nd-axes`` the passes' adjoints also give
+the factors' cotangents. ``refine_T`` runs the adjoints directly: the
 transpose of ``refine`` without a forward pass.
 """
 from __future__ import annotations
@@ -29,7 +41,7 @@ import torch
 
 from repro_torch.core.refine import LevelGeom, reflect_pad, reflect_pad_T
 
-from . import nd_fused
+from . import nd, nd_fused
 from .icr_refine import (
     refine_charted,
     refine_charted_adjoint,
@@ -43,17 +55,28 @@ from .policy import resolve as resolve_policy
 ROUTE_STATIONARY_1D = "stationary-1d"
 ROUTE_CHARTED_1D = "charted-1d"
 ROUTE_ND_FUSED = "nd-fused"
+ROUTE_AXES_ND = "nd-axes"
+ROUTE_PYRAMID = "pyramid"
 
-# the wrapper (and launch counter) behind each route
+# the wrapper (and launch counter) behind each single-kernel route
 KERNEL_OF_ROUTE = {
     ROUTE_STATIONARY_1D: "refine_stationary",
     ROUTE_CHARTED_1D: "refine_charted",
     ROUTE_ND_FUSED: "refine_nd_fused",
+    ROUTE_PYRAMID: "refine_pyramid",
 }
 
+# What the pyramid's intermediate fields may take: half of the H100's
+# 50 MB L2 (cudaDevAttrL2CacheSize reports 50 MiB), the other half left to
+# the ξ, matrices and output streaming through it.
+L2_BUDGET_BYTES = 25 * 2**20
 
-def route_for(geom: LevelGeom, *, have_axis_mats: bool = False) -> str:
-    """The kernel route of a level (see the module docstring)."""
+
+def route_for(geom: LevelGeom, *, have_axis_mats: bool = False,
+              learn: bool = False) -> str:
+    """The kernel route of a level (see the module docstring); ``learn``
+    marks N-D factors that require grad with grad enabled
+    (``learns(axis_mats)``)."""
     nd = len(geom.coarse_shape)
     if nd == 1:
         if all(k == 1 for k in geom.kept_T):
@@ -64,7 +87,53 @@ def route_for(geom: LevelGeom, *, have_axis_mats: bool = False) -> str:
                          "kernel route (ICR.matrices(axes=True))")
     if nd > 3:
         raise ValueError(f"no kernel route for {nd}-D levels")
-    return ROUTE_ND_FUSED
+    return ROUTE_AXES_ND if learn else ROUTE_ND_FUSED
+
+
+def learns(axis_mats) -> bool:
+    """Whether a level's per-axis factors `axis_mats` (or None) are learned
+    here: grad is enabled and one of them requires it."""
+    return (axis_mats is not None and torch.is_grad_enabled() and any(
+        m.requires_grad for m in (*axis_mats[0], *axis_mats[1])))
+
+
+def _structured(geom: LevelGeom, have_axis_mats: bool) -> bool:
+    nd = len(geom.coarse_shape)
+    return nd == 1 or (have_axis_mats and nd <= 3)
+
+
+def pyramid_cover(chart, *, samples: int = 1, itemsize: int = 4,
+                  have_axis_mats: bool | None = None,
+                  budget: int = L2_BUDGET_BYTES):
+    """How many of `chart`'s first levels the pyramid covers: the number
+    ``k``, or None when fewer than two levels are covered (a one-level
+    pyramid is the per-level route).
+
+    The rule, re-derived for the H100 (the JAX package sizes whole levels
+    against a TPU core's 64 MiB VMEM; a Hopper block has 227 KB): the
+    longest prefix of consecutive structured levels (1-D, or N-D with the
+    per-axis factors; ``have_axis_mats`` defaults to ``chart.ndim > 1``),
+    at most ``pyramid.MAX_LEVELS``, in which the fields that one covered
+    level hands to the next, summed at ``samples`` samples and the storage
+    ``itemsize``, fit ``budget`` (half of the L2). The coarse input and
+    the last level's output go through device memory in any case and do
+    not count. A pure function of the chart, S and the itemsize.
+    """
+    from .pyramid import MAX_LEVELS
+
+    if have_axis_mats is None:
+        have_axis_mats = chart.ndim > 1
+    k, handed = 0, 0
+    for lvl in range(min(chart.n_levels, MAX_LEVELS)):
+        geom = LevelGeom.for_level(chart, lvl)
+        if not _structured(geom, have_axis_mats):
+            break
+        if k:
+            handed += samples * itemsize * math.prod(geom.coarse_shape)
+            if handed > budget:
+                break
+        k += 1
+    return k if k >= 2 else None
 
 
 def _adjoint_name(charted: bool, noise: bool) -> str:
@@ -72,11 +141,20 @@ def _adjoint_name(charted: bool, noise: bool) -> str:
              else "refine_stationary_adjoint") + ("" if noise else "_nn"))
 
 
-def plan(chart) -> list:
+def plan(chart, *, pyramid: bool = False, samples: int = 1,
+         itemsize: int = 4) -> list:
     """Per-level route, kernel and launch count of a forward apply on the
     kernel route, where N-D charts carry their per-axis factors, and under
-    ``"vjp"`` the adjoint kernels its backward launches (introspection; no
-    tensors are touched)."""
+    ``"vjp"`` the adjoint kernels its backward launches at fixed matrices
+    (introspection; no tensors are touched).
+
+    ``pyramid=True`` overlays the prefix that ``ICR(use_pyramid=True)``
+    runs at ``samples`` samples of ``itemsize`` bytes: its levels report
+    the ``pyramid`` route and the ``refine_pyramid`` kernel, with the one
+    launch of the group on its first level. The default shows the
+    per-level routes underneath."""
+    cover = (pyramid_cover(chart, samples=samples, itemsize=itemsize)
+             if pyramid else None) or 0
     out = []
     for lvl in range(chart.n_levels):
         geom = LevelGeom.for_level(chart, lvl)
@@ -86,16 +164,19 @@ def plan(chart) -> list:
                    for a in range(chart.ndim)]
         else:
             vjp = [_adjoint_name(route == ROUTE_CHARTED_1D, True)]
+        launches = 1
+        if lvl < cover:
+            route, launches = ROUTE_PYRAMID, int(lvl == 0)
         out.append({"level": lvl, "route": route,
-                    "kernel": KERNEL_OF_ROUTE[route], "launches": 1,
+                    "kernel": KERNEL_OF_ROUTE[route], "launches": launches,
                     "vjp": [{"kernel": k, "launches": 1} for k in vjp]})
     return out
 
 
 def level_operands(field, xi, r, d, geom: LevelGeom, *, axis_mats=None,
                    sample_axis: bool = False) -> tuple:
-    """The route of one level and its kernel's operands after the torch
-    glue (reflect padding, ξ layout): ``(route, args)``, with
+    """The single-kernel route of one level and its kernel's operands after
+    the torch glue (reflect padding, ξ layout): ``(route, args)``, with
     ``KERNELS[route](*args)`` the kernel and ``PLAIN[route](*args)`` its
     plain version."""
     route = route_for(geom, have_axis_mats=axis_mats is not None)
@@ -135,11 +216,16 @@ def refine(field, xi, r, d, geom: LevelGeom, *, axis_mats=None,
     carries the per-axis factors of an N-D level (the joint ``r``/``d``
     are then unused). ``sample_axis=True`` marks a leading sample dim of
     ``field`` and ``xi``. ``policy``, when given, casts every operand to
-    its storage dtype first; the kernels accumulate in float32.
+    its storage dtype first; the kernels accumulate in float32. An N-D
+    level whose factors require grad takes the ``nd-axes`` route.
     """
     if policy is not None:
         field, xi, r, d, axis_mats = resolve_policy(policy).cast_storage(
             (field, xi, r, d, axis_mats))
+    if route_for(geom, have_axis_mats=axis_mats is not None,
+                 learn=learns(axis_mats)) == ROUTE_AXES_ND:
+        return nd.refine_axes(field, xi, axis_mats[0], axis_mats[1], geom,
+                              sample_axis=sample_axis)
     route, args = level_operands(field, xi, r, d, geom, axis_mats=axis_mats,
                                  sample_axis=sample_axis)
     out = KERNELS[route](*args)

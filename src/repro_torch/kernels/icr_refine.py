@@ -11,6 +11,9 @@ correlated correction ``sqrt(D) ξ``:
   axes); replaces the JAX package's ``_stationary_kernel``.
 * ``refine_charted`` — per-family matrices ``R[t]``, ``sqrtD[t]``
   (charted axes); replaces ``_charted_kernel``.
+* ``refine_stationary_nn`` / ``refine_charted_nn`` — the same without ξ
+  or sqrtD, for the non-final passes of the nd-axes route (``nd.py``);
+  replace ``_stationary_nn_kernel`` and ``_charted_nn_kernel``.
 * ``refine_stationary_adjoint`` / ``refine_charted_adjoint`` — the
   transpose in (coarse, ξ): the overlap-add ``dcoarse`` of ``g·R`` and
   ``dξ = g·sqrtD``, or ``dcoarse`` alone when no ``sqrtD`` is given;
@@ -32,12 +35,16 @@ import torch
 
 from . import build
 from .ref import matrix_cotangents_1d
+from .ref import refine_charted_nn_ref as refine_charted_nn_plain
 from .ref import refine_charted_ref as refine_charted_plain
 from .ref import refine_charted_vjp_ref, refine_stationary_vjp_ref
+from .ref import refine_stationary_nn_ref as refine_stationary_nn_plain
 from .ref import refine_stationary_ref as refine_stationary_plain
 
 __all__ = ["refine_stationary", "refine_charted", "refine_stationary_plain",
-           "refine_charted_plain", "refine_stationary_adjoint",
+           "refine_charted_plain", "refine_stationary_nn", "refine_charted_nn",
+           "refine_stationary_nn_plain", "refine_charted_nn_plain",
+           "refine_stationary_adjoint",
            "refine_charted_adjoint", "refine_stationary_adjoint_plain",
            "refine_charted_adjoint_plain", "block_shape_1d",
            "block_shape_adjoint"]
@@ -97,17 +104,26 @@ def _check_1d(name, batch, t, n_fsz, n_csz, length, *, mat_lead, r, d):
         raise ValueError(f"{name}: level too large for 32-bit indices")
 
 
-def _refine_1d(coarse, xi, r, d, *, charted: bool) -> torch.Tensor:
+def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None):
+    """The forward kernel; ``xi=None`` (with ``d=None`` and the family count
+    ``t``) is the noise-free variant."""
+    noise = xi is not None
     if coarse.device.type == "cpu":
-        plain = refine_charted_plain if charted else refine_stationary_plain
-        return plain(coarse, xi, r, d)
+        if noise:
+            plain = refine_charted_plain if charted else refine_stationary_plain
+            return plain(coarse, xi, r, d)
+        return (refine_charted_nn_plain(coarse, r) if charted
+                else refine_stationary_nn_plain(coarse, r, t))
     build.check_operands(coarse=coarse, xi=xi, r=r, d=d)
     batch, length = coarse.shape
-    _, t, n_fsz = xi.shape
-    n_csz = r.shape[-1]
-    if xi.shape[0] != batch:
-        raise ValueError(f"xi {tuple(xi.shape)} does not match coarse "
-                         f"{tuple(coarse.shape)}")
+    n_fsz, n_csz = r.shape[-2:]
+    if noise:
+        t = xi.shape[1]
+        if tuple(xi.shape) != (batch, t, n_fsz):
+            raise ValueError(f"xi {tuple(xi.shape)} does not match coarse "
+                             f"{tuple(coarse.shape)}")
+    elif charted:
+        t = r.shape[0]
     _check_1d("refine_1d", batch, t, n_fsz, n_csz, length,
               mat_lead=(t,) if charted else (), r=r, d=d)
     bf, bb = block_shape_1d(batch, t, n_fsz)
@@ -116,10 +132,12 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool) -> torch.Tensor:
     out = torch.empty((batch, t * n_fsz), dtype=coarse.dtype,
                       device=coarse.device)
     build.launch("refine_1d", coarse.device, build.dtype_code(coarse.dtype),
-                 int(charted), coarse.data_ptr(), xi.data_ptr(), r.data_ptr(),
-                 d.data_ptr(), out.data_ptr(), batch, length, t, n_csz, n_fsz,
-                 bf, bb)
-    build.LAUNCHES["refine_charted" if charted else "refine_stationary"] += 1
+                 int(charted), int(noise), coarse.data_ptr(),
+                 xi.data_ptr() if noise else None, r.data_ptr(),
+                 d.data_ptr() if noise else None, out.data_ptr(), batch,
+                 length, t, n_csz, n_fsz, bf, bb)
+    build.LAUNCHES[("refine_charted" if charted else "refine_stationary")
+                   + ("" if noise else "_nn")] += 1
     return out
 
 
@@ -156,14 +174,16 @@ def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
 
 
 class _Refine1D(torch.autograd.Function):
-    """A 1-D forward level whose backward is the adjoint kernel."""
+    """A 1-D forward level whose backward is the adjoint kernel; without ξ
+    (``xi=d=None``) the noise-free level, whose backward is the ``_nn``
+    adjoint kernel."""
 
     @staticmethod
-    def forward(ctx, coarse, xi, r, d, charted):
+    def forward(ctx, coarse, xi, r, d, charted, t):
         ctx.charted, ctx.coarse_len = charted, coarse.shape[-1]
         mats = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         ctx.save_for_backward(r, d, *((coarse, xi) if mats else ()))
-        return _refine_1d(coarse, xi, r, d, charted=charted)
+        return _refine_1d(coarse, xi, r, d, charted=charted, t=t)
 
     @staticmethod
     def backward(ctx, g):
@@ -180,14 +200,14 @@ class _Refine1D(torch.autograd.Function):
             dr, dd = matrix_cotangents_1d(coarse, xi, r, g,
                                           charted=ctx.charted, need_r=need_r,
                                           need_d=need_d)
-        return dc if need_c else None, dxi, dr, dd, None
+        return dc if need_c else None, dxi, dr, dd, None, None
 
 
-def _refine_1d_autograd(coarse, xi, r, d, *, charted: bool):
+def _refine_1d_autograd(coarse, xi, r, d, *, charted: bool, t=None):
     if torch.is_grad_enabled() and any(
-            a.requires_grad for a in (coarse, xi, r, d)):
-        return _Refine1D.apply(coarse, xi, r, d, charted)
-    return _refine_1d(coarse, xi, r, d, charted=charted)
+            a is not None and a.requires_grad for a in (coarse, xi, r, d)):
+        return _Refine1D.apply(coarse, xi, r, d, charted, t)
+    return _refine_1d(coarse, xi, r, d, charted=charted, t=t)
 
 
 def refine_stationary(coarse, xi, r, d) -> torch.Tensor:
@@ -209,6 +229,22 @@ def refine_charted(coarse, xi, r, d) -> torch.Tensor:
     operand.
     """
     return _refine_1d_autograd(coarse, xi, r, d, charted=True)
+
+
+def refine_stationary_nn(coarse, r, t: int) -> torch.Tensor:
+    """Noise-free stationary 1-D refinement over ``t`` families: no ξ or
+    sqrtD operand, for the non-final passes of the nd-axes route.
+
+    coarse: (B, L), L >= (t-1)*s + n_csz; r: (n_fsz, n_csz) -> fine
+    (B, t*n_fsz). Differentiable in coarse and r.
+    """
+    return _refine_1d_autograd(coarse, None, r, None, charted=False, t=t)
+
+
+def refine_charted_nn(coarse, r) -> torch.Tensor:
+    """Noise-free charted 1-D refinement, r: (T, n_fsz, n_csz) per family;
+    otherwise as ``refine_stationary_nn``."""
+    return _refine_1d_autograd(coarse, None, r, None, charted=True)
 
 
 def refine_stationary_adjoint(g, r, d=None, *, coarse_len: int):

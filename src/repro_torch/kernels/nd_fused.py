@@ -15,8 +15,10 @@ a CUDA tensor launches the kernel or raises.
 The level is differentiable in the field and ξ at fixed matrices: its
 backward (``refine_nd_fused_adjoint``) composes the 1-D adjoint kernels in
 reverse axis order, axis 0 with noise (giving ``dξ0``) and the trailing
-axes without. Learned θ through this route (factors that require grad) is
-not ported yet and raises.
+axes without. This level has no backward in its factors: with factors
+that require grad it raises, and ``dispatch.refine`` takes such a level
+on the ``nd-axes`` route instead (``nd.refine_axes``), whose 1-D passes
+give the factors' cotangents.
 """
 from __future__ import annotations
 
@@ -248,14 +250,15 @@ def refine_nd_fused_core(field, xi0, r0, d0, rts, T) -> torch.Tensor:
     """The kernel on prepared operands (see ``nd_operands``): launches
     ``nd_fused.cu`` on CUDA tensors, runs ``refine_nd_fused_plain`` on CPU
     tensors. -> (S, T_0·fsz, prod_f). Differentiable in ``field`` and
-    ``xi0``; factors that require grad raise ``NotImplementedError``."""
+    ``xi0``; factors that require grad raise ``NotImplementedError``
+    (``dispatch.refine`` routes those levels to ``nd-axes``)."""
     if torch.is_grad_enabled():
         if any(m.requires_grad for m in (r0, d0, *rts)):
             raise NotImplementedError(
-                "learned θ through the N-D route is not ported yet "
-                "(ROADMAP, open items: 'Learned θ through the N-D route'): "
-                "the N-D factors must not require grad; learn θ on a 1-D "
-                "chart or with ICR(use_pallas=False)")
+                "learned θ has no backward on the fused N-D kernel "
+                "(ROADMAP, module 7): run such a level through "
+                "dispatch.refine, which takes the nd-axes route "
+                "(nd.refine_axes) when a factor requires grad")
         if field.requires_grad or xi0.requires_grad:
             return _NDFused.apply(field, xi0, r0, d0, tuple(T), *rts)
     return _nd_fused(field, xi0, r0, d0, rts, T)

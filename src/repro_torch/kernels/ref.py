@@ -77,6 +77,30 @@ def refine_charted_ref(coarse, xi, r, sqrt_d=None):
     return fine.reshape(*fine.shape[:-2], t * n_fsz).to(coarse.dtype)
 
 
+def _refine_nn_ref(coarse, r, t: int, eq: str):
+    n_fsz, n_csz = r.shape[-2:]
+    acc = accum_dtype_for(coarse, r)
+    w = windows_1d(coarse.to(acc), t, n_csz, n_fsz // 2)
+    fine = torch.einsum(eq, w, r.to(acc))
+    return fine.reshape(*fine.shape[:-2], t * n_fsz).to(coarse.dtype)
+
+
+def refine_stationary_nn_ref(coarse, r, t: int):
+    """Noise-free stationary refinement over ``t`` families: the window
+    contraction of ``refine_stationary_ref`` without ξ or sqrtD.
+
+    coarse: (..., L), L >= (t-1)*s + n_csz; r: (n_fsz, n_csz)
+    -> fine (..., t * n_fsz)
+    """
+    return _refine_nn_ref(coarse, r, t, "...tc,fc->...tf")
+
+
+def refine_charted_nn_ref(coarse, r):
+    """Noise-free charted refinement, per-family stencils r: (T, n_fsz,
+    n_csz); coarse: (..., L) -> fine (..., T * n_fsz)."""
+    return _refine_nn_ref(coarse, r, r.shape[0], "...tc,tfc->...tf")
+
+
 # -- adjoints (the plain versions of the adjoint kernels) -----------------------
 def overlap_add_1d(dw: torch.Tensor, coarse_len: int, s: int) -> torch.Tensor:
     """Adjoint of ``windows_1d``: add the overlapping window cotangents back

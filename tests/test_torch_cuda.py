@@ -17,8 +17,11 @@ import torch
 
 from repro_torch import ICR
 from repro_torch.core import charts, kernels
+from repro_torch.core import icr as icr_core
 from repro_torch.core import refine as trefine
-from repro_torch.kernels import build, dispatch, icr_refine, nd_fused
+from repro_torch.kernels import (build, dispatch, icr_refine, nd_fused,
+                                 pyramid)
+from repro_torch.kernels.policy import tree_leaves
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -110,7 +113,12 @@ def test_whole_slice_on_the_card(cuda, pol):
         build.LAUNCHES.clear()
         got = gpu.apply_sqrt_batch(to_device(mats, cuda),
                                    to_device(xi, cuda))
-        assert sum(build.LAUNCHES.values()) == chart.n_levels
+        # one pyramid launch for the covered prefix, one per other level
+        cover = dispatch.pyramid_cover(
+            chart, samples=4, itemsize=gpu.policy.storage_dtype.itemsize)
+        assert build.LAUNCHES["refine_pyramid"] == int(cover is not None)
+        assert sum(build.LAUNCHES.values()) == (
+            chart.n_levels - (cover or 1) + 1)
         assert rel(got.cpu(), want) < TOL["float32" if pol is None
                                           else "bfloat16"]
 
@@ -235,3 +243,224 @@ def test_transpose_on_the_card(cuda, pol):
                    if "adjoint" in k) >= chart.n_levels
         for a, b in zip(got, want):
             assert rel(a.cpu(), b) < tol, chart
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", sorted(TOL))
+@pytest.mark.parametrize("n_csz,n_fsz", [(3, 2), (5, 4), (3, 8)])
+def test_cuda_noise_free_kernels_match_plain(cuda, n_csz, n_fsz, dname):
+    """The noise-free forward kernels (#2 stationary, #4 charted) against
+    their plain versions, at family counts that leave a ragged last block,
+    short rows and one family."""
+    rng = np.random.default_rng([n_csz, n_fsz, 13])
+    dt = DTYPES[dname]
+    s = n_fsz // 2
+
+    def on_card(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda).to(dt)
+
+    for charted in (False, True):
+        for batch, t in ((5, 1001), (300, 33), (1, 1)):
+            lead = (t,) if charted else ()
+            coarse = on_card(rng.normal(size=(batch, (t - 1) * s + n_csz + 2)))
+            r = on_card(rng.normal(size=lead + (n_fsz, n_csz)) / n_csz)
+            name = "refine_charted_nn" if charted else "refine_stationary_nn"
+            before = build.LAUNCHES[name]
+            if charted:
+                got = icr_refine.refine_charted_nn(coarse, r)
+                want = icr_refine.refine_charted_nn_plain(coarse, r)
+            else:
+                got = icr_refine.refine_stationary_nn(coarse, r, t)
+                want = icr_refine.refine_stationary_nn_plain(coarse, r, t)
+            assert build.LAUNCHES[name] == before + 1
+            assert got.dtype == dt and got.shape == (batch, t * n_fsz)
+            assert rel(got, want) < TOL[dname], (charted, batch, t)
+
+
+# small charts with ragged levels: 1-D stationary and charted, 2-D with
+# charted axes, 3-D with a charted axis 0; reflect and shrink boundaries
+PYRAMID_CHARTS = [
+    (charts.regular_chart(100, 3, boundary="reflect"), 8.0),
+    (charts.log_chart(12, 3, n_csz=5, n_fsz=4, delta0=0.05), 0.3),
+    (charts.log_polar_chart((8, 8), 2), 1.0),
+    (charts.regular_chart((12, 14), 2, boundary="reflect"), 4.0),
+    (charts.galactic_dust_chart((6, 8, 12), 2, delta_logr=0.2), 0.5),
+]
+
+
+def _pyramid_case(chart, rho, dt, device, n_s=3):
+    """Every level of `chart` as one pyramid: geometries, operands and the
+    per-level factors, with seeded ξ, on `device` in storage dtype `dt`."""
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True, device="cpu")
+    mats = icr.matrices()
+    geoms = [trefine.LevelGeom.for_level(chart, lvl)
+             for lvl in range(chart.n_levels)]
+    pmats = [((mats["Rax"][lvl], mats["sqrtDax"][lvl]) if "Rax" in mats
+              else icr_core._pyramid_mats(mats, g, lvl))
+             for lvl, g in enumerate(geoms)]
+    pmats = [([r.to(device, dt) for r in rs], [d.to(device, dt) for d in ds])
+             for rs, ds in pmats]
+    gen = torch.Generator().manual_seed(4)
+    field = torch.randn((n_s,) + geoms[0].coarse_shape, generator=gen)
+    xis = [torch.randn((n_s,) + s, generator=gen)
+           for s in icr.xi_shapes()[1:]]
+    field, xis = field.to(device, dt), [x.to(device, dt) for x in xis]
+    return geoms, field, xis, pmats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", sorted(TOL))
+def test_cuda_pyramid_matches_plain(cuda, dname):
+    """The pyramid (#10) against its plain version at every level of
+    small charts with ragged levels, on the co-resident grid and on a grid
+    of 3 blocks that must stride over the tiles; a two-level cover too."""
+    dt = DTYPES[dname]
+    for chart, rho in PYRAMID_CHARTS:
+        geoms, field, xis, pmats = _pyramid_case(chart, rho, dt, cuda)
+        for k in sorted({2, len(geoms)}):
+            f, levels = pyramid.pyramid_operands(field, xis[:k], pmats[:k],
+                                                 geoms[:k], sample_axis=True)
+            want = pyramid.refine_pyramid_plain(f, geoms[:k], levels)
+            for max_blocks in (0, 3):
+                before = build.LAUNCHES["refine_pyramid"]
+                got = pyramid.refine_pyramid_core(f, geoms[:k], levels,
+                                                  max_blocks=max_blocks)
+                assert build.LAUNCHES["refine_pyramid"] == before + 1
+                assert 0 < pyramid.last_grid <= (max_blocks or 10**6)
+                assert got.dtype == dt and got.shape == want.shape
+                assert rel(got, want) < TOL[dname], (chart, k, max_blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
+def test_cuda_pyramid_matches_per_level_chain(cuda, pol):
+    """ICR with the pyramid against the per-level kernels on the card:
+    the same tile bodies, so the same fields."""
+    tol = TOL["float32" if pol is None else "bfloat16"]
+    for chart, rho in PYRAMID_CHARTS:
+        kern = kernels.matern32.with_defaults(rho=rho)
+        on = ICR(chart, kern, use_pallas=True, dtype_policy=pol)
+        off = ICR(chart, kern, use_pallas=True, dtype_policy=pol,
+                  use_pyramid=False)
+        mats = on.matrices()
+        xi = on.init_xi(torch.Generator(device=cuda).manual_seed(1), batch=4)
+        build.LAUNCHES.clear()
+        got = on.apply_sqrt_batch(mats, xi)
+        assert build.LAUNCHES["refine_pyramid"] == 1
+        want = off.apply_sqrt_batch(mats, xi)
+        assert rel(got, want) < tol, chart
+
+
+@pytest.mark.cuda
+def test_cuda_pyramid_transpose(cuda):
+    """⟨A x, y⟩ = ⟨x, Aᵀ y⟩ of the pyramid at fixed matrices, A its
+    launch and Aᵀ its backward (the adjoint kernels over its levels), in
+    (field, ξ0), at float32."""
+    for chart, rho in PYRAMID_CHARTS:
+        geoms, field, xis, pmats = _pyramid_case(chart, rho, torch.float32,
+                                                 cuda)
+        f, levels = pyramid.pyramid_operands(field, xis, pmats, geoms,
+                                             sample_axis=True)
+        inputs = [f.requires_grad_(True)] + [
+            lv[0].detach().requires_grad_(True) for lv in levels]
+        levels = [(x,) + lv[1:] for x, lv in zip(inputs[1:], levels)]
+        ax = pyramid.refine_pyramid_core(inputs[0], geoms, levels)
+        y = torch.randn_like(ax)
+        build.LAUNCHES.clear()
+        aty = torch.autograd.grad(ax, inputs, y)
+        assert build.LAUNCHES["refine_pyramid"] == 0
+        assert sum(v for k, v in build.LAUNCHES.items()
+                   if "adjoint" in k) >= len(geoms)
+        lhs = float((ax.double() * y.double()).sum())
+        rhs = sum(float((a.double() * b.double()).sum())
+                  for a, b in zip(inputs, aty))
+        scale = float((ax.double().abs() * y.double().abs()).sum())
+        assert abs(lhs - rhs) <= 1e-5 * scale, chart
+
+
+@pytest.mark.cuda
+def test_cuda_learned_theta_through_kernels(cuda):
+    """The factors' cotangents through the pyramid's replay (nd-axes on
+    N-D charts, the noise-free kernels included) on the card, against the
+    same loss through the plain path on the CPU, with the same matrices."""
+    for chart, rho in PYRAMID_CHARTS:
+        kern = kernels.matern32.with_defaults(rho=rho)
+        cpu = ICR(chart, kern, use_pallas=True, device="cpu")
+        gpu = ICR(chart, kern, use_pallas=True)
+        mats = cpu.matrices()
+        xi = cpu.init_xi(torch.Generator().manual_seed(2), batch=2)
+        grads = []
+        for icr, dev in ((cpu, "cpu"), (gpu, cuda)):
+            m = {k: [[t.detach().to(dev).requires_grad_(True) for t in lvl]
+                     if isinstance(lvl, list) else
+                     lvl.detach().to(dev).requires_grad_(True) for lvl in v]
+                 if isinstance(v, list) else v.to(dev)
+                 for k, v in mats.items()}
+            leaves = tree_leaves({k: v for k, v in m.items()
+                                  if k != "sqrt0"})
+            build.LAUNCHES.clear()
+            out = icr.apply_sqrt_batch(m, to_device(xi, dev))
+            grads.append(torch.autograd.grad((out ** 2).sum(), leaves))
+        nn = ("refine_charted_nn", "refine_stationary_nn")
+        assert chart.ndim == 1 or sum(build.LAUNCHES[k] for k in nn) > 0
+        for a, b in zip(grads[1], grads[0]):
+            assert rel(a.cpu(), b) < 1e-4, chart
+
+
+@pytest.mark.cuda
+def test_cuda_theta_gradient_matches_float64(cuda):
+    """dρ of a Gaussian loss, matrices built from ρ on the card and the
+    field through the kernels in float32, against the same loss on the
+    CPU in float64 (matrices and plain versions). The symmetric square
+    root's divided-difference backward keeps it reproducible; float32
+    leaves the rounding of the level-0 eigenvalues near the clip."""
+    for chart, rho in PYRAMID_CHARTS:
+        got = []
+        for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+            icr = ICR(chart, kernels.matern32, use_pallas=True, device=dev)
+            gen = torch.Generator().manual_seed(3)
+            xi = [0.5 * x.to(dev, dtype) for x in ICR(
+                chart, kernels.matern32, device="cpu").init_xi(gen)]
+            y = torch.randn(icr.out_shape, generator=gen).to(dev, dtype)
+            r = torch.tensor(rho, dtype=dtype, device=dev,
+                             requires_grad=True)
+            mats = icr.matrices({"rho": r, "sigma": 1.0}, dtype=dtype)
+            loss = 0.5 * torch.sum(torch.square(icr.apply_sqrt(mats, xi) - y)
+                                   / 0.01)
+            got.append(float(torch.autograd.grad(loss, r)[0]))
+        assert abs(got[0] - got[1]) <= 1e-2 * abs(got[1]), (chart, got)
+
+
+@pytest.mark.cuda
+def test_cuda_pyramid_reads_fields_through_l2(cuda, tmp_path):
+    """Both pyramid instances (1-D and N-D levels) at both storage dtypes
+    load the fields that other blocks wrote before ``grid.sync()`` with
+    ``ld.global.cg`` (SASS ``LDG.E[.U16].STRONG.GPU``): the read-only
+    path (``LDG.E.CONSTANT``, which ``__restrict__`` lets nvcc pick) is
+    undefined for data written during the launch."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    cubin = tmp_path / "pyramid.cubin"
+    nvcc = build.nvcc()
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-cubin", "-o", str(cubin),
+                    str(build.CSRC / "pyramid.cu")], check=True)
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                           str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    loads = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"\bLDG(\.[A-Z0-9_]+)*", line)
+        if m and fn and "refine_pyramid_kernel" in fn:
+            loads.setdefault(fn, []).append(m.group(0))
+    assert len(loads) == 4, sorted(loads)
+    for fn, kinds in loads.items():
+        assert any(k.endswith(".STRONG.GPU") for k in kinds), (fn, kinds)

@@ -18,8 +18,9 @@ Tolerances (relative to the largest magnitude of the reference):
     a float64 solve as the other. So do the builds on the flagship dust
     chart's radial axis (spacing 0.02 at rho 0.5): that is float32, not
     the port;
-    sqrtD itself is compared through sqrtD·sqrtDᵀ, since eigh returns
-    eigenvectors with arbitrary signs;
+    sqrtD itself is compared through sqrtD·sqrtDᵀ: the port's is the
+    symmetric root V sqrt(Λ) Vᵀ, the JAX package's V sqrt(Λ), whose
+    columns have arbitrary signs;
   * the plain refinement step on the JAX package's matrices: 1e-5.
 """
 import jax
@@ -261,6 +262,27 @@ def test_chunked_eigh_matches_one_batch():
     torch.testing.assert_close(evecs @ torch.diag_embed(evals)
                                @ evecs.transpose(-1, -2), spd,
                                rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("evals", [[0.5, 1.0, 2.0, 4.0], [1.0, 1.0, 2.0, 1e-9],
+                                   [1.0, 1.0 + 1e-9, 0.5, 3e-7], [2.0] * 4],
+                         ids=["distinct", "tie-clipped", "near-tie-clipped",
+                              "all-tied"])
+def test_psd_sqrt_is_the_symmetric_root_and_differentiable(evals):
+    """``_psd_sqrt`` is ``V sqrt(max(Λ, eps)) Vᵀ``, and its backward (the
+    divided differences) matches central differences in float64, in the
+    matrix and in eps, also at exact and near ties and at clipped
+    eigenvalues, where the backward of eigh is NaN or unbounded."""
+    rng = np.random.default_rng(13)
+    q, _ = np.linalg.qr(rng.normal(size=(4, 4)))
+    a = torch.from_numpy(q @ np.diag(evals) @ q.T).requires_grad_(True)
+    eps = torch.full((1, 1), 1e-6, dtype=torch.float64, requires_grad=True)
+    want = q @ np.diag(np.sqrt(np.maximum(evals, 1e-6))) @ q.T
+    np.testing.assert_allclose(trefine._psd_sqrt(a, eps).detach().numpy(),
+                               want, rtol=0, atol=1e-12)
+    assert torch.autograd.gradcheck(
+        lambda m, e: trefine._psd_sqrt(0.5 * (m + m.T), e), (a, eps),
+        eps=1e-9, atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])

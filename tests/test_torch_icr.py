@@ -168,7 +168,9 @@ def test_n_d_kernel_route_builds_only_axis_factors():
 
 
 def test_defaults_target_the_card_and_refuse_the_pyramid():
+    """The defaults: the card, and the pyramid prefix on, as in the JAX
+    package (it was refused before the pyramid kernel was ported)."""
     c = tcharts.regular_chart(16, 2)
     assert ICR(c, tkernels.matern32).device == "cuda"
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        ICR(c, tkernels.matern32, use_pyramid=True)
+    assert ICR(c, tkernels.matern32).use_pyramid
+    assert ICR(c, tkernels.matern32, use_pyramid=False).use_pyramid is False
