@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure ends the run with a non-zero exit code):
 
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch``
-   (one nvcc per source, in parallel); print the build time and the card.
+   (one nvcc per source, in parallel); print the build time and the card,
+   and (``ptxas`` line) the registers and spills of each instance of the
+   streaming stationary kernels.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes of every level of four charts (flagship dust
    ``galactic_dust_chart((8,16,16), 3)``, ``regular_chart(1024, 10)``,
@@ -42,7 +44,10 @@ Phases (any failure ends the run with a non-zero exit code):
 5. times   — per kernel at its chart's largest level (the pyramid at the
    dust cover, with the per-level kernels it replaces beside it):
    CUDA-event medians of the kernel, its plain version and, where one
-   PyTorch call computes (part of) the same function, that call; the
+   PyTorch call computes (part of) the same function, that call
+   (``F.conv1d``, ``F.conv_transpose1d`` or an einsum over a strided view
+   of the coarse rows); a device copy of as many bytes (``copy_ms``: what
+   this timing gives a kernel that only moves its bytes); the
    byte/operation bound; whole-path milliseconds per chart with the
    pyramid on and off; per level of each chart at float32, the torch glue
    against the kernels, forward and backward; and one training step's
@@ -430,6 +435,50 @@ def adjoint_cost(g, r, d, outs) -> tuple:
     fam = g.numel() // n_fsz
     return moved, fam * (n_fsz * n_csz + (n_fsz * n_fsz if d is not None
                                           else 0))
+
+
+WINDOW_EINSUM = ('torch.einsum("tfc,btc->btf", R, '
+                 'coarse.unfold(1, n_csz, n_fsz//2))')
+
+
+def window_einsum(coarse, r, t):
+    """The charted window contraction as one PyTorch call over a strided
+    view of the coarse rows: the charted kernels' library yardstick."""
+    import torch
+
+    n_fsz, n_csz = r.shape[-2:]
+    win = coarse.unfold(1, n_csz, n_fsz // 2)[:, :t]
+    return torch.einsum("tfc,btc->btf", r, win)
+
+
+def ptxas_lines(libs=("refine_1d", "refine_1d_adjoint")) -> dict:
+    """Registers and spill bytes of the streaming stationary instances, from
+    the ``-Xptxas -v`` report kept beside each built library."""
+    import re
+
+    from repro_torch.kernels import build
+
+    out = {}
+    for lib in libs:
+        log = build.library_path(lib).with_suffix(".log").read_text()
+        for entry, body in re.findall(
+                r"Compiling entry function '(\S+)'.*?\n(.*?)(?=Compiling "
+                r"entry function|\Z)", log, flags=re.S):
+            inst = re.search(r"(stationary(?:_adj)?)_kernelI(13__nv_bfloat16"
+                             r"|f)Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)E", entry)
+            if inst is None:
+                continue
+            kind, dtype, noise, f, c, nf = inst.groups()
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", body)
+            stencil = f"({f}, {c}) NF={nf}" if f != "0" else "runtime-size"
+            name = (f"{kind} {'bf16' if 'bf' in dtype else 'f32'} "
+                    f"{'noise' if noise == '1' else 'nn'} {stencil}")
+            out[name] = {"registers": int(regs.group(1)),
+                          "spill_stores": int(spill.group(1)),
+                          "spill_loads": int(spill.group(2))}
+    return out
 
 
 def bound(moved, fmas, bandwidth) -> tuple:
@@ -879,6 +928,12 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                                     "noise term")
                     library_ms = time_ms(lambda: torch.nn.functional.conv1d(
                         c3, w, stride=geom.n_fsz // 2), flush)
+                elif route == "charted-1d":
+                    coarse, xi1, r1, _ = args
+                    library_call = (f"{WINDOW_EINSUM}: the window "
+                                    "contraction without the noise term")
+                    library_ms = time_ms(lambda: window_einsum(
+                        coarse, r1, xi1.shape[1]), flush)
                 moved = operand_bytes(route, args, kern(*args))
                 fmas = kernel_fmas(route, args)
                 enq = enqueue_ms(lambda: kern(*args))
@@ -898,6 +953,11 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                                     "layout")
                     library_ms = time_ms(lambda: torch.nn.functional.conv1d(
                         c3, w, stride=r.shape[-2] // 2), flush)
+                else:
+                    library_call = (f"{WINDOW_EINSUM}: the same function "
+                                    "over a view")
+                    library_ms = time_ms(
+                        lambda: window_einsum(coarse, r, t), flush)
                 fine = kern(coarse, r, t)
                 moved = sum(x.numel() * x.element_size()
                             for x in (coarse, r, fine))
@@ -950,8 +1010,11 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 enq = enqueue_ms(lambda: kern(g, r, d, coarse_len=length))
                 shape = {"g": list(g.shape), "coarse_len": length}
             bound_ms, bound_by = bound(moved, fmas, bandwidth)
+            src = torch.empty(moved // 2, dtype=torch.uint8, device="cuda")
+            dst = torch.empty_like(src)
             per_dtype[dname] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "copy_ms": time_ms(lambda: dst.copy_(src), flush),
                 "enqueue_ms": enq, "library_call": library_call,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                 "level": lvl, "shape": shape}
@@ -1096,6 +1159,7 @@ def main() -> int:
         build.library(lib)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(build.SIGNATURES)} libraries; card: {card}", flush=True)
+    print("ptxas: " + json.dumps(ptxas_lines()), flush=True)
 
     gen = torch.Generator(device="cuda")
     models = {}

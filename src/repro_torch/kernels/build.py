@@ -30,15 +30,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of every library: the exported launch function's argtypes,
+# C signatures, by library: each exported launch function's argtypes,
 # ending in (int device, void* stream)
 SIGNATURES = {
-    "refine_1d": ("refine_1d_fwd", [_I] * 3 + [_P] * 5 + [_I] * 8 + [_P]),
-    "refine_1d_adjoint": ("refine_1d_adj",
-                          [_I, _I, _I] + [_P] * 5 + [_I] * 9 + [_P]),
-    "nd_fused": ("refine_nd_fused_fwd", [_I] + [_P] * 7 + [_I] * 17 + [_P]),
-    "pyramid": ("refine_pyramid_fwd",
-                [_I, _P] + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P]),
+    "refine_1d": {
+        "refine_1d_charted_fwd": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+        "refine_1d_stationary_fwd": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]},
+    "refine_1d_adjoint": {
+        "refine_1d_charted_adj": [_I, _I] + [_P] * 5 + [_I] * 9 + [_P],
+        "refine_1d_stationary_adj": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]},
+    "nd_fused": {
+        "refine_nd_fused_fwd": [_I] + [_P] * 7 + [_I] * 17 + [_P]},
+    "pyramid": {
+        "refine_pyramid_fwd":
+            [_I, _P] + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -103,25 +108,24 @@ def library(name: str):
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call library `name`'s launch function on `device`'s current stream;
-    raise if the launch returned an error."""
+def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call library `name`'s launch function `fn_name` on `device`'s current
+    stream; raise if the launch returned an error."""
     lib = library(name)
-    fn = getattr(lib, SIGNATURES[name][0])
-    err = fn(*args, device.index,
-             torch.cuda.current_stream(device).cuda_stream)
+    err = getattr(lib, fn_name)(
+        *args, device.index, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{SIGNATURES[name][0]} failed: {msg} ({err})")
+        raise RuntimeError(f"{fn_name} failed: {msg} ({err})")
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -1,9 +1,13 @@
 // Shared helpers of the port's refinement kernels: storage <-> float
-// conversion by intrinsics only (float or bf16 storage, f32 accumulation).
+// conversion by intrinsics only (float or bf16 storage, f32 accumulation),
+// and spans moved with the widest accesses their address allows.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
 
 namespace repro {
 
@@ -65,8 +69,172 @@ __host__ __device__ __forceinline__ int reflect_index(int p, int pad, int n) {
 }
 
 constexpr int kThreads = 256;
+// Runs (threads) of one streaming launch: the run index is 32-bit.
+constexpr long long kMaxRuns = (1LL << 31) - kThreads;
 constexpr int kMaxCsz = 9;  // n_csz bound of the register windows
 constexpr int kMaxFsz = 8;  // n_fsz bound of the register noise rows
+
+// -- spans ------------------------------------------------------------------
+// A span is N consecutive elements of one row, held as N floats. It moves
+// with the widest accesses (up to 16 bytes) its address allows: narrower
+// ones up to the first 16-byte boundary, 16-byte ones, a narrower tail.
+// Rows are not assumed aligned (rows of 524 290 floats start 8 bytes past
+// a boundary every other row, rows of 68 bf16 values 8 bytes past one), so
+// the span's offset within its 16-byte segment is read at run time and
+// picks one of 16 / sizeof(T) unrolled access sequences.
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);  // elements of a 16-byte access
+
+// The widest access, in elements (a power of two), that starts at element
+// `off` of a 16-byte segment and moves at most `n` elements.
+template <typename T>
+__host__ __device__ constexpr int access_width(int off, int n) {
+  int w = kVec<T>;
+  while (w > 1 && (off % w != 0 || w > n)) w /= 2;
+  return w;
+}
+
+template <int BYTES>
+struct Bits;
+template <>
+struct Bits<4> {
+  using type = unsigned;
+};
+template <>
+struct Bits<8> {
+  using type = uint2;
+};
+template <>
+struct Bits<16> {
+  using type = uint4;
+};
+
+// W elements at p, aligned to their size, as floats. A bf16 pair is one
+// 32-bit word, the first value in the low half; widening it is exact.
+template <typename T, int W>
+__device__ __forceinline__ void load_access(const T* p, float* v) {
+  constexpr int bytes = W * (int)sizeof(T);
+  if constexpr (bytes == 2) {
+    v[0] = to_float(*p);
+  } else {
+    using B = typename Bits<bytes>::type;
+    const B bits = *reinterpret_cast<const B*>(p);
+    unsigned w[bytes / 4];
+    memcpy(w, &bits, bytes);
+#pragma unroll
+    for (int i = 0; i < bytes / 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        v[i] = __uint_as_float(w[i]);
+      } else {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+// W floats stored at p, aligned to their size, each rounded once.
+template <typename T, int W>
+__device__ __forceinline__ void store_access(T* p, const float* v) {
+  constexpr int bytes = W * (int)sizeof(T);
+  if constexpr (bytes == 2) {
+    *p = from_float<T>(v[0]);
+  } else {
+    unsigned w[bytes / 4];
+#pragma unroll
+    for (int i = 0; i < bytes / 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        w[i] = __float_as_uint(v[i]);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        memcpy(&w[i], &h, 4);
+      }
+    }
+    using B = typename Bits<bytes>::type;
+    B bits;
+    memcpy(&bits, w, bytes);
+    *reinterpret_cast<B*>(p) = bits;
+  }
+}
+
+// Elements [I, N) of a span whose first element sits at element OFF of its
+// 16-byte segment.
+template <typename T, int N, int OFF, int I = 0>
+__device__ __forceinline__ void load_span_at(const T* p, float* v) {
+  if constexpr (I < N) {
+    constexpr int w = access_width<T>((OFF + I) % kVec<T>, N - I);
+    load_access<T, w>(p + I, v + I);
+    load_span_at<T, N, OFF, I + w>(p, v);
+  }
+}
+
+template <typename T, int N, int OFF, int I = 0>
+__device__ __forceinline__ void store_span_at(T* p, const float* v) {
+  if constexpr (I < N) {
+    constexpr int w = access_width<T>((OFF + I) % kVec<T>, N - I);
+    store_access<T, w>(p + I, v + I);
+    store_span_at<T, N, OFF, I + w>(p, v);
+  }
+}
+
+// fn(Int<off>{}) for the run-time offset `off` in [0, kVec<T>).
+template <typename T, int OFF = 0, typename Fn>
+__device__ __forceinline__ void at_offset(int off, Fn&& fn) {
+  if constexpr (OFF + 1 < kVec<T>) {
+    if (off != OFF) {
+      at_offset<T, OFF + 1>(off, fn);
+      return;
+    }
+  }
+  fn(Int<OFF>{});
+}
+
+template <typename T>
+__device__ __forceinline__ int segment_offset(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) & 15u) / sizeof(T));
+}
+
+// v = p[0, N), p anywhere in a row.
+template <typename T, int N>
+__device__ __forceinline__ void load_span(const T* p, float (&v)[N]) {
+  at_offset<T>(segment_offset(p), [&](auto off) {
+    load_span_at<T, N, decltype(off)::value>(p, v);
+  });
+}
+
+// p[0, N) = v, p anywhere in a row.
+template <typename T, int N>
+__device__ __forceinline__ void store_span(T* p, const float (&v)[N]) {
+  at_offset<T>(segment_offset(p), [&](auto off) {
+    store_span_at<T, N, decltype(off)::value>(p, v);
+  });
+}
+
+// The edge of a row of n elements, one element per access: v[i] =
+// row[first + i] where 0 <= first + i < n, else 0; nothing else is read.
+template <typename T, int N>
+__device__ __forceinline__ void load_range(const T* row, int first, int n,
+                                           float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = 0.f;
+    if (first + i >= 0 && first + i < n) v[i] = to_float(row[first + i]);
+  }
+}
+
+// p[i] = v[i] for i < n only.
+template <typename T, int N>
+__device__ __forceinline__ void store_prefix(T* p, int n, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n) p[i] = from_float<T>(v[i]);
+}
 
 }  // namespace repro
 

@@ -1,6 +1,6 @@
-// The 1-D forward refinement kernel of the port (paper Eq. 11-12, §4.3).
+// The 1-D forward refinement kernels of the port (paper Eq. 11-12, §4.3).
 //
-// Replaces the Pallas kernels of src/repro/kernels/icr_refine.py:
+// Replace the Pallas kernels of src/repro/kernels/icr_refine.py:
 //   _stationary_kernel    (l.98)  - one stencil shared by every family;
 //   _charted_kernel       (l.129) - per-family stencils R[t], sqrtD[t];
 //   _stationary_nn_kernel (l.115) and _charted_nn_kernel (l.145) - the
@@ -10,45 +10,57 @@
 //   fine[b, t*F + f] = sum_k R[t][f][k] coarse[b, t*s + k]
 //                    + sum_j D[t][f][j] xi[b, t, j].
 //
-// What bounds it: bytes. An output costs n_csz + n_fsz fused multiply-adds
-// (18 FLOP at 5x4) against 8 bytes of xi read and fine write plus half a
-// coarse element, about 2 FLOP per byte at f32: a tenth of the H100's f32
-// ridge (67 TFLOP/s over 3.35 TB/s). Without noise it is 10 FLOP against
-// ~6 bytes. So the design reads and writes every byte once, coalesced
-// (refine_1d_tile.cuh):
-//  * a block owns BF consecutive families and BB samples; per sample it
-//    stages the coarse run (BF-1)*s + n_csz (the overlapping windows and
-//    their halo) and, with noise, the xi tile in shared memory with
-//    coalesced loads;
-//  * charted stencils of the block's families are loaded once per block
-//    and reused for all of its samples (the TPU kernel's batch block);
-//  * one thread per output element, so the writes are fully coalesced;
-//  * the last block masks its family count; nothing is zero-padded in
-//    device memory and there is no halo view or reshape trick.
-// This first version runs at 22-39 % of the byte bound on an H100 (PERF.md):
-// scalar loads and the per-sample barriers leave it latency-limited.
-// Storage is float or bf16 (intrinsic conversions); accumulation is f32.
+// What bounds them: bytes. An output costs n_csz + n_fsz fused
+// multiply-adds (18 FLOP at 5x4) against 8 bytes of xi read and fine
+// write plus half a coarse element, about 2 FLOP per byte at f32: a tenth
+// of the H100's f32 ridge (67 TFLOP/s over 3.35 TB/s). Without noise it is
+// 10 FLOP against ~6 bytes. So every byte is read and written once, and
+// what decides the time is how many bytes each SM keeps in flight.
+//
+// Stationary (refine_1d_stationary_fwd): a streaming kernel with no shared
+// memory and no barrier. Each thread owns a run of NF consecutive families
+// of one row: it reads their coarse window ((NF-1)*s + n_csz values, the
+// n_csz - s halo shared with the next run served by L1) and, with noise,
+// their xi, with the widest accesses the addresses allow (common.cuh
+// spans: 16 bytes where aligned, any row start), and writes their NF*F
+// outputs the same way. The stencil lives in registers, loaded once per
+// thread. Runs are numbered row by row over the whole grid, so rows
+// shorter than a block's work (the trailing axes of an N-D level: 128
+// outputs) pack several to a block with every lane busy. The charts'
+// stencils (2, 3) and (4, 5) are compile-time instances whose loops unroll
+// fully; any other stencil runs a runtime-size instance, one family per
+// run with one element per access. The last run of a row takes what is
+// left of it, element by element. On an H100 the instances take no longer
+// than a device copy of as many bytes (chip_smoke.py's copy_ms, PERF.md).
+//
+// Charted (refine_1d_charted_fwd): the tile body shared with the pyramid
+// (refine_1d_tile.cuh), BF families of BB samples per block, the block's
+// stencils staged in shared memory once and reused for all its samples.
+//
+// Storage is float or bf16 (intrinsic conversions); every sum is f32, in
+// the order of the tile body, and each output is rounded once.
 #include "refine_1d_tile.cuh"
 
 namespace repro {
 
-template <typename T, bool CHARTED, bool NOISE>
+template <typename T, bool NOISE>
 __global__ void __launch_bounds__(kThreads) refine_1d_fwd_kernel(
     const T* __restrict__ coarse, const T* __restrict__ xi,
     const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
     int B, int L, int nT, int C, int F, int BF, int BB) {
   extern __shared__ float smem[];
-  refine_1d_tile<T, CHARTED, NOISE>(coarse, xi, r, d, out, B, L, 0, nT, C,
-                                    F, BF, BB, blockIdx.x, blockIdx.y, smem);
+  refine_1d_tile<T, true, NOISE>(coarse, xi, r, d, out, B, L, 0, nT, C, F,
+                                 BF, BB, blockIdx.x, blockIdx.y, smem);
 }
 
-template <typename T, bool CHARTED, bool NOISE>
-cudaError_t launch_1d(const void* coarse, const void* xi, const void* r,
-                      const void* d, void* out, int B, int L, int nT, int C,
-                      int F, int BF, int BB, cudaStream_t stream) {
+template <typename T, bool NOISE>
+cudaError_t launch_charted(const void* coarse, const void* xi, const void* r,
+                           const void* d, void* out, int B, int L, int nT,
+                           int C, int F, int BF, int BB,
+                           cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * refine_1d_smem_floats(CHARTED, NOISE, BF, C, F);
-  auto kernel = refine_1d_fwd_kernel<T, CHARTED, NOISE>;
+      sizeof(float) * refine_1d_smem_floats(true, NOISE, BF, C, F);
+  auto kernel = refine_1d_fwd_kernel<T, NOISE>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((nT + BF - 1) / BF, (B + BB - 1) / BB);
@@ -59,43 +71,201 @@ cudaError_t launch_1d(const void* coarse, const void* xi, const void* r,
   return cudaGetLastError();
 }
 
+// Families [t0, t0 + NF) of row b, stencil (F, C) fixed at compile time.
+template <typename T, bool NOISE, int F, int C, int NF>
+__device__ __forceinline__ void stationary_fwd_run(
+    const T* __restrict__ coarse, const T* __restrict__ xi,
+    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
+    size_t b, int L, int nT, int t0) {
+  constexpr int s = F / 2, W = (NF - 1) * s + C, V = NF * F;
+  float rr[F * C];
+  load_span(r, rr);
+  const T* cw = coarse + b * L + (size_t)t0 * s;
+  const size_t o0 = (b * nT + t0) * F;
+  const bool full = t0 + NF <= nT;
+  float w[W];
+  if (full)
+    load_span(cw, w);
+  else
+    load_range(cw, 0, (nT - t0 - 1) * s + C, w);
+  float o[V];
+#pragma unroll
+  for (int u = 0; u < NF; ++u)
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < C; ++k) acc = fmaf(rr[f * C + k], w[u * s + k], acc);
+      o[u * F + f] = acc;
+    }
+  if constexpr (NOISE) {
+    float dd[F * F], x[V];
+    load_span(d, dd);
+    if (full)
+      load_span(xi + o0, x);
+    else
+      load_range(xi + o0, 0, (nT - t0) * F, x);
+#pragma unroll
+    for (int u = 0; u < NF; ++u)
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        float noise = 0.f;
+#pragma unroll
+        for (int j = 0; j < F; ++j)
+          noise = fmaf(dd[f * F + j], x[u * F + j], noise);
+        o[u * F + f] += noise;
+      }
+  }
+  if (full)
+    store_span(out + o0, o);
+  else
+    store_prefix(out + o0, (nT - t0) * F, o);
+}
+
+// Family t of row b, stencil (F, C) given at run time.
+template <typename T, bool NOISE>
+__device__ __forceinline__ void stationary_fwd_family(
+    const T* __restrict__ coarse, const T* __restrict__ xi,
+    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
+    size_t b, int L, int nT, int C, int F, int t) {
+  const int s = F / 2;
+  const T* cw = coarse + b * L + (size_t)t * s;
+  const size_t o0 = (b * nT + t) * F;
+  for (int f = 0; f < F; ++f) {
+    float acc = 0.f;
+    for (int k = 0; k < C; ++k)
+      acc = fmaf(to_float(r[f * C + k]), to_float(cw[k]), acc);
+    if (NOISE) {
+      float noise = 0.f;
+      for (int j = 0; j < F; ++j)
+        noise = fmaf(to_float(d[f * F + j]), to_float(xi[o0 + j]), noise);
+      acc += noise;
+    }
+    out[o0 + f] = from_float<T>(acc);
+  }
+}
+
+// One run per thread: run i is run i % runs of row i / runs. F = 0 is the
+// runtime-size instance (NF = 1).
+template <typename T, bool NOISE, int F, int C, int NF>
+__global__ void __launch_bounds__(kThreads) refine_1d_stationary_kernel(
+    const T* __restrict__ coarse, const T* __restrict__ xi,
+    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
+    int B, int L, int nT, int Crt, int Frt, int runs) {
+  const unsigned run = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned b = run / runs;
+  if (b >= (unsigned)B) return;
+  const int t0 = (int)(run - b * runs) * NF;
+  if constexpr (F > 0)
+    stationary_fwd_run<T, NOISE, F, C, NF>(coarse, xi, r, d, out, b, L, nT,
+                                           t0);
+  else
+    stationary_fwd_family<T, NOISE>(coarse, xi, r, d, out, b, L, nT, Crt,
+                                     Frt, t0);
+}
+
+template <typename T, bool NOISE, int F, int C, int NF>
+cudaError_t launch_stationary(const void* coarse, const void* xi,
+                              const void* r, const void* d, void* out, int B,
+                              int L, int nT, int Crt, int Frt, int runs,
+                              cudaStream_t stream) {
+  const long long threads = (long long)B * runs;
+  if (runs < 1 || threads > kMaxRuns) return cudaErrorInvalidValue;
+  if (threads == 0) return cudaSuccess;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  refine_1d_stationary_kernel<T, NOISE, F, C, NF>
+      <<<blocks, kThreads, 0, stream>>>(
+          static_cast<const T*>(coarse), static_cast<const T*>(xi),
+          static_cast<const T*>(r), static_cast<const T*>(d),
+          static_cast<T*>(out), B, L, nT, Crt, Frt, runs);
+  return cudaGetLastError();
+}
+
+// The compile-time instances, NF families per run by stencil and storage
+// type (icr_refine.STREAM_FAMILIES["forward"] picks the same), and the
+// runtime-size instance (NF = 1) for any other stencil.
+template <typename T, bool NOISE>
+cudaError_t launch_stationary_any(const void* coarse, const void* xi,
+                                  const void* r, const void* d, void* out,
+                                  int B, int L, int nT, int C, int F, int NF,
+                                  int runs, cudaStream_t st) {
+  constexpr int NF23 = sizeof(T) == 4 ? 4 : 8, NF45 = 2;
+  if (F == 2 && C == 3 && NF == NF23)
+    return launch_stationary<T, NOISE, 2, 3, NF23>(coarse, xi, r, d, out, B,
+                                                   L, nT, C, F, runs, st);
+  if (F == 4 && C == 5 && NF == NF45)
+    return launch_stationary<T, NOISE, 4, 5, NF45>(coarse, xi, r, d, out, B,
+                                                   L, nT, C, F, runs, st);
+  if (NF != 1) return cudaErrorInvalidValue;
+  return launch_stationary<T, NOISE, 0, 0, 1>(coarse, xi, r, d, out, B, L,
+                                              nT, C, F, runs, st);
+}
+
 template <typename T>
-cudaError_t launch_1d_any(int charted, int noise, const void* coarse,
-                          const void* xi, const void* r, const void* d,
-                          void* out, int B, int L, int nT, int C, int F,
-                          int BF, int BB, cudaStream_t st) {
-  if (charted)
-    return noise ? launch_1d<T, true, true>(coarse, xi, r, d, out, B, L, nT,
-                                            C, F, BF, BB, st)
-                 : launch_1d<T, true, false>(coarse, xi, r, d, out, B, L, nT,
-                                             C, F, BF, BB, st);
-  return noise ? launch_1d<T, false, true>(coarse, xi, r, d, out, B, L, nT,
-                                           C, F, BF, BB, st)
-               : launch_1d<T, false, false>(coarse, xi, r, d, out, B, L, nT,
-                                            C, F, BF, BB, st);
+cudaError_t launch_charted_any(int noise, const void* coarse, const void* xi,
+                               const void* r, const void* d, void* out, int B,
+                               int L, int nT, int C, int F, int BF, int BB,
+                               cudaStream_t st) {
+  return noise ? launch_charted<T, true>(coarse, xi, r, d, out, B, L, nT, C,
+                                         F, BF, BB, st)
+               : launch_charted<T, false>(coarse, xi, r, d, out, B, L, nT, C,
+                                          F, BF, BB, st);
+}
+
+template <typename T>
+cudaError_t launch_stationary_dtype(int noise, const void* coarse,
+                                    const void* xi, const void* r,
+                                    const void* d, void* out, int B, int L,
+                                    int nT, int C, int F, int NF, int runs,
+                                    cudaStream_t st) {
+  return noise ? launch_stationary_any<T, true>(coarse, xi, r, d, out, B, L,
+                                                nT, C, F, NF, runs, st)
+               : launch_stationary_any<T, false>(coarse, xi, r, d, out, B, L,
+                                                 nT, C, F, NF, runs, st);
 }
 
 }  // namespace repro
 
 // dtype: 0 float32, 1 bfloat16. Shapes: coarse (B, L), xi (B, nT, F),
-// r (F, C) or (nT, F, C), d (F, F) or (nT, F, F), out (B, nT*F); all
-// contiguous, L >= (nT-1)*F/2 + C, on `device`, launched on `stream`.
-// noise = 0 drops xi and d (they may be null). Returns the launch's
-// cudaError_t.
-extern "C" int refine_1d_fwd(int dtype, int charted, int noise,
-                             const void* coarse, const void* xi,
-                             const void* r, const void* d, void* out, int B,
-                             int L, int nT, int C, int F, int BF, int BB,
-                             int device, void* stream) {
+// r (nT, F, C), d (nT, F, F), out (B, nT*F); all contiguous,
+// L >= (nT-1)*F/2 + C, on `device`, launched on `stream`. noise = 0 drops
+// xi and d (they may be null). A block owns BF families of BB samples.
+// Returns the launch's cudaError_t.
+extern "C" int refine_1d_charted_fwd(int dtype, int noise, const void* coarse,
+                                     const void* xi, const void* r,
+                                     const void* d, void* out, int B, int L,
+                                     int nT, int C, int F, int BF, int BB,
+                                     int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_1d_any<float>(charted, noise, coarse, xi, r, d, out,
-                                       B, L, nT, C, F, BF, BB, st);
+    return repro::launch_charted_any<float>(noise, coarse, xi, r, d, out, B,
+                                            L, nT, C, F, BF, BB, st);
   if (dtype == 1)
-    return repro::launch_1d_any<__nv_bfloat16>(charted, noise, coarse, xi, r,
-                                               d, out, B, L, nT, C, F, BF, BB,
-                                               st);
+    return repro::launch_charted_any<__nv_bfloat16>(
+        noise, coarse, xi, r, d, out, B, L, nT, C, F, BF, BB, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As refine_1d_charted_fwd with r (F, C) and d (F, F) shared by every
+// family. A thread owns NF families of one row (an instance of the
+// stencil's, or 1 for the runtime-size instance), a row `runs` =
+// ceil(nT / NF) threads, the grid ceil(B * runs / 256) blocks of 256.
+extern "C" int refine_1d_stationary_fwd(int dtype, int noise,
+                                        const void* coarse, const void* xi,
+                                        const void* r, const void* d,
+                                        void* out, int B, int L, int nT,
+                                        int C, int F, int NF, int runs,
+                                        int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return repro::launch_stationary_dtype<float>(
+        noise, coarse, xi, r, d, out, B, L, nT, C, F, NF, runs, st);
+  if (dtype == 1)
+    return repro::launch_stationary_dtype<__nv_bfloat16>(
+        noise, coarse, xi, r, d, out, B, L, nT, C, F, NF, runs, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,7 +22,10 @@ correlated correction ``sqrt(D) ξ``:
 The forward launches ``csrc/refine_1d.cu`` and the adjoint
 ``csrc/refine_1d_adjoint.cu`` on CUDA tensors; on CPU tensors each runs
 its plain version, the oracles of ``ref.py``. A CUDA tensor never reaches
-the plain version: the kernel launches or the wrapper raises.
+the plain version: the kernel launches or the wrapper raises. The charted
+kernels are tiled (``block_shape_1d``, ``block_shape_adjoint``), the
+stationary ones stream, one run of families per thread
+(``stream_shape_1d``).
 
 The forward wrappers are differentiable: where an operand requires grad
 they run inside a ``torch.autograd.Function`` whose backward is the
@@ -47,7 +50,7 @@ __all__ = ["refine_stationary", "refine_charted", "refine_stationary_plain",
            "refine_stationary_adjoint",
            "refine_charted_adjoint", "refine_stationary_adjoint_plain",
            "refine_charted_adjoint_plain", "block_shape_1d",
-           "block_shape_adjoint"]
+           "block_shape_adjoint", "stream_shape_1d"]
 
 # outputs per sample staged by one block: two per thread of 256
 _OUTPUTS_PER_BLOCK = 512
@@ -56,8 +59,9 @@ _TARGET_BLOCKS = 528
 
 
 def block_shape_1d(batch: int, t: int, n_fsz: int) -> tuple:
-    """(families, samples) one block of ``refine_1d.cu`` owns: 512 outputs
-    per sample, and as many samples as keep ~528 blocks in flight."""
+    """(families, samples) one block of the charted ``refine_1d.cu``
+    kernel, and of the pyramid's 1-D levels, owns: 512 outputs per sample,
+    and as many samples as keep ~528 blocks in flight."""
     bf = max(1, _OUTPUTS_PER_BLOCK // n_fsz)
     nbf = -(-t // bf)
     bb = max(1, min(batch, nbf * batch // _TARGET_BLOCKS))
@@ -65,15 +69,44 @@ def block_shape_1d(batch: int, t: int, n_fsz: int) -> tuple:
 
 
 def block_shape_adjoint(batch: int, t: int, n_fsz: int) -> tuple:
-    """(families, samples, samples staged at once) of one block of
-    ``refine_1d_adjoint.cu``: up to 512 g values per staged sample, rows
-    shorter than that staged several at a time, and ~528 blocks."""
+    """(families, samples, samples staged at once) of one block of the
+    charted ``refine_1d_adjoint.cu`` kernel: up to 512 g values per staged
+    sample, rows shorter than that staged several at a time, and ~528
+    blocks."""
     bf = max(1, min(t, _OUTPUTS_PER_BLOCK // n_fsz))
     sb = max(1, _OUTPUTS_PER_BLOCK // (bf * n_fsz))
     nbf = -(-t // bf)
     bb = max(1, min(batch, nbf * batch // _TARGET_BLOCKS))
     bb = -(-bb // sb) * sb
     return bf, bb, sb
+
+
+# threads per block of the streaming kernels (kThreads in csrc/common.cuh)
+THREADS = 256
+# families per thread of the streaming stationary kernels, forward and
+# adjoint, by (n_fsz, n_csz, storage itemsize): their compile-time
+# instances. Any other stencil runs the runtime-size instance, one family
+# per thread.
+STREAM_FAMILIES = {
+    "forward": {(2, 3, 4): 4, (2, 3, 2): 8, (4, 5, 4): 2, (4, 5, 2): 2},
+    "adjoint": {(2, 3, 4): 2, (2, 3, 2): 4, (4, 5, 4): 2, (4, 5, 2): 2},
+}
+# runs of one streaming launch: the kernels index them in 32 bits
+_MAX_RUNS = 2**31 - THREADS
+
+
+def stream_shape_1d(batch: int, t: int, n_fsz: int, n_csz: int,
+                    itemsize: int, *, adjoint: bool = False) -> tuple:
+    """(families per run, runs per row, blocks) of the streaming stationary
+    kernels: a thread owns one run of consecutive families of one row (the
+    adjoint's last run of a row also the tail of dcoarse), and the runs of
+    all rows are numbered one after another over blocks of ``THREADS``."""
+    table = STREAM_FAMILIES["adjoint" if adjoint else "forward"]
+    nf = table.get((n_fsz, n_csz, itemsize), 1)
+    runs = -(-t // nf)
+    if batch * runs > _MAX_RUNS:
+        raise ValueError(f"{batch} rows of {runs} runs exceed one launch")
+    return nf, runs, -(-batch * runs // THREADS)
 
 
 def refine_stationary_adjoint_plain(g, r, d=None, *, coarse_len: int):
@@ -126,16 +159,21 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None):
         t = r.shape[0]
     _check_1d("refine_1d", batch, t, n_fsz, n_csz, length,
               mat_lead=(t,) if charted else (), r=r, d=d)
-    bf, bb = block_shape_1d(batch, t, n_fsz)
-    if -(-batch // bb) > 65535:
-        raise ValueError(f"batch {batch} exceeds the launch grid")
+    if charted:
+        fn, shape = "refine_1d_charted_fwd", block_shape_1d(batch, t, n_fsz)
+        if -(-batch // shape[1]) > 65535:
+            raise ValueError(f"batch {batch} exceeds the launch grid")
+    else:
+        fn = "refine_1d_stationary_fwd"
+        shape = stream_shape_1d(batch, t, n_fsz, n_csz,
+                                coarse.element_size())[:2]
     out = torch.empty((batch, t * n_fsz), dtype=coarse.dtype,
                       device=coarse.device)
-    build.launch("refine_1d", coarse.device, build.dtype_code(coarse.dtype),
-                 int(charted), int(noise), coarse.data_ptr(),
-                 xi.data_ptr() if noise else None, r.data_ptr(),
-                 d.data_ptr() if noise else None, out.data_ptr(), batch,
-                 length, t, n_csz, n_fsz, bf, bb)
+    build.launch("refine_1d", fn, coarse.device,
+                 build.dtype_code(coarse.dtype), int(noise),
+                 coarse.data_ptr(), xi.data_ptr() if noise else None,
+                 r.data_ptr(), d.data_ptr() if noise else None,
+                 out.data_ptr(), batch, length, t, n_csz, n_fsz, *shape)
     build.LAUNCHES[("refine_charted" if charted else "refine_stationary")
                    + ("" if noise else "_nn")] += 1
     return out
@@ -156,17 +194,23 @@ def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
                          f"{n_fsz}")
     _check_1d("refine_1d_adjoint", batch, t, n_fsz, n_csz, coarse_len,
               mat_lead=(t,) if charted else (), r=r, d=d)
-    bf, bb, sb = block_shape_adjoint(batch, t, n_fsz)
-    if -(-batch // bb) > 65535:
-        raise ValueError(f"batch {batch} exceeds the launch grid")
+    if charted:
+        fn, shape = ("refine_1d_charted_adj",
+                     block_shape_adjoint(batch, t, n_fsz))
+        if -(-batch // shape[1]) > 65535:
+            raise ValueError(f"batch {batch} exceeds the launch grid")
+    else:
+        fn = "refine_1d_stationary_adj"
+        shape = stream_shape_1d(batch, t, n_fsz, n_csz, g.element_size(),
+                                adjoint=True)[:2]
     dc = torch.empty((batch, coarse_len), dtype=g.dtype, device=g.device)
     dxi = (torch.empty((batch, t, n_fsz), dtype=g.dtype, device=g.device)
            if noise else None)
-    build.launch("refine_1d_adjoint", g.device, build.dtype_code(g.dtype),
-                 int(charted), int(noise), g.data_ptr(), r.data_ptr(),
-                 d.data_ptr() if noise else None, dc.data_ptr(),
-                 dxi.data_ptr() if noise else None, batch, coarse_len, t,
-                 n_csz, n_fsz, bf, bb, sb)
+    build.launch("refine_1d_adjoint", fn, g.device,
+                 build.dtype_code(g.dtype), int(noise), g.data_ptr(),
+                 r.data_ptr(), d.data_ptr() if noise else None,
+                 dc.data_ptr(), dxi.data_ptr() if noise else None, batch,
+                 coarse_len, t, n_csz, n_fsz, *shape)
     name = ("refine_charted_adjoint" if charted
             else "refine_stationary_adjoint") + ("" if noise else "_nn")
     build.LAUNCHES[name] += 1

@@ -187,11 +187,12 @@ def _nd_fused(field, xi0, r0, d0, rts, T) -> torch.Tensor:
         L = (field.shape[1], 1, field.shape[2])
         TT, B = (T[0], 1, T[1]), (tile[0], 1, tile[1])
         r1, r2, ch1, ch2 = None, rts[0], False, charted[1]
-    build.launch("nd_fused", field.device, build.dtype_code(field.dtype),
-                 field.data_ptr(), xi0.data_ptr(), r0.data_ptr(),
-                 d0.data_ptr(), None if r1 is None else r1.data_ptr(),
-                 r2.data_ptr(), out.data_ptr(), n_s, *L, *TT, csz, fsz,
-                 int(charted[0]), int(ch1), int(ch2), *B, int(nd == 3))
+    build.launch("nd_fused", "refine_nd_fused_fwd", field.device,
+                 build.dtype_code(field.dtype), field.data_ptr(),
+                 xi0.data_ptr(), r0.data_ptr(), d0.data_ptr(),
+                 None if r1 is None else r1.data_ptr(), r2.data_ptr(),
+                 out.data_ptr(), n_s, *L, *TT, csz, fsz, int(charted[0]),
+                 int(ch1), int(ch2), *B, int(nd == 3))
     build.LAUNCHES["refine_nd_fused"] += 1
     return out
 

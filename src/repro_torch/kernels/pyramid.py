@@ -183,11 +183,11 @@ def _launch(field, geoms, levels, *, max_blocks: int = 0) -> torch.Tensor:
     out = torch.empty((n_s,) + tuple(geoms[-1].fine_shape),
                       dtype=field.dtype, device=field.device)
     grid = ctypes.c_int(0)
-    build.launch("pyramid", field.device, build.dtype_code(field.dtype),
-                 table.ctypes.data, len(geoms), n_s, geoms[0].n_csz,
-                 geoms[0].n_fsz, field.data_ptr(), out.data_ptr(),
-                 bufs[0].data_ptr(), bufs[1].data_ptr(), max_blocks,
-                 ctypes.addressof(grid))
+    build.launch("pyramid", "refine_pyramid_fwd", field.device,
+                 build.dtype_code(field.dtype), table.ctypes.data,
+                 len(geoms), n_s, geoms[0].n_csz, geoms[0].n_fsz,
+                 field.data_ptr(), out.data_ptr(), bufs[0].data_ptr(),
+                 bufs[1].data_ptr(), max_blocks, ctypes.addressof(grid))
     build.LAUNCHES["refine_pyramid"] += 1
     last_grid = grid.value
     return out

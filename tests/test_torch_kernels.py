@@ -214,6 +214,82 @@ def test_block_shape_1d():
     assert icr_refine.block_shape_1d(1, 3, 2)[1] == 1
 
 
+def _stream_owners(batch, t, n_fsz, n_csz, itemsize, length, adjoint):
+    """How many threads of the streaming launch own each fine output and,
+    for the adjoint, each coarse output: the kernels' run numbering (run i
+    is run i % runs of row i // runs; the adjoint's last run of a row
+    writes dcoarse on to its end)."""
+    nf, runs, blocks = icr_refine.stream_shape_1d(
+        batch, t, n_fsz, n_csz, itemsize, adjoint=adjoint)
+    s = n_fsz // 2
+    fine = np.zeros((batch, t * n_fsz), dtype=int)
+    coarse = np.zeros((batch, length), dtype=int)
+    for run in range(blocks * icr_refine.THREADS):
+        row, t0 = run // runs, run % runs * nf
+        if row >= batch:
+            continue
+        fine[row, t0 * n_fsz:min(t0 + nf, t) * n_fsz] += 1
+        end = length if t0 + nf >= t else (t0 + nf) * s
+        coarse[row, min(t0 * s, length):end] += 1
+    return (nf, runs, blocks), fine, coarse
+
+
+@pytest.mark.parametrize("batch,t,n_fsz,n_csz,itemsize,extra", [
+    (3, 37, 2, 3, 4, 0), (5, 16, 4, 5, 2, 1), (300, 32, 4, 5, 4, 4),
+    (7, 33, 8, 3, 4, 0), (1, 1, 2, 3, 2, 3), (37, 32, 4, 5, 2, 4),
+])
+@pytest.mark.parametrize("adjoint", [False, True], ids=["fwd", "adj"])
+def test_stream_shape_owns_every_output_once(batch, t, n_fsz, n_csz,
+                                             itemsize, extra, adjoint):
+    length = (t - 1) * (n_fsz // 2) + n_csz + extra
+    (nf, runs, blocks), fine, coarse = _stream_owners(
+        batch, t, n_fsz, n_csz, itemsize, length, adjoint)
+    assert (fine == 1).all()
+    if adjoint:
+        assert (coarse == 1).all()
+    assert (blocks - 1) * icr_refine.THREADS < batch * runs <= (
+        blocks * icr_refine.THREADS)
+    assert blocks <= 2**31 - 1
+
+
+def test_stream_shape_of_the_main_path():
+    """The charts' largest stationary levels: regular's last level (#1,
+    #5) and dust's trailing axes (#2, #6: rows of 32 families, several to
+    a block); the pyramid's 1-D tiles keep ``block_shape_1d``."""
+    shape = icr_refine.stream_shape_1d
+    assert shape(8, 524288, 2, 3, 4) == (4, 131072, 4096)
+    assert shape(8, 524288, 2, 3, 2) == (8, 65536, 2048)
+    assert shape(8, 524288, 2, 3, 4, adjoint=True) == (2, 262144, 8192)
+    assert shape(8, 524288, 2, 3, 2, adjoint=True) == (4, 131072, 4096)
+    for itemsize in (4, 2):
+        for adjoint in (False, True):
+            nf, runs, blocks = shape(32768, 32, 4, 5, itemsize,
+                                     adjoint=adjoint)
+            assert (nf, runs) == (2, 16)
+            assert icr_refine.THREADS // runs == 16     # rows per block
+            assert blocks == 32768 // 16
+    assert shape(5, 1001, 8, 3, 4)[0] == 1            # runtime-size instance
+    with pytest.raises(ValueError, match="exceed one launch"):
+        shape(2**20, 2**20, 2, 3, 4)
+    # the pyramid's launch table: (families, samples) of each 1-D tile in
+    # its last two columns, as before the stationary kernels streamed
+    # (regular's cover at S=8; the tiles depend on shapes only)
+    from repro_torch.kernels import pyramid as tpyramid
+
+    chart = tcharts.regular_chart(1024, 10, boundary="reflect")
+    geoms = [trefine.LevelGeom.for_level(chart, lvl) for lvl in range(9)]
+    field = torch.zeros((8,) + geoms[0].coarse_shape)
+    xis = [torch.zeros((8,) + tuple(g.T) + (g.n_fsz,)) for g in geoms]
+    mats = [([torch.zeros(g.n_fsz, g.n_csz)], [torch.zeros(g.n_fsz,
+                                                             g.n_fsz)])
+            for g in geoms]
+    field, levels = tpyramid.pyramid_operands(field, xis, mats, geoms,
+                                              sample_axis=True)
+    table = tpyramid._table(field, geoms, levels)
+    assert [tuple(row[[18, 21]]) for row in table] == [
+        (256, 1)] * 6 + [(256, 3), (256, 7), (256, 8)]
+
+
 # -- dispatch ----------------------------------------------------------------------
 @pytest.mark.parametrize("build_chart,route,n", [
     (lambda m: m.galactic_dust_chart((8, 16, 16), 3), "nd-fused", 3),
