@@ -10,7 +10,8 @@ Phases (any failure ends the run with a non-zero exit code):
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch``
    (one nvcc per source, in parallel); print the build time and the card,
    and (``ptxas`` line) the registers and spills of each instance of the
-   streaming stationary kernels.
+   streaming 1-D kernels, the N-D kernel and the pyramid, with the shared
+   memory of the N-D and pyramid launches and the blocks an SM holds.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes of every level of four charts (flagship dust
    ``galactic_dust_chart((8,16,16), 3)``, ``regular_chart(1024, 10)``,
@@ -19,7 +20,8 @@ Phases (any failure ends the run with a non-zero exit code):
    error <= 1e-5) and with bfloat16 storage (<= 5e-2): the three forward
    kernels, the two noise-free forward kernels at every non-final pass the
    nd-axes route makes on the N-D levels, the pyramid at each chart's
-   cover (``dispatch.pyramid_cover`` at S=8), and the four adjoint kernels
+   residency prefix (``dispatch.pyramid_prefix`` at S=8; ``pyramid_cover``
+   keeps regular's alone), and the four adjoint kernels
    at every launch a level's backward makes (1-D levels; axis 0 and the
    trailing axes of N-D levels).
 3. path    — ``ICR(..., use_pallas=True).sample_batch(gen, 8)`` on each
@@ -41,13 +43,15 @@ Phases (any failure ends the run with a non-zero exit code):
    learned-θ paths the matrix cotangents <= 1e-4 and dρ reported, see
    ``theta_gradient``), and ``ICR.apply_sqrt_T_batch`` on the kernels
    against autograd of the plain apply at both policies.
-5. times   — per kernel at its chart's largest level (the pyramid at the
-   dust cover, with the per-level kernels it replaces beside it):
+5. times   — per kernel at its chart's largest level (the pyramid at
+   regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
+   per-level kernels it replaces beside it):
    CUDA-event medians of the kernel, its plain version and, where one
    PyTorch call computes (part of) the same function, that call
    (``F.conv1d``, ``F.conv_transpose1d`` or an einsum over a strided view
    of the coarse rows); a device copy of as many bytes (``copy_ms``: what
-   this timing gives a kernel that only moves its bytes); the
+   this timing gives a kernel that only moves its bytes); #7 also at the
+   N-D backward's axis-0 shape (dust's last level); the
    byte/operation bound; whole-path milliseconds per chart with the
    pyramid on and off; per level of each chart at float32, the torch glue
    against the kernels, forward and backward; and one training step's
@@ -134,27 +138,28 @@ KERNEL_INFO = {
         "source": "src/repro_torch/kernels/csrc/pyramid.cu",
         "replaces": "src/repro/kernels/pyramid.py:150",
         "replaces_fn": "_pyramid_kernel",
-        "chart": "dust"},
+        "chart": "regular"},
 }
 FORWARD = ("refine_stationary", "refine_charted", "refine_nd_fused")
 NOISE_FREE = ("refine_stationary_nn", "refine_charted_nn")
 PYRAMID = "refine_pyramid"
 ADJOINT = tuple(k for k in KERNEL_INFO
                 if k not in FORWARD + NOISE_FREE + (PYRAMID,))
-# the kernels each training path must reach: the fixed-θ paths through
-# the pyramid's forward and its adjoint chain (regular: the pyramid's
-# replay), the learned-θ N-D paths through the pyramid's replay over the
-# nd-axes route
+# the kernels each training path must reach: regular (learned θ) through
+# the pyramid's forward and its replay over the 1-D kernels; the charts
+# the pyramid does not cover (dispatch.pyramid_cover: N-D and charted 1-D)
+# through their per-level kernels and the adjoints, the learned-θ N-D
+# paths through the nd-axes route
 TRAIN_REACHES = {
-    "dust": (PYRAMID, "refine_charted_adjoint",
+    "dust": ("refine_nd_fused", "refine_charted_adjoint",
              "refine_stationary_adjoint_nn"),
     "regular": (PYRAMID, "refine_stationary", "refine_stationary_adjoint"),
-    "log": (PYRAMID, "refine_charted_adjoint"),
-    "log_polar": (PYRAMID, "refine_charted_adjoint",
+    "log": ("refine_charted", "refine_charted_adjoint"),
+    "log_polar": ("refine_nd_fused", "refine_charted_adjoint",
                   "refine_charted_adjoint_nn"),
-    "dust_theta": (PYRAMID, "refine_charted", "refine_stationary_nn",
+    "dust_theta": ("refine_charted", "refine_stationary_nn",
                    "refine_charted_adjoint", "refine_stationary_adjoint_nn"),
-    "log_polar_theta": (PYRAMID, "refine_charted", "refine_charted_nn",
+    "log_polar_theta": ("refine_charted", "refine_charted_nn",
                         "refine_charted_adjoint",
                         "refine_charted_adjoint_nn"),
 }
@@ -305,17 +310,19 @@ def nn_ops():
 
 
 def pyramid_case(icr, mats, dtype, gen, samples=S):
-    """The pyramid's operands at the chart's cover for `samples` samples
-    of `dtype` (seeded field and ξ): ``(geoms, field, levels)``, or None
-    when the chart has no cover."""
+    """The pyramid's operands at the chart's residency prefix
+    (``dispatch.pyramid_prefix``: the levels the kernel can take, whether
+    or not ``pyramid_cover`` keeps them) for `samples` samples of `dtype`
+    (seeded field and ξ): ``(geoms, field, levels)``, or None when the
+    chart has no prefix."""
     import torch
 
     from repro_torch.core.icr import _pyramid_mats
     from repro_torch.core.refine import LevelGeom
     from repro_torch.kernels import dispatch, pyramid
 
-    k = dispatch.pyramid_cover(icr.chart, samples=samples,
-                               itemsize=dtype.itemsize)
+    k = dispatch.pyramid_prefix(icr.chart, samples=samples,
+                                itemsize=dtype.itemsize)
     if k is None:
         return None
     geoms = [LevelGeom.for_level(icr.chart, lvl) for lvl in range(k)]
@@ -451,34 +458,109 @@ def window_einsum(coarse, r, t):
     return torch.einsum("tfc,btc->btf", r, win)
 
 
-def ptxas_lines(libs=("refine_1d", "refine_1d_adjoint")) -> dict:
-    """Registers and spill bytes of the streaming stationary instances, from
-    the ``-Xptxas -v`` report kept beside each built library."""
+# per instance of the kernels the ``ptxas`` line reports: a pattern of its
+# mangled name and how to name it from the pattern's groups (dtype, then
+# the instance's template arguments)
+_INSTANCES = (
+    (r"(stationary(?:_adj)?)_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)ELi"
+     r"(\d+)ELi(\d+)E", lambda kind, noise, f, c, nf: (
+         kind, "noise" if noise == "1" else "nn", f, c, nf)),
+    (r"(charted_adj)_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)ELi(\d+)ELi"
+     r"(\d+)E", lambda kind, noise, f, c, nf: (
+         kind, "noise" if noise == "1" else "nn", f, c, nf)),
+    (r"(nd_fused)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
+     lambda kind, f, c: (kind, "", f, c, None)),
+    (r"(pyramid)_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)ELi(\d+)E",
+     lambda kind, nd, f, c: (kind, "nd" if nd == "1" else "1d", f, c, None)),
+)
+SM_REGISTERS = 65536         # 32-bit registers of an H100 SM
+SM_SMEM = 233472             # shared memory of an H100 SM (228 KB)
+BLOCK_SMEM_RESERVED = 1024   # shared memory the runtime keeps per block
+
+
+def blocks_per_sm(registers: int, smem: int) -> int:
+    """Resident blocks of 256 threads an H100 SM holds at `registers` per
+    thread (allocated in units of 8 per thread, i.e. 256 per warp) and
+    `smem` bytes of shared memory per block; at most 8 (2048 threads)."""
+    by_regs = SM_REGISTERS // (-(-registers // 8) * 8 * 256)
+    by_smem = SM_SMEM // (smem + BLOCK_SMEM_RESERVED) if smem else 8
+    return min(8, by_regs, by_smem)
+
+
+def ptxas_lines(smem=None,
+                libs=("refine_1d", "refine_1d_adjoint", "nd_fused",
+                      "pyramid")) -> dict:
+    """Registers and spill bytes of the streaming 1-D instances, the N-D
+    per-level instances and the pyramid's, from the ``-Xptxas -v`` report
+    kept beside each built library; for the N-D and pyramid instances also
+    the dynamic shared memory of their main-path launch (`smem`: kind ->
+    bytes, at f32 and bf16 alike) and the blocks of 256 an SM holds."""
     import re
 
     from repro_torch.kernels import build
 
+    smem = smem or {}
     out = {}
     for lib in libs:
         log = build.library_path(lib).with_suffix(".log").read_text()
         for entry, body in re.findall(
                 r"Compiling entry function '(\S+)'.*?\n(.*?)(?=Compiling "
                 r"entry function|\Z)", log, flags=re.S):
-            inst = re.search(r"(stationary(?:_adj)?)_kernelI(13__nv_bfloat16"
-                             r"|f)Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)E", entry)
-            if inst is None:
+            for pattern, parts in _INSTANCES:
+                inst = re.search(pattern, entry)
+                if inst is not None:
+                    break
+            else:
                 continue
-            kind, dtype, noise, f, c, nf = inst.groups()
+            kind, dtype, *rest = inst.groups()
+            kind, variant, f, c, nf = parts(kind, *rest)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", body)
-            stencil = f"({f}, {c}) NF={nf}" if f != "0" else "runtime-size"
-            name = (f"{kind} {'bf16' if 'bf' in dtype else 'f32'} "
-                    f"{'noise' if noise == '1' else 'nn'} {stencil}")
-            out[name] = {"registers": int(regs.group(1)),
-                          "spill_stores": int(spill.group(1)),
-                          "spill_loads": int(spill.group(2))}
+            stencil = (f"({f}, {c})" + (f" NF={nf}" if nf else "")
+                       if f != "0" else "runtime-size")
+            name = " ".join(x for x in (
+                kind, "bf16" if "bf" in dtype else "f32", variant, stencil)
+                if x)
+            row = {"registers": int(regs.group(1)),
+                   "spill_stores": int(spill.group(1)),
+                   "spill_loads": int(spill.group(2))}
+            key = f"{kind} {variant}".strip()
+            if key in smem and f != "0":
+                row["smem_bytes"] = smem[key]
+                row["blocks_per_sm"] = blocks_per_sm(row["registers"],
+                                                     smem[key])
+            out[name] = row
     return out
+
+
+def main_path_smem(models) -> dict:
+    """Dynamic shared memory (bytes) of the N-D and pyramid launches at
+    S=8: nd_fused at dust's last level, the pyramid at the dust prefix (its
+    N-D instance) and at the log prefix (its 1-D instance with charted
+    tiles; stationary levels stream without shared memory)."""
+    from repro_torch.core.refine import LevelGeom
+    from repro_torch.kernels import dispatch, icr_refine, nd_fused
+
+    def nd_smem(geom, charted):
+        tile = nd_fused.nd_tile(tuple(geom.T), geom.n_csz, geom.n_fsz,
+                                charted, S)
+        return 4 * nd_fused._smem_floats(tile, tuple(geom.T), len(geom.T),
+                                         geom.n_csz, geom.n_fsz, charted)
+
+    dust = models["dust"][0].chart
+    charted = tuple(not k for k in dust.invariant)
+    k = dispatch.pyramid_prefix(dust, samples=S) or 1
+    geoms = [LevelGeom.for_level(dust, lvl) for lvl in range(k)]
+    log = models["log"][0].chart
+    lg = LevelGeom.for_level(log, log.n_levels - 1)
+    bf = icr_refine.block_shape_1d(S, lg.T[0], lg.n_fsz)[0]
+    s, c, f = lg.n_fsz // 2, lg.n_csz, lg.n_fsz
+    return {"nd_fused": nd_smem(LevelGeom.for_level(dust, dust.n_levels - 1),
+                                charted),
+            "pyramid nd": max(nd_smem(g, charted) for g in geoms),
+            "pyramid 1d": 4 * (bf * (f * c + f * f) + (bf - 1) * s + c
+                               + bf * f)}
 
 
 def bound(moved, fmas, bandwidth) -> tuple:
@@ -891,13 +973,14 @@ def per_level_chain(field, geoms, levels) -> list:
 
 def kernel_times(models, bandwidth, flush, gen) -> dict:
     """Per kernel at the largest level of its chart (the noise-free passes
-    at their axis; the pyramid at its cover), float32 and bfloat16
-    storage: kernel, plain version and library call times, and the bound.
-    The pyramid has no library call; beside it stand the per-level kernels
-    it replaces, timed one by one on the same operands."""
+    at their axis; the pyramid at regular's cover, the one ``ICR`` runs),
+    float32 and bfloat16 storage: kernel, plain version and library call
+    times, and the bound. The pyramid has no library call; beside it stand
+    the per-level kernels it replaces, timed one by one on the same
+    operands, and (``dust_prefix``) its time at the dust prefix."""
     import torch
 
-    from repro_torch.kernels import dispatch, pyramid
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.policy import cast_tree
 
     adj = adjoint_ops()
@@ -966,27 +1049,16 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 shape = {"coarse": list(coarse.shape),
                          "fine": list(fine.shape), "level": lvl, "axis": a}
             elif kname == PYRAMID:
-                geoms, field, levels = pyramid_case(icr, m, dtype, gen)
-                ms = time_ms(lambda: pyramid.refine_pyramid_core(
-                    field, geoms, levels), flush)
-                grid = pyramid.last_grid
-                plain_ms = time_ms(lambda: pyramid.refine_pyramid_plain(
-                    field, geoms, levels), flush)
-                chain = per_level_chain(field, geoms, levels)
-                chain_ms = [time_ms(lambda k=k, a=a: k(*a), flush)
-                            for k, a, _ in chain]
-                fine = pyramid.refine_pyramid_core(field, geoms, levels)
-                moved = sum(x.numel() * x.element_size() for x in (
-                    field, fine, *(t for xi0, rs, d0 in levels
-                                   for t in (xi0, *rs, d0))))
-                fmas = sum(kernel_fmas(route, a) for _, a, route in chain)
-                enq = enqueue_ms(lambda: pyramid.refine_pyramid_core(
-                    field, geoms, levels))
-                shape = {"coarse": list(field.shape),
-                         "fine": list(fine.shape), "levels": len(geoms),
-                         "grid_blocks": grid,
-                         "per_level_kernels_ms": chain_ms,
-                         "per_level_kernels_sum_ms": sum(chain_ms)}
+                cover = dispatch.pyramid_cover(icr.chart, samples=S,
+                                               itemsize=dtype.itemsize)
+                ms, plain_ms, moved, fmas, enq, shape = pyramid_time(
+                    icr, m, dtype, gen, flush)
+                if shape["levels"] != cover:
+                    raise AssertionError(
+                        f"{kname} timed at {shape['levels']} levels, "
+                        f"ICR covers {cover}")
+                shape["dust_prefix"] = pyramid_prefix_time(
+                    models, dtype, gen, bandwidth, flush)
             else:
                 cases = [c for c in adjoint_cases(icr, m, lvl, dtype, gen)
                          if c[0] == kname]
@@ -1009,12 +1081,13 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 moved, fmas = adjoint_cost(g, r, d, outs)
                 enq = enqueue_ms(lambda: kern(g, r, d, coarse_len=length))
                 shape = {"g": list(g.shape), "coarse_len": length}
+                if kname == "refine_charted_adjoint":
+                    shape["nd_backward"] = nd_backward_time(
+                        models, dtype, gen, bandwidth, flush)
             bound_ms, bound_by = bound(moved, fmas, bandwidth)
-            src = torch.empty(moved // 2, dtype=torch.uint8, device="cuda")
-            dst = torch.empty_like(src)
             per_dtype[dname] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "copy_ms": time_ms(lambda: dst.copy_(src), flush),
+                "copy_ms": copy_ms(moved, flush),
                 "enqueue_ms": enq, "library_call": library_call,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                 "level": lvl, "shape": shape}
@@ -1022,13 +1095,91 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
     return out
 
 
-def pyramid_covers(models, flush, gen) -> dict:
-    """Per chart and storage dtype, the pyramid at its cover (S=8) against
-    the per-level kernels it replaces, each timed alone on the same
-    operands: the pyramid's yardstick, since no PyTorch call computes it."""
+def nd_backward_time(models, dtype, gen, bandwidth, flush) -> dict:
+    """#7 at the other shape of its launches: the axis-0 pass (with dxi)
+    of the N-D backward at dust's last level, very many short rows."""
     import torch
 
+    from repro_torch.kernels import icr_refine as ir
+    from repro_torch.kernels.policy import cast_tree
+
+    icr, mats, _ = models["dust"]
+    lvl = icr.chart.n_levels - 1
+    m = cast_tree(mats, dtype)
+    (_, g, r, d, length), = [
+        c for c in adjoint_cases(icr, m, lvl, dtype, gen)
+        if c[0] == "refine_charted_adjoint"]
+    ms = time_ms(lambda: ir.refine_charted_adjoint(g, r, d,
+                                                   coarse_len=length), flush)
+    outs = ir.refine_charted_adjoint(g, r, d, coarse_len=length)
+    moved, fmas = adjoint_cost(g, r, d, outs)
+    bound_ms, bound_by = bound(moved, fmas, bandwidth)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": moved, "copy_ms": copy_ms(moved, flush),
+            "g": list(g.shape), "coarse_len": length, "chart": "dust",
+            "level": lvl, "axis": 0}
+
+
+def pyramid_time(icr, mats, dtype, gen, flush) -> tuple:
+    """#10 at `icr`'s residency prefix (S=8): ``(ms, plain_ms, bytes,
+    fmas, enqueue_ms, shape)``, the shape holding the per-level kernels it
+    replaces, each timed alone on the same operands (its yardstick)."""
     from repro_torch.kernels import pyramid
+
+    geoms, field, levels = pyramid_case(icr, mats, dtype, gen)
+    ms = time_ms(lambda: pyramid.refine_pyramid_core(field, geoms, levels),
+                 flush)
+    grid = pyramid.last_grid
+    plain_ms = time_ms(lambda: pyramid.refine_pyramid_plain(
+        field, geoms, levels), flush)
+    chain = per_level_chain(field, geoms, levels)
+    chain_ms = [time_ms(lambda k=k, a=a: k(*a), flush) for k, a, _ in chain]
+    fine = pyramid.refine_pyramid_core(field, geoms, levels)
+    moved = sum(x.numel() * x.element_size() for x in (
+        field, fine, *(t for xi0, rs, d0 in levels for t in (xi0, *rs, d0))))
+    fmas = sum(kernel_fmas(route, a) for _, a, route in chain)
+    enq = enqueue_ms(lambda: pyramid.refine_pyramid_core(field, geoms,
+                                                         levels))
+    shape = {"coarse": list(field.shape), "fine": list(fine.shape),
+             "levels": len(geoms), "grid_blocks": grid,
+             "per_level_kernels_ms": chain_ms,
+             "per_level_kernels_sum_ms": sum(chain_ms)}
+    return ms, plain_ms, moved, fmas, enq, shape
+
+
+def pyramid_prefix_time(models, dtype, gen, bandwidth, flush) -> dict:
+    """#10 at the dust prefix, which ``pyramid_cover`` declines (ICR runs
+    the per-level kernels there), with its bound and copy time."""
+    from repro_torch.kernels.policy import cast_tree
+
+    icr, mats, _ = models["dust"]
+    ms, _, moved, fmas, _, shape = pyramid_time(
+        icr, cast_tree(mats, dtype), dtype, gen, flush)
+    bound_ms, bound_by = bound(moved, fmas, bandwidth)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": moved, "copy_ms": copy_ms(moved, flush),
+            "chart": "dust", **shape}
+
+
+def copy_ms(moved, flush) -> float:
+    """A device copy of `moved` bytes (half read, half written)."""
+    import torch
+
+    src = torch.empty(moved // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src), flush)
+
+
+def pyramid_covers(models, flush, gen) -> dict:
+    """Per chart and storage dtype, the pyramid at its residency prefix
+    (S=8) against the per-level kernels it replaces, each timed alone on
+    the same operands: the pyramid's yardstick, since no PyTorch call
+    computes it. ``kept``: whether ``dispatch.pyramid_cover`` takes the
+    prefix (``ICR`` runs the pyramid there); ``faster``: whether the
+    pyramid beat the per-level kernels summed in this run."""
+    import torch
+
+    from repro_torch.kernels import dispatch, pyramid
     from repro_torch.kernels.policy import cast_tree
 
     out = {}
@@ -1043,7 +1194,11 @@ def pyramid_covers(models, flush, gen) -> dict:
                      for k, a, _ in per_level_chain(field, geoms, levels)]
             out[f"{cname}-{str(dtype).split('.')[1]}"] = {
                 "cover": len(geoms), "levels": icr.chart.n_levels,
-                "ms": ms, "grid_blocks": pyramid.last_grid,
+                "kept": dispatch.pyramid_cover(
+                    icr.chart, samples=S, itemsize=dtype.itemsize)
+                is not None,
+                "ms": ms, "faster": ms < sum(chain),
+                "grid_blocks": pyramid.last_grid,
                 "per_level_kernels_ms": chain,
                 "per_level_kernels_sum_ms": sum(chain)}
     return out
@@ -1159,7 +1314,6 @@ def main() -> int:
         build.library(lib)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(build.SIGNATURES)} libraries; card: {card}", flush=True)
-    print("ptxas: " + json.dumps(ptxas_lines()), flush=True)
 
     gen = torch.Generator(device="cuda")
     models = {}
@@ -1169,6 +1323,8 @@ def main() -> int:
         mats = icr.matrices()
         torch.cuda.synchronize()
         models[cname] = (icr, mats, time.perf_counter() - t0)
+    print("ptxas: " + json.dumps(ptxas_lines(main_path_smem(models))),
+          flush=True)
 
     # -- 2. each kernel against its plain version -------------------------------
     errors = check_kernels(models, gen)

@@ -197,7 +197,7 @@ class ICR:
         start = 0
         cover = (dispatch.pyramid_cover(
             self.chart, samples=field.shape[0],
-            itemsize=field.element_size(), have_axis_mats="Rax" in mats)
+            itemsize=field.element_size())
             if self.use_pyramid else None)
         if cover is not None:
             start = cover

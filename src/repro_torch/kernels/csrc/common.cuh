@@ -115,16 +115,17 @@ struct Bits<16> {
   using type = uint4;
 };
 
-// W elements at p, aligned to their size, as floats. A bf16 pair is one
-// 32-bit word, the first value in the low half; widening it is exact.
-template <typename T, int W>
+// W elements at p, aligned to their size, as floats (COHERENT: through
+// the L2 only, see load). A bf16 pair is one 32-bit word, the first value
+// in the low half; widening it is exact.
+template <bool COHERENT, typename T, int W>
 __device__ __forceinline__ void load_access(const T* p, float* v) {
   constexpr int bytes = W * (int)sizeof(T);
   if constexpr (bytes == 2) {
-    v[0] = to_float(*p);
+    v[0] = to_float(load<COHERENT>(p));
   } else {
     using B = typename Bits<bytes>::type;
-    const B bits = *reinterpret_cast<const B*>(p);
+    const B bits = load<COHERENT>(reinterpret_cast<const B*>(p));
     unsigned w[bytes / 4];
     memcpy(w, &bits, bytes);
 #pragma unroll
@@ -165,12 +166,12 @@ __device__ __forceinline__ void store_access(T* p, const float* v) {
 
 // Elements [I, N) of a span whose first element sits at element OFF of its
 // 16-byte segment.
-template <typename T, int N, int OFF, int I = 0>
+template <bool COHERENT, typename T, int N, int OFF, int I = 0>
 __device__ __forceinline__ void load_span_at(const T* p, float* v) {
   if constexpr (I < N) {
     constexpr int w = access_width<T>((OFF + I) % kVec<T>, N - I);
-    load_access<T, w>(p + I, v + I);
-    load_span_at<T, N, OFF, I + w>(p, v);
+    load_access<COHERENT, T, w>(p + I, v + I);
+    load_span_at<COHERENT, T, N, OFF, I + w>(p, v);
   }
 }
 
@@ -200,11 +201,11 @@ __device__ __forceinline__ int segment_offset(const T* p) {
   return (int)((reinterpret_cast<uintptr_t>(p) & 15u) / sizeof(T));
 }
 
-// v = p[0, N), p anywhere in a row.
-template <typename T, int N>
+// v = p[0, N), p anywhere in a row; COHERENT through the L2 only.
+template <bool COHERENT = false, typename T, int N>
 __device__ __forceinline__ void load_span(const T* p, float (&v)[N]) {
   at_offset<T>(segment_offset(p), [&](auto off) {
-    load_span_at<T, N, decltype(off)::value>(p, v);
+    load_span_at<COHERENT, T, N, decltype(off)::value>(p, v);
   });
 }
 
@@ -218,13 +219,14 @@ __device__ __forceinline__ void store_span(T* p, const float (&v)[N]) {
 
 // The edge of a row of n elements, one element per access: v[i] =
 // row[first + i] where 0 <= first + i < n, else 0; nothing else is read.
-template <typename T, int N>
+template <bool COHERENT = false, typename T, int N>
 __device__ __forceinline__ void load_range(const T* row, int first, int n,
                                            float (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     v[i] = 0.f;
-    if (first + i >= 0 && first + i < n) v[i] = to_float(row[first + i]);
+    if (first + i >= 0 && first + i < n)
+      v[i] = to_float(load<COHERENT>(row + first + i));
   }
 }
 

@@ -13,44 +13,41 @@
 // multiply-adds at 5x4 stencils: ~4 FLOP per byte, a fifth of the f32
 // ridge. The TPU tile is b_f axis-0 families times the whole extent of
 // every trailing axis; on the flagship's last level that is >227 KB even
-// for b_f = 1. So this kernel tiles the families on EVERY axis:
-//  * a block owns B_0 x B_1 x B_2 families of one sample; it stages the
-//    coarse halo box ((B_a-1)*s + n_csz per axis) in shared memory once;
-//  * it contracts axis 2, then axis 1, shared memory to shared memory in
-//    f32 (the reference keeps these stages in f32 too);
-//  * the axis-0 stage reads its window from shared memory and xi0 from
-//    device memory, adds the noise and writes the fine tile once. Threads
-//    run along the last axis, so xi0 reads and fine writes are coalesced;
-//  * every device byte but the box halo is read once; edges are masked by
-//    the per-block family counts.
-// This first version runs at ~17 % of the byte bound on an H100 (PERF.md):
-// scalar loads, index arithmetic and ~72 KB of shared memory per block
-// (three blocks per SM) leave it latency-limited.
+// for b_f = 1. So this kernel tiles the families on EVERY axis: a block
+// owns B_0 x B_1 x B_2 families of one sample, stages their coarse halo
+// box ((B_a-1)*s + n_csz per axis) in shared memory once, contracts the
+// trailing axes there in f32 (the reference keeps these stages in f32
+// too), and streams xi0 in and the fine tile out in the axis-0 stage. The
+// tile body (nd_tile.cuh, shared with the pyramid) keeps xi0 loads in
+// flight while the box is staged, moves xi0 and the fine field in 16-byte
+// accesses, and fits four blocks of 256 threads on an SM; the tile shape
+// (nd_fused.nd_tile) gives small levels enough blocks to fill the card.
 // A 2-D level runs as a 3-D one whose middle axis has extent 1 and no
-// contraction. Storage is float or bf16; accumulation is f32. The tile
-// body lives in nd_tile.cuh, shared with the pyramid (pyramid.cu).
+// contraction. Storage is float or bf16; accumulation is f32. The charts'
+// stencils (4, 5) and (2, 3) are compile-time instances; any other runs
+// the runtime-size instance.
 #include "nd_tile.cuh"
 
 namespace repro {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) refine_nd_fused_kernel(
+template <typename T, int FT, int CT>
+__global__ void __launch_bounds__(kThreads, 4) refine_nd_fused_kernel(
     const T* __restrict__ field, const T* __restrict__ xi0,
     const T* __restrict__ r0, const T* __restrict__ d0,
     const T* __restrict__ r1, const T* __restrict__ r2, T* __restrict__ out,
     NdParams p) {
-  extern __shared__ float smem[];
-  nd_fused_tile<T>(field, xi0, r0, d0, r1, r2, out, p, blockIdx.x,
-                   blockIdx.y, smem);
+  extern __shared__ __align__(16) float smem[];
+  nd_fused_tile<T, false, FT, CT>(field, xi0, r0, d0, r1, r2, out, p,
+                                  blockIdx.x, blockIdx.y, smem);
 }
 
-template <typename T>
+template <typename T, int FT, int CT>
 cudaError_t launch_nd(const void* field, const void* xi0, const void* r0,
                       const void* d0, const void* r1, const void* r2,
                       void* out, int S, const NdParams& p,
                       cudaStream_t stream) {
   const size_t smem = nd_smem_floats(p) * sizeof(float);
-  auto kernel = refine_nd_fused_kernel<T>;
+  auto kernel = refine_nd_fused_kernel<T, FT, CT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((unsigned)nd_tiles_per_sample(p), S);
@@ -60,6 +57,18 @@ cudaError_t launch_nd(const void* field, const void* xi0, const void* r0,
       static_cast<const T*>(r1), static_cast<const T*>(r2),
       static_cast<T*>(out), p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_nd_any(const void* field, const void* xi0, const void* r0,
+                          const void* d0, const void* r1, const void* r2,
+                          void* out, int S, const NdParams& p,
+                          cudaStream_t st) {
+  if (p.F == 4 && p.C == 5)
+    return launch_nd<T, 4, 5>(field, xi0, r0, d0, r1, r2, out, S, p, st);
+  if (p.F == 2 && p.C == 3)
+    return launch_nd<T, 2, 3>(field, xi0, r0, d0, r1, r2, out, S, p, st);
+  return launch_nd<T, 0, 0>(field, xi0, r0, d0, r1, r2, out, S, p, st);
 }
 
 }  // namespace repro
@@ -86,9 +95,10 @@ extern "C" int refine_nd_fused_fwd(int dtype, const void* field,
                     F,  ch0, ch1, ch2, B0, B1, B2, contract1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_nd<float>(field, xi0, r0, d0, r1, r2, out, S, p, st);
+    return repro::launch_nd_any<float>(field, xi0, r0, d0, r1, r2, out, S,
+                                       p, st);
   if (dtype == 1)
-    return repro::launch_nd<__nv_bfloat16>(field, xi0, r0, d0, r1, r2, out, S,
-                                           p, st);
+    return repro::launch_nd_any<__nv_bfloat16>(field, xi0, r0, d0, r1, r2,
+                                               out, S, p, st);
   return (int)cudaErrorInvalidValue;
 }

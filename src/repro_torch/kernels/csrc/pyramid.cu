@@ -13,13 +13,15 @@
 //  * the levels run in turn: the blocks walk each level's tiles with a
 //    grid stride, then meet at cooperative_groups::this_grid().sync()
 //    before the next level reads what they wrote;
-//  * a tile is the per-level kernel's own tile body (nd_tile.cuh for 2-D
-//    and 3-D levels, refine_1d_tile.cuh for 1-D stationary and charted
-//    levels), so every level computes exactly what its per-level kernel
-//    computes;
-//  * a level reads its coarse field through the L2 only (ld.global.cg,
-//    the tiles' COHERENT flag): the field was written by other blocks
-//    before the grid.sync(), where the read-only path is not defined;
+//  * a level runs the per-level kernel's own body (nd_tile.cuh for 2-D
+//    and 3-D levels; refine_1d_tile.cuh for 1-D levels: the streaming run
+//    of the stationary kernel, one run of families per thread, and the
+//    tile of the charted one), so every level computes exactly what its
+//    per-level kernel computes;
+//  * every load goes through the L2 only (ld.global.cg, the bodies'
+//    COHERENT flag): a level's field was written by other blocks before
+//    the grid.sync(), where the read-only path is not defined, and no
+//    load of this kernel takes the read-only or L1 path;
 //  * reflect padding is done in the read index (reflect_index), the
 //    counterpart of _reflect_pad_axis: no padded copy is made;
 //  * intermediate fields live in two ping-pong scratch fields of the
@@ -29,13 +31,14 @@
 //    sqrtD_0, shapes and tiles) come in one by-value parameter struct of at
 //    most kMaxLevels levels, read in place (__grid_constant__);
 //  * a chart's levels are all 1-D or all N-D, so the kernel is compiled
-//    once per kind (ND): each instance holds one tile body's registers,
-//    not the union of both, and more blocks fit on an SM.
+//    once per kind (ND) and stencil (the charts' (4, 5) and (2, 3), and a
+//    runtime-size instance): each instance holds one kind's registers, and
+//    four blocks of 256 threads fit on an SM.
 // What bounds it: bytes, as each of its levels (~2-4 FLOP per byte at
 // f32): the first field read, every level's xi0 and matrices read once and
 // the last field written once are the device-memory traffic it cannot
-// avoid; the intermediate fields should be L2 traffic. The cover rule
-// (dispatch.pyramid_cover) keeps their sum within half the L2.
+// avoid; the intermediate fields should be L2 traffic. The residency rule
+// (dispatch.pyramid_prefix) keeps their sum within half the L2.
 // Storage is float or bf16; accumulation is f32.
 #include <cooperative_groups.h>
 
@@ -70,56 +73,96 @@ struct PyrParams {
   PyrLevel lv[kMaxLevels];
 };
 
-template <typename T, bool ND>
-__global__ void __launch_bounds__(kThreads)
+// Level l of the pyramid: the field it reads and the one it writes.
+template <typename T>
+__device__ __forceinline__ const T* level_in(const PyrParams& p, int l) {
+  return static_cast<const T*>(l == 0 ? p.field : p.scratch[(l - 1) & 1]);
+}
+template <typename T>
+__device__ __forceinline__ T* level_out(const PyrParams& p, int l) {
+  return static_cast<T*>(l + 1 == p.n_levels ? p.out : p.scratch[l & 1]);
+}
+
+template <typename T, bool ND, int FT, int CT>
+__global__ void __launch_bounds__(kThreads, 4)
     refine_pyramid_kernel(const __grid_constant__ PyrParams p) {
-  extern __shared__ float smem[];
+  constexpr int NF = stream_fwd_families<T>(FT, CT);
+  extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  for (int l = 0; l < p.n_levels; ++l) {
-    const PyrLevel& lv = p.lv[l];
-    const NdParams& q = lv.q;
-    const T* in = static_cast<const T*>(l == 0 ? p.field
-                                               : p.scratch[(l - 1) & 1]);
-    T* out = static_cast<T*>(l + 1 == p.n_levels ? p.out : p.scratch[l & 1]);
-    const T* xi0 = static_cast<const T*>(lv.xi0);
-    const T* r0 = static_cast<const T*>(lv.r0);
-    const T* d0 = static_cast<const T*>(lv.d0);
-    if (!ND) {
-      const int nfb = (q.T0 + q.B0 - 1) / q.B0;
-      for (int tile = blockIdx.x; tile < lv.tiles; tile += gridDim.x) {
-        if (q.ch0)
+  if constexpr (ND) {
+    // the level's parameters in shared memory: the tile body reads them
+    // from there after each of its barriers instead of holding them in
+    // registers (a level index known only at run time would put them in
+    // registers for the whole tile, and the instance would spill)
+    __shared__ PyrLevel slv;
+    __shared__ const void* sio[2];
+    for (int l = 0; l < p.n_levels; ++l) {
+      if (threadIdx.x == 0) {
+        slv = p.lv[l];
+        sio[0] = level_in<T>(p, l);
+        sio[1] = level_out<T>(p, l);
+      }
+      __syncthreads();
+      const int tiles = slv.tiles, per = nd_tiles_per_sample(slv.q);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        nd_fused_tile<T, true, FT, CT>(
+            static_cast<const T*>(sio[0]), static_cast<const T*>(slv.xi0),
+            static_cast<const T*>(slv.r0), static_cast<const T*>(slv.d0),
+            static_cast<const T*>(slv.r1), static_cast<const T*>(slv.r2),
+            static_cast<T*>(const_cast<void*>(sio[1])), slv.q, tile % per,
+            (size_t)(tile / per), smem);
+        __syncthreads();  // the next tile reuses shared memory
+      }
+      // the next level reads what every block wrote; grid.sync() orders
+      // the writes before those reads
+      if (l + 1 < p.n_levels) grid.sync();
+    }
+  } else {
+    for (int l = 0; l < p.n_levels; ++l) {
+      const PyrLevel& lv = p.lv[l];
+      const NdParams& q = lv.q;
+      const T* in = level_in<T>(p, l);
+      T* out = level_out<T>(p, l);
+      const T* xi0 = static_cast<const T*>(lv.xi0);
+      const T* r0 = static_cast<const T*>(lv.r0);
+      const T* d0 = static_cast<const T*>(lv.d0);
+      if (!q.ch0) {
+        // a stationary level: run i % runs (of NF = B0 families) of row
+        // i / runs, the runs of all rows over the grid
+        const int runs = lv.BB;
+        const long long total = (long long)p.S * runs;
+        for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+             i < total; i += (long long)gridDim.x * kThreads) {
+          const size_t b = (size_t)(i / runs);
+          const int t0 = (int)(i - (long long)b * runs) * NF;
+          if constexpr (FT > 0)
+            stationary_fwd_run<T, true, FT, CT, NF, true>(
+                in, xi0, r0, d0, out, b, q.L0, q.pad0, q.T0, t0);
+          else
+            stationary_fwd_family<T, true, true>(in, xi0, r0, d0, out, b,
+                                                 q.L0, q.pad0, q.T0, q.C,
+                                                 q.F, t0);
+        }
+      } else {
+        const int nfb = (q.T0 + q.B0 - 1) / q.B0;
+        for (int tile = blockIdx.x; tile < lv.tiles; tile += gridDim.x) {
           refine_1d_tile<T, true, true, true>(in, xi0, r0, d0, out, p.S,
                                               q.L0, q.pad0, q.T0, q.C, q.F,
                                               q.B0, lv.BB, tile % nfb,
                                               tile / nfb, smem);
-        else
-          refine_1d_tile<T, false, true, true>(in, xi0, r0, d0, out, p.S,
-                                               q.L0, q.pad0, q.T0, q.C, q.F,
-                                               q.B0, lv.BB, tile % nfb,
-                                               tile / nfb, smem);
-        __syncthreads();  // the next tile reuses shared memory
+          __syncthreads();  // the next tile reuses shared memory
+        }
       }
-    } else {
-      const int per = nd_tiles_per_sample(q);
-      for (int tile = blockIdx.x; tile < lv.tiles; tile += gridDim.x) {
-        nd_fused_tile<T, true>(in, xi0, r0, d0,
-                               static_cast<const T*>(lv.r1),
-                               static_cast<const T*>(lv.r2), out, q,
-                               tile % per, (size_t)(tile / per), smem);
-        __syncthreads();
-      }
+      if (l + 1 < p.n_levels) grid.sync();
     }
-    // the next level reads what every block wrote; grid.sync() orders the
-    // writes before those reads
-    if (l + 1 < p.n_levels) grid.sync();
   }
 }
 
-template <typename T, bool ND>
+template <typename T, bool ND, int FT, int CT>
 cudaError_t launch_pyramid(const PyrParams& p, size_t smem, int max_tiles,
                            int max_blocks, int* grid_out,
                            cudaStream_t stream) {
-  auto kernel = refine_pyramid_kernel<T, ND>;
+  auto kernel = refine_pyramid_kernel<T, ND, FT, CT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -147,13 +190,45 @@ cudaError_t launch_pyramid(const PyrParams& p, size_t smem, int max_tiles,
   return cudaGetLastError();
 }
 
+template <typename T, bool ND>
+cudaError_t launch_stencil(const PyrParams& p, int C, int F, size_t smem,
+                           int max_tiles, int max_blocks, int* grid_out,
+                           cudaStream_t st) {
+  if (F == 4 && C == 5)
+    return launch_pyramid<T, ND, 4, 5>(p, smem, max_tiles, max_blocks,
+                                       grid_out, st);
+  if (F == 2 && C == 3)
+    return launch_pyramid<T, ND, 2, 3>(p, smem, max_tiles, max_blocks,
+                                       grid_out, st);
+  return launch_pyramid<T, ND, 0, 0>(p, smem, max_tiles, max_blocks, grid_out,
+                                     st);
+}
+
+template <typename T>
+cudaError_t launch_kind(const PyrParams& p, int C, int F, size_t smem,
+                        int max_tiles, int max_blocks, int* grid_out,
+                        cudaStream_t st) {
+  // a stationary 1-D level's runs hold the instance's families
+  for (int l = 0; l < p.n_levels; ++l)
+    if (p.lv[l].ndim == 1 && !p.lv[l].q.ch0 &&
+        p.lv[l].q.B0 != stream_fwd_families<T>(F, C))
+      return cudaErrorInvalidValue;
+  return p.lv[0].ndim > 1
+             ? launch_stencil<T, true>(p, C, F, smem, max_tiles, max_blocks,
+                                       grid_out, st)
+             : launch_stencil<T, false>(p, C, F, smem, max_tiles, max_blocks,
+                                        grid_out, st);
+}
+
 }  // namespace repro
 
 // dtype: 0 float32, 1 bfloat16. `table` holds kLevelFields int64 per
 // level, in order: ndim, xi0, r0, d0, r1, r2 (device pointers, r1/r2 0
 // where absent), L0, L1, L2 (stored coarse extents), pad0, pad1, pad2
 // (reflect padding per axis), T0, T1, T2, ch0, ch1, ch2 (charted axes),
-// B0, B1, B2 (families per tile), BB (samples per tile of a 1-D level);
+// B0, B1, B2 (families per tile; of a stationary 1-D level, families per
+// run), BB (samples per tile of a charted 1-D level; runs per row of a
+// stationary one);
 // 2-D levels set the middle axis to extent 1, 1-D levels the two
 // trailing axes; the levels are all 1-D or all 2-D/3-D. field (S, *coarse
 // shape of level 0), out (S, *fine shape of the last level),
@@ -206,8 +281,11 @@ extern "C" int refine_pyramid_fwd(int dtype, const long long* table,
       return (int)cudaErrorInvalidValue;
     size_t floats;
     long long tiles;
-    if (lv.ndim == 1) {
-      floats = repro::refine_1d_smem_floats(q.ch0, true, q.B0, C, F);
+    if (lv.ndim == 1 && !q.ch0) {
+      floats = 0;
+      tiles = ((long long)S * lv.BB + repro::kThreads - 1) / repro::kThreads;
+    } else if (lv.ndim == 1) {
+      floats = repro::refine_1d_smem_floats(true, true, q.B0, C, F);
       tiles = (long long)((q.T0 + q.B0 - 1) / q.B0) *
               ((S + lv.BB - 1) / lv.BB);
     } else {
@@ -221,16 +299,11 @@ extern "C" int refine_pyramid_fwd(int dtype, const long long* table,
   }
   const size_t smem = smem_floats * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool nd = p.lv[0].ndim > 1;
   if (dtype == 0)
-    return (int)(nd ? repro::launch_pyramid<float, true>(
-                          p, smem, max_tiles, max_blocks, grid_out, st)
-                    : repro::launch_pyramid<float, false>(
-                          p, smem, max_tiles, max_blocks, grid_out, st));
+    return (int)repro::launch_kind<float>(p, C, F, smem, max_tiles,
+                                          max_blocks, grid_out, st);
   if (dtype == 1)
-    return (int)(nd ? repro::launch_pyramid<__nv_bfloat16, true>(
-                          p, smem, max_tiles, max_blocks, grid_out, st)
-                    : repro::launch_pyramid<__nv_bfloat16, false>(
-                          p, smem, max_tiles, max_blocks, grid_out, st));
+    return (int)repro::launch_kind<__nv_bfloat16>(p, C, F, smem, max_tiles,
+                                                  max_blocks, grid_out, st);
   return (int)cudaErrorInvalidValue;
 }

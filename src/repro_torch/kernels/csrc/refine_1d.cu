@@ -33,9 +33,10 @@
 // left of it, element by element. On an H100 the instances take no longer
 // than a device copy of as many bytes (chip_smoke.py's copy_ms, PERF.md).
 //
-// Charted (refine_1d_charted_fwd): the tile body shared with the pyramid
-// (refine_1d_tile.cuh), BF families of BB samples per block, the block's
-// stencils staged in shared memory once and reused for all its samples.
+// Charted (refine_1d_charted_fwd): a tile body, BF families of BB samples
+// per block, the block's stencils staged in shared memory once and reused
+// for all its samples. Both bodies live in refine_1d_tile.cuh, shared with
+// the pyramid's 1-D levels.
 //
 // Storage is float or bf16 (intrinsic conversions); every sum is f32, in
 // the order of the tile body, and each output is rounded once.
@@ -71,80 +72,6 @@ cudaError_t launch_charted(const void* coarse, const void* xi, const void* r,
   return cudaGetLastError();
 }
 
-// Families [t0, t0 + NF) of row b, stencil (F, C) fixed at compile time.
-template <typename T, bool NOISE, int F, int C, int NF>
-__device__ __forceinline__ void stationary_fwd_run(
-    const T* __restrict__ coarse, const T* __restrict__ xi,
-    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
-    size_t b, int L, int nT, int t0) {
-  constexpr int s = F / 2, W = (NF - 1) * s + C, V = NF * F;
-  float rr[F * C];
-  load_span(r, rr);
-  const T* cw = coarse + b * L + (size_t)t0 * s;
-  const size_t o0 = (b * nT + t0) * F;
-  const bool full = t0 + NF <= nT;
-  float w[W];
-  if (full)
-    load_span(cw, w);
-  else
-    load_range(cw, 0, (nT - t0 - 1) * s + C, w);
-  float o[V];
-#pragma unroll
-  for (int u = 0; u < NF; ++u)
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < C; ++k) acc = fmaf(rr[f * C + k], w[u * s + k], acc);
-      o[u * F + f] = acc;
-    }
-  if constexpr (NOISE) {
-    float dd[F * F], x[V];
-    load_span(d, dd);
-    if (full)
-      load_span(xi + o0, x);
-    else
-      load_range(xi + o0, 0, (nT - t0) * F, x);
-#pragma unroll
-    for (int u = 0; u < NF; ++u)
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        float noise = 0.f;
-#pragma unroll
-        for (int j = 0; j < F; ++j)
-          noise = fmaf(dd[f * F + j], x[u * F + j], noise);
-        o[u * F + f] += noise;
-      }
-  }
-  if (full)
-    store_span(out + o0, o);
-  else
-    store_prefix(out + o0, (nT - t0) * F, o);
-}
-
-// Family t of row b, stencil (F, C) given at run time.
-template <typename T, bool NOISE>
-__device__ __forceinline__ void stationary_fwd_family(
-    const T* __restrict__ coarse, const T* __restrict__ xi,
-    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
-    size_t b, int L, int nT, int C, int F, int t) {
-  const int s = F / 2;
-  const T* cw = coarse + b * L + (size_t)t * s;
-  const size_t o0 = (b * nT + t) * F;
-  for (int f = 0; f < F; ++f) {
-    float acc = 0.f;
-    for (int k = 0; k < C; ++k)
-      acc = fmaf(to_float(r[f * C + k]), to_float(cw[k]), acc);
-    if (NOISE) {
-      float noise = 0.f;
-      for (int j = 0; j < F; ++j)
-        noise = fmaf(to_float(d[f * F + j]), to_float(xi[o0 + j]), noise);
-      acc += noise;
-    }
-    out[o0 + f] = from_float<T>(acc);
-  }
-}
-
 // One run per thread: run i is run i % runs of row i / runs. F = 0 is the
 // runtime-size instance (NF = 1).
 template <typename T, bool NOISE, int F, int C, int NF>
@@ -157,10 +84,10 @@ __global__ void __launch_bounds__(kThreads) refine_1d_stationary_kernel(
   if (b >= (unsigned)B) return;
   const int t0 = (int)(run - b * runs) * NF;
   if constexpr (F > 0)
-    stationary_fwd_run<T, NOISE, F, C, NF>(coarse, xi, r, d, out, b, L, nT,
-                                           t0);
+    stationary_fwd_run<T, NOISE, F, C, NF>(coarse, xi, r, d, out, b, L, 0,
+                                           nT, t0);
   else
-    stationary_fwd_family<T, NOISE>(coarse, xi, r, d, out, b, L, nT, Crt,
+    stationary_fwd_family<T, NOISE>(coarse, xi, r, d, out, b, L, 0, nT, Crt,
                                      Frt, t0);
 }
 
@@ -189,7 +116,8 @@ cudaError_t launch_stationary_any(const void* coarse, const void* xi,
                                   const void* r, const void* d, void* out,
                                   int B, int L, int nT, int C, int F, int NF,
                                   int runs, cudaStream_t st) {
-  constexpr int NF23 = sizeof(T) == 4 ? 4 : 8, NF45 = 2;
+  constexpr int NF23 = stream_fwd_families<T>(2, 3);
+  constexpr int NF45 = stream_fwd_families<T>(4, 5);
   if (F == 2 && C == 3 && NF == NF23)
     return launch_stationary<T, NOISE, 2, 3, NF23>(coarse, xi, r, d, out, B,
                                                    L, nT, C, F, runs, st);

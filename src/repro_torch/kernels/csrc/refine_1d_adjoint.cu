@@ -37,11 +37,17 @@
 // run with one element per access. On an H100 the instances take no longer
 // than a device copy of as many bytes (chip_smoke.py's copy_ms, PERF.md).
 //
-// Charted (refine_1d_charted_adj): a block owns the coarse outputs
-// [t0*s, (t0+BF)*s) of BB samples (the last block runs on to L). It stages
-// the g rows and R[t] of its BF families and of the q_max families to
-// their left in shared memory, the stencils once per block for all its
-// samples; short rows stage SB samples at once. One thread per output.
+// Charted (refine_1d_charted_adj): the same streaming body with a stencil
+// per family. Its shapes are of two kinds: long rows and few samples (a
+// charted 1-D chart: 8 rows of 65K families), where R[t] and D[t] are as
+// many bytes as g, and very many short rows (the axis-0 pass of an N-D
+// backward: 131K rows of 16 families). So a thread owns a run of NF
+// families of SB rows: it reads its families' stencils once (of the left
+// families' only the columns that reach its outputs stay live), holds
+// them in registers for all SB rows, and per row streams g in and dcoarse
+// and dxi out through spans, as above; on short rows the few families'
+// stencils stay in L1 and a block packs several rows. The launch geometry
+// (NF, SB, runs) is icr_refine.charted_adjoint_shape.
 //
 // Storage is float or bf16 (intrinsic conversions); every sum is f32, in
 // the same order in both bodies (nearest family first, then f), and each
@@ -50,93 +56,175 @@
 
 namespace repro {
 
-template <typename T, bool NOISE>
-__global__ void __launch_bounds__(kThreads) refine_1d_adj_kernel(
+// Families [t0, t0 + NF) of rows [b0, b0 + nb) and their coarse outputs
+// [t0*s, (t0+NF)*s); the row's last run also writes dcoarse on to L.
+// Stencil (F, C) fixed at compile time; the families' stencils R[t] (and
+// D[t]) are read once and held in registers for all nb rows.
+template <typename T, bool NOISE, int F, int C, int NF>
+__device__ __forceinline__ void charted_adj_run(
     const T* __restrict__ g, const T* __restrict__ r, const T* __restrict__ d,
-    T* __restrict__ dc, T* __restrict__ dxi, int B, int L, int nT, int C,
-    int F, int BF, int BB, int SB) {
-  extern __shared__ float smem[];
-  const int s = F / 2, FC = F * C, FF = F * F;
-  const int qmax = (C - 1) / s;
-  const int t0 = blockIdx.x * BF;
-  const int nf = min(BF, nT - t0);
-  const int tlo = max(0, t0 - qmax);    // first family staged (halo)
-  const int nst = t0 + nf - tlo;        // families staged
-  const int c0 = t0 * s;                // first coarse output owned
-  const int nc = (t0 + nf == nT) ? L - c0 : nf * s;  // last block: to L
-  const int b0 = blockIdx.y * BB;
-  const int nb = min(BB, B - b0);
-  float* sr = smem;                                // stencils R
-  float* sd = sr + (BF + qmax) * FC;               // noise factors
-  float* sg = sd + (NOISE ? BF * FF : 0);          // g rows
-
-  const int nr = nst * FC;
-  const T* rg = r + (size_t)tlo * FC;
-  for (int i = threadIdx.x; i < nr; i += blockDim.x) sr[i] = to_float(rg[i]);
-  if (NOISE) {
-    const int ndd = nf * FF;
-    const T* dg = d + (size_t)t0 * FF;
-    for (int i = threadIdx.x; i < ndd; i += blockDim.x)
-      sd[i] = to_float(dg[i]);
+    T* __restrict__ dc, T* __restrict__ dxi, size_t b0, int nb, int L,
+    int nT, int t0) {
+  constexpr int s = F / 2, Q = (C - 1) / s;  // Q = q_max
+  constexpr int FC = F * C, FF = F * F, NC = NF * s, V = NF * F;
+  const int c0 = t0 * s;
+  const bool full = t0 + NF <= nT, last = t0 + NF >= nT;
+  // stencils of families t0 - Q + u (u < Q: the left families; u >= Q:
+  // the run's own), 0 where no family is; only the columns that reach the
+  // run's outputs stay live
+  float rh[Q * FC], ro[NF * FC];
+  if (t0 >= Q)
+    load_span(r + (size_t)(t0 - Q) * FC, rh);
+  else
+    load_range(r, (t0 - Q) * FC, nT * FC, rh);
+  if (full)
+    load_span(r + (size_t)t0 * FC, ro);
+  else
+    load_range(r, t0 * FC, nT * FC, ro);
+  auto rv = [&](int u, int f, int k) {
+    return u < Q ? rh[u * FC + f * C + k] : ro[(u - Q) * FC + f * C + k];
+  };
+  float dd[NOISE ? NF * FF : 1];
+  if constexpr (NOISE) {
+    if (full)
+      load_span(d + (size_t)t0 * FF, dd);
+    else
+      load_range(d, t0 * FF, nT * FF, dd);
   }
-
-  const int ng = nst * F;  // staged g values per sample
-  for (int bs = 0; bs < nb; bs += SB) {
-    const int ns = min(SB, nb - bs);
-    const size_t b = (size_t)(b0 + bs);
-    __syncthreads();  // the previous samples' readers are done
-    for (int i = threadIdx.x; i < ns * ng; i += blockDim.x) {
-      const int si = i / ng, e = i - si * ng;
-      sg[i] = to_float(g[((b + si) * nT + tlo) * F + e]);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < ns * nc; i += blockDim.x) {
-      const int si = i / nc, c = c0 + (i - si * nc);
-      const float* gs = sg + si * ng;
+  for (int bi = 0; bi < nb; ++bi) {
+    const size_t b = b0 + bi;
+    const T* grow = g + b * nT * F;
+    float gh[Q * F], go[V];
+    if (t0 >= Q)
+      load_span(grow + (size_t)(t0 - Q) * F, gh);
+    else
+      load_range(grow, (t0 - Q) * F, nT * F, gh);
+    if (full)
+      load_span(grow + (size_t)t0 * F, go);
+    else
+      load_range(grow, t0 * F, nT * F, go);
+    auto gv = [&](int u, int f) {
+      return u < Q ? gh[u * F + f] : go[(u - Q) * F + f];
+    };
+    float oc[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      // families whose window covers c0 + i, nearest first: k grows by s
       float acc = 0.f;
-      // families t whose window covers c, nearest first: k = c - t*s grows
-      for (int t = min(c / s, nT - 1); t >= tlo; --t) {
-        const int k = c - t * s;
-        if (k >= C) break;
-        const float* gr = gs + (t - tlo) * F;
-        const float* rr = sr + (t - tlo) * FC + k;
-        for (int f = 0; f < F; ++f) acc = fmaf(gr[f], rr[f * C], acc);
+#pragma unroll
+      for (int k = i % s; k < C; k += s) {
+        const int u = Q + (i - k) / s;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc = fmaf(gv(u, f), rv(u, f, k), acc);
       }
-      dc[(b + si) * L + c] = from_float<T>(acc);
+      oc[i] = acc;
     }
-    if (NOISE) {
-      const int nx = nf * F;
-      for (int i = threadIdx.x; i < ns * nx; i += blockDim.x) {
-        const int si = i / nx, e = i - si * nx;
-        const int tl = e / F, j = e - tl * F;
-        const float* gr = sg + si * ng + (t0 - tlo + tl) * F;
-        const float* dd = sd + tl * FF + j;
+    T* dcw = dc + b * L + c0;
+    if (!last) {
+      store_span(dcw, oc);
+    } else {
+      store_prefix(dcw, L - c0, oc);
+      // dcoarse's tail past the run: the last families' far columns, then 0
+      for (int c = c0 + NC; c < L; ++c) {
         float acc = 0.f;
-        for (int f = 0; f < F; ++f) acc = fmaf(gr[f], dd[f * F], acc);
-        dxi[((b + si) * nT + t0) * F + e] = from_float<T>(acc);
+        for (int t = min(c / s, nT - 1); t >= 0; --t) {
+          const int k = c - t * s;
+          if (k >= C) break;
+          for (int f = 0; f < F; ++f)
+            acc = fmaf(to_float(grow[t * F + f]),
+                       to_float(r[((size_t)t * F + f) * C + k]), acc);
+        }
+        dcw[c - c0] = from_float<T>(acc);
       }
+    }
+    if constexpr (NOISE) {
+      float ox[V];
+#pragma unroll
+      for (int u = 0; u < NF; ++u)
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          float acc = 0.f;
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            acc = fmaf(go[u * F + f], dd[u * FF + f * F + j], acc);
+          ox[u * F + j] = acc;
+        }
+      T* xw = dxi + (b * nT + t0) * F;
+      if (full)
+        store_span(xw, ox);
+      else
+        store_prefix(xw, (nT - t0) * F, ox);
     }
   }
 }
 
+// Family t of row b and its coarse outputs [t*s, (t+1)*s) (the last
+// family's on to L), per-family stencils, (F, C) given at run time.
 template <typename T, bool NOISE>
+__device__ __forceinline__ void charted_adj_family(
+    const T* __restrict__ g, const T* __restrict__ r, const T* __restrict__ d,
+    T* __restrict__ dc, T* __restrict__ dxi, size_t b, int L, int nT, int C,
+    int F, int t) {
+  const int s = F / 2, FC = F * C, FF = F * F;
+  const T* grow = g + b * nT * F;
+  const int cend = t == nT - 1 ? L : min((t + 1) * s, L);
+  for (int c = t * s; c < cend; ++c) {
+    float acc = 0.f;
+    for (int tt = min(c / s, nT - 1); tt >= 0; --tt) {
+      const int k = c - tt * s;
+      if (k >= C) break;
+      for (int f = 0; f < F; ++f)
+        acc = fmaf(to_float(grow[tt * F + f]),
+                   to_float(r[(size_t)tt * FC + f * C + k]), acc);
+    }
+    dc[b * L + c] = from_float<T>(acc);
+  }
+  if (NOISE)
+    for (int j = 0; j < F; ++j) {
+      float acc = 0.f;
+      for (int f = 0; f < F; ++f)
+        acc = fmaf(to_float(grow[t * F + f]),
+                   to_float(d[(size_t)t * FF + f * F + j]), acc);
+      dxi[(b * nT + t) * F + j] = from_float<T>(acc);
+    }
+}
+
+// One run of rows per thread: thread i owns run i % runs of the rows
+// [(i / runs) * SB, + SB). F = 0 is the runtime-size instance (NF = 1).
+template <typename T, bool NOISE, int F, int C, int NF>
+__global__ void __launch_bounds__(kThreads) refine_1d_charted_adj_kernel(
+    const T* __restrict__ g, const T* __restrict__ r, const T* __restrict__ d,
+    T* __restrict__ dc, T* __restrict__ dxi, int B, int L, int nT, int Crt,
+    int Frt, int runs, int SB) {
+  const unsigned run = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned chunk = run / runs;
+  const size_t b0 = (size_t)chunk * SB;
+  if (b0 >= (size_t)B) return;
+  const int nb = min(SB, B - (int)b0);
+  const int t0 = (int)(run - chunk * runs) * NF;
+  if constexpr (F > 0) {
+    charted_adj_run<T, NOISE, F, C, NF>(g, r, d, dc, dxi, b0, nb, L, nT, t0);
+  } else {
+    for (int bi = 0; bi < nb; ++bi)
+      charted_adj_family<T, NOISE>(g, r, d, dc, dxi, b0 + bi, L, nT, Crt,
+                                   Frt, t0);
+  }
+}
+
+template <typename T, bool NOISE, int F, int C, int NF>
 cudaError_t launch_charted(const void* g, const void* r, const void* d,
-                           void* dc, void* dxi, int B, int L, int nT, int C,
-                           int F, int BF, int BB, int SB,
-                           cudaStream_t stream) {
-  const int qmax = (C - 1) / (F / 2);
-  const size_t smem =
-      sizeof(float) * ((size_t)(BF + qmax) * F * C +
-                       (NOISE ? (size_t)BF * F * F : 0) +
-                       (size_t)SB * (BF + qmax) * F);
-  auto kernel = refine_1d_adj_kernel<T, NOISE>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((nT + BF - 1) / BF, (B + BB - 1) / BB);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(r),
-      static_cast<const T*>(d), static_cast<T*>(dc), static_cast<T*>(dxi), B,
-      L, nT, C, F, BF, BB, SB);
+                           void* dc, void* dxi, int B, int L, int nT, int Crt,
+                           int Frt, int runs, int SB, cudaStream_t stream) {
+  if (runs < 1 || SB < 1) return cudaErrorInvalidValue;
+  const long long threads = (long long)((B + SB - 1) / SB) * runs;
+  if (threads > kMaxRuns) return cudaErrorInvalidValue;
+  if (threads == 0) return cudaSuccess;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  refine_1d_charted_adj_kernel<T, NOISE, F, C, NF>
+      <<<blocks, kThreads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r),
+          static_cast<const T*>(d), static_cast<T*>(dc),
+          static_cast<T*>(dxi), B, L, nT, Crt, Frt, runs, SB);
   return cudaGetLastError();
 }
 
@@ -301,15 +389,35 @@ cudaError_t launch_stationary_any(const void* g, const void* r, const void* d,
                                               F, runs, st);
 }
 
+// The compile-time instances of the charted adjoint, NF families per run
+// by stencil and storage type (icr_refine.CHARTED_ADJ_FAMILIES picks the
+// same), and the runtime-size instance (NF = 1) for any other stencil.
+template <typename T, bool NOISE>
+cudaError_t launch_charted_any(const void* g, const void* r, const void* d,
+                               void* dc, void* dxi, int B, int L, int nT,
+                               int C, int F, int NF, int SB, int runs,
+                               cudaStream_t st) {
+  constexpr int NF23 = 2, NF45 = 1;
+  if (F == 2 && C == 3 && NF == NF23)
+    return launch_charted<T, NOISE, 2, 3, NF23>(g, r, d, dc, dxi, B, L, nT,
+                                                C, F, runs, SB, st);
+  if (F == 4 && C == 5 && NF == NF45)
+    return launch_charted<T, NOISE, 4, 5, NF45>(g, r, d, dc, dxi, B, L, nT,
+                                                C, F, runs, SB, st);
+  if (NF != 1) return cudaErrorInvalidValue;
+  return launch_charted<T, NOISE, 0, 0, 1>(g, r, d, dc, dxi, B, L, nT, C, F,
+                                           runs, SB, st);
+}
+
 template <typename T>
-cudaError_t launch_charted_any(int noise, const void* g, const void* r,
-                               const void* d, void* dc, void* dxi, int B,
-                               int L, int nT, int C, int F, int BF, int BB,
-                               int SB, cudaStream_t st) {
-  return noise ? launch_charted<T, true>(g, r, d, dc, dxi, B, L, nT, C, F,
-                                         BF, BB, SB, st)
-               : launch_charted<T, false>(g, r, d, dc, dxi, B, L, nT, C, F,
-                                          BF, BB, SB, st);
+cudaError_t launch_charted_dtype(int noise, const void* g, const void* r,
+                                 const void* d, void* dc, void* dxi, int B,
+                                 int L, int nT, int C, int F, int NF, int SB,
+                                 int runs, cudaStream_t st) {
+  return noise ? launch_charted_any<T, true>(g, r, d, dc, dxi, B, L, nT, C,
+                                             F, NF, SB, runs, st)
+               : launch_charted_any<T, false>(g, r, d, dc, dxi, B, L, nT, C,
+                                              F, NF, SB, runs, st);
 }
 
 template <typename T>
@@ -328,22 +436,25 @@ cudaError_t launch_stationary_dtype(int noise, const void* g, const void* r,
 // dtype: 0 float32, 1 bfloat16. Shapes: g (B, nT*F), r (nT, F, C),
 // d (nT, F, F) (unused when noise == 0), dc (B, L), dxi (B, nT, F)
 // (unused when noise == 0); all contiguous, L >= (nT-1)*F/2 + C, on
-// `device`, launched on `stream`. A block owns BF families of BB samples
-// and stages SB samples at a time. Returns the launch's cudaError_t.
+// `device`, launched on `stream`. A thread owns NF families (an instance
+// of the stencil's, or 1 for the runtime-size instance) of SB rows, a row
+// `runs` = ceil(nT / NF) threads, the last of which writes dcoarse on to
+// L, the grid ceil(ceil(B / SB) * runs / 256) blocks of 256. Returns the
+// launch's cudaError_t.
 extern "C" int refine_1d_charted_adj(int dtype, int noise, const void* g,
                                      const void* r, const void* d, void* dc,
                                      void* dxi, int B, int L, int nT, int C,
-                                     int F, int BF, int BB, int SB,
+                                     int F, int NF, int SB, int runs,
                                      int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_charted_any<float>(noise, g, r, d, dc, dxi, B, L,
-                                            nT, C, F, BF, BB, SB, st);
+    return repro::launch_charted_dtype<float>(noise, g, r, d, dc, dxi, B, L,
+                                              nT, C, F, NF, SB, runs, st);
   if (dtype == 1)
-    return repro::launch_charted_any<__nv_bfloat16>(
-        noise, g, r, d, dc, dxi, B, L, nT, C, F, BF, BB, SB, st);
+    return repro::launch_charted_dtype<__nv_bfloat16>(
+        noise, g, r, d, dc, dxi, B, L, nT, C, F, NF, SB, runs, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,8 +20,10 @@ no kernel route: it runs on the plain path (``ICR(use_pallas=False)``).
 
 On top of the per-level routes, ``ICR(use_pyramid=True)`` (the default, as
 in the JAX package) runs the chart's first levels as one launch
-(``pyramid.refine_pyramid``): ``pyramid_cover`` says how many, and
-``plan(pyramid=True)`` shows them as the ``pyramid`` route.
+(``pyramid.refine_pyramid``): ``pyramid_cover`` says how many (on the
+H100, 1-D stationary levels only), ``pyramid_prefix`` how many the kernel
+could take, and ``plan(pyramid=True)`` shows the cover as the ``pyramid``
+route.
 
 CUDA tensors launch the kernels; CPU tensors take each kernel's plain
 version. There is no override.
@@ -102,31 +104,18 @@ def _structured(geom: LevelGeom, have_axis_mats: bool) -> bool:
     return nd == 1 or (have_axis_mats and nd <= 3)
 
 
-def pyramid_cover(chart, *, samples: int = 1, itemsize: int = 4,
-                  have_axis_mats: bool | None = None,
-                  budget: int = L2_BUDGET_BYTES):
-    """How many of `chart`'s first levels the pyramid covers: the number
-    ``k``, or None when fewer than two levels are covered (a one-level
-    pyramid is the per-level route).
+def _stationary_1d(geom: LevelGeom) -> bool:
+    return (len(geom.coarse_shape) == 1
+            and route_for(geom) == ROUTE_STATIONARY_1D)
 
-    The rule, re-derived for the H100 (the JAX package sizes whole levels
-    against a TPU core's 64 MiB VMEM; a Hopper block has 227 KB): the
-    longest prefix of consecutive structured levels (1-D, or N-D with the
-    per-axis factors; ``have_axis_mats`` defaults to ``chart.ndim > 1``),
-    at most ``pyramid.MAX_LEVELS``, in which the fields that one covered
-    level hands to the next, summed at ``samples`` samples and the storage
-    ``itemsize``, fit ``budget`` (half of the L2). The coarse input and
-    the last level's output go through device memory in any case and do
-    not count. A pure function of the chart, S and the itemsize.
-    """
+
+def _prefix(chart, takes, samples, itemsize, budget):
     from .pyramid import MAX_LEVELS
 
-    if have_axis_mats is None:
-        have_axis_mats = chart.ndim > 1
     k, handed = 0, 0
     for lvl in range(min(chart.n_levels, MAX_LEVELS)):
         geom = LevelGeom.for_level(chart, lvl)
-        if not _structured(geom, have_axis_mats):
+        if not takes(geom):
             break
         if k:
             handed += samples * itemsize * math.prod(geom.coarse_shape)
@@ -134,6 +123,46 @@ def pyramid_cover(chart, *, samples: int = 1, itemsize: int = 4,
                 break
         k += 1
     return k if k >= 2 else None
+
+
+def pyramid_prefix(chart, *, samples: int = 1, itemsize: int = 4,
+                   have_axis_mats: bool | None = None,
+                   budget: int = L2_BUDGET_BYTES):
+    """How many of `chart`'s first levels the pyramid kernel can take in
+    one launch: the number ``k``, or None when fewer than two (a one-level
+    pyramid is the per-level route).
+
+    The residency rule, re-derived for the H100 (the JAX package sizes
+    whole levels against a TPU core's 64 MiB VMEM; a Hopper block has 227
+    KB): the longest prefix of consecutive structured levels (1-D, or N-D
+    with the per-axis factors; ``have_axis_mats`` defaults to
+    ``chart.ndim > 1``), at most ``pyramid.MAX_LEVELS``, in which the
+    fields that one covered level hands to the next, summed at ``samples``
+    samples and the storage ``itemsize``, fit ``budget`` (half of the L2). The coarse input
+    and the last level's output go through device memory in any case and
+    do not count. A pure function of the chart, S and the itemsize.
+    """
+    if have_axis_mats is None:
+        have_axis_mats = chart.ndim > 1
+    return _prefix(chart, lambda g: _structured(g, have_axis_mats), samples,
+                   itemsize, budget)
+
+
+def pyramid_cover(chart, *, samples: int = 1, itemsize: int = 4,
+                  budget: int = L2_BUDGET_BYTES):
+    """How many of `chart`'s first levels ``ICR(use_pyramid=True)`` runs as
+    one pyramid launch: the number ``k``, or None.
+
+    The rule: the residency rule of ``pyramid_prefix`` over 1-D stationary
+    levels only. On the H100 the pyramid must beat the per-level kernels
+    it replaces, summed, at the covers it takes; it does on 1-D stationary
+    charts and loses or ties on N-D and charted 1-D ones, whose levels run
+    slower inside the pyramid's persistent grid than as launches of their
+    own (PERF.md, the pyramid's covers; ROADMAP.md records this divergence
+    from the JAX package, whose pyramid covers every structured level). A
+    pure function of the chart, S and the itemsize.
+    """
+    return _prefix(chart, _stationary_1d, samples, itemsize, budget)
 
 
 def _adjoint_name(charted: bool, noise: bool) -> str:

@@ -23,9 +23,9 @@ The forward launches ``csrc/refine_1d.cu`` and the adjoint
 ``csrc/refine_1d_adjoint.cu`` on CUDA tensors; on CPU tensors each runs
 its plain version, the oracles of ``ref.py``. A CUDA tensor never reaches
 the plain version: the kernel launches or the wrapper raises. The charted
-kernels are tiled (``block_shape_1d``, ``block_shape_adjoint``), the
-stationary ones stream, one run of families per thread
-(``stream_shape_1d``).
+forward kernel is tiled (``block_shape_1d``); the stationary kernels and
+the charted adjoint stream, one run of families per thread
+(``stream_shape_1d``, ``charted_adjoint_shape``).
 
 The forward wrappers are differentiable: where an operand requires grad
 they run inside a ``torch.autograd.Function`` whose backward is the
@@ -50,7 +50,7 @@ __all__ = ["refine_stationary", "refine_charted", "refine_stationary_plain",
            "refine_stationary_adjoint",
            "refine_charted_adjoint", "refine_stationary_adjoint_plain",
            "refine_charted_adjoint_plain", "block_shape_1d",
-           "block_shape_adjoint", "stream_shape_1d"]
+           "stream_shape_1d", "charted_adjoint_shape"]
 
 # outputs per sample staged by one block: two per thread of 256
 _OUTPUTS_PER_BLOCK = 512
@@ -66,19 +66,6 @@ def block_shape_1d(batch: int, t: int, n_fsz: int) -> tuple:
     nbf = -(-t // bf)
     bb = max(1, min(batch, nbf * batch // _TARGET_BLOCKS))
     return bf, bb
-
-
-def block_shape_adjoint(batch: int, t: int, n_fsz: int) -> tuple:
-    """(families, samples, samples staged at once) of one block of the
-    charted ``refine_1d_adjoint.cu`` kernel: up to 512 g values per staged
-    sample, rows shorter than that staged several at a time, and ~528
-    blocks."""
-    bf = max(1, min(t, _OUTPUTS_PER_BLOCK // n_fsz))
-    sb = max(1, _OUTPUTS_PER_BLOCK // (bf * n_fsz))
-    nbf = -(-t // bf)
-    bb = max(1, min(batch, nbf * batch // _TARGET_BLOCKS))
-    bb = -(-bb // sb) * sb
-    return bf, bb, sb
 
 
 # threads per block of the streaming kernels (kThreads in csrc/common.cuh)
@@ -109,6 +96,40 @@ def stream_shape_1d(batch: int, t: int, n_fsz: int, n_csz: int,
     return nf, runs, -(-batch * runs // THREADS)
 
 
+# families per thread of the streaming charted adjoint by (n_fsz, n_csz,
+# storage itemsize): its compile-time instances; any other stencil runs
+# the runtime-size instance, one family of one row per thread
+CHARTED_ADJ_FAMILIES = {(2, 3, 4): 2, (2, 3, 2): 2, (4, 5, 4): 1,
+                        (4, 5, 2): 1}
+# threads the charted adjoint aims for (4 blocks of 256 on each of the
+# H100's 132 SMs), and the rows one thread takes at most
+CHARTED_ADJ_THREADS = 132 * 4 * THREADS
+CHARTED_ADJ_MAX_ROWS = 8
+
+
+def charted_adjoint_shape(batch: int, t: int, n_fsz: int, n_csz: int,
+                          itemsize: int) -> tuple:
+    """(families per run, rows per thread, runs per row, blocks) of the
+    streaming charted adjoint: thread i owns run ``i % runs`` (the last run
+    of a row also dcoarse's tail) of the rows ``[(i // runs)·SB, +SB)``,
+    holding its families' stencils for all of them. A thread takes as many
+    rows (up to ``CHARTED_ADJ_MAX_ROWS``) as leave ``CHARTED_ADJ_THREADS``
+    threads, so long rows read each stencil once or twice and short rows
+    pack several to a block."""
+    key = (n_fsz, n_csz, itemsize)
+    nf = CHARTED_ADJ_FAMILIES.get(key, 1)
+    runs = -(-t // nf)
+    rows = 1
+    if key in CHARTED_ADJ_FAMILIES:
+        rows = max(1, min(batch, CHARTED_ADJ_MAX_ROWS,
+                          batch * runs // CHARTED_ADJ_THREADS))
+        rows = -(-batch // -(-batch // rows))   # even out the chunks
+    threads = -(-batch // rows) * runs
+    if threads > _MAX_RUNS:
+        raise ValueError(f"{batch} rows of {runs} runs exceed one launch")
+    return nf, rows, runs, -(-threads // THREADS)
+
+
 def refine_stationary_adjoint_plain(g, r, d=None, *, coarse_len: int):
     """Plain version of ``refine_stationary_adjoint``, on any device."""
     dc, dxi, _, _ = refine_stationary_vjp_ref(None, None, r, d, g,
@@ -133,7 +154,7 @@ def _check_1d(name, batch, t, n_fsz, n_csz, length, *, mat_lead, r, d):
     if length < (t - 1) * (n_fsz // 2) + n_csz:
         raise ValueError(f"{name}: coarse length {length} too short for "
                          f"{t} families of ({n_fsz}, {n_csz})")
-    if max(t * n_fsz, length) >= 2**31:
+    if max(t * n_fsz, length, r.numel()) >= 2**31:
         raise ValueError(f"{name}: level too large for 32-bit indices")
 
 
@@ -195,10 +216,9 @@ def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
     _check_1d("refine_1d_adjoint", batch, t, n_fsz, n_csz, coarse_len,
               mat_lead=(t,) if charted else (), r=r, d=d)
     if charted:
-        fn, shape = ("refine_1d_charted_adj",
-                     block_shape_adjoint(batch, t, n_fsz))
-        if -(-batch // shape[1]) > 65535:
-            raise ValueError(f"batch {batch} exceeds the launch grid")
+        fn = "refine_1d_charted_adj"
+        shape = charted_adjoint_shape(batch, t, n_fsz, n_csz,
+                                      g.element_size())[:3]
     else:
         fn = "refine_1d_stationary_adj"
         shape = stream_shape_1d(batch, t, n_fsz, n_csz, g.element_size(),

@@ -22,6 +22,8 @@ give the factors' cotangents.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.refine import LevelGeom, reflect_pad, reflect_pad_T
@@ -34,9 +36,15 @@ __all__ = ["refine_nd_fused", "refine_nd_fused_core", "refine_nd_fused_plain",
            "refine_nd_fused_adjoint", "nd_operands", "nd_operands_T",
            "precontract_noise", "prepare_xi0", "prepare_xi0_T", "nd_tile"]
 
-# shared memory a block may take; the H100 allows 227 KB, the rest is
-# headroom so that two blocks can share an SM
-_SMEM_BUDGET = 110 * 1024
+# shared memory a block may take: four blocks of 256 threads fit on an SM
+# of the H100 (228 KB, 1 KB of it reserved per block)
+_SMEM_BUDGET = 48 * 1024
+BLOCKS_PER_SM = 4
+# tiles a level should have, samples included: one per co-resident block
+# (4 on each of the H100's 132 SMs); and the work items (four fine
+# positions of one axis-0 family) below which a tile is not split further
+_TARGET_TILES = 132 * BLOCKS_PER_SM
+_MIN_ITEMS = 128
 
 
 def precontract_noise(xi_nd, ds, *, off: int, accum,
@@ -122,36 +130,61 @@ def refine_nd_fused_plain(field, xi0, r0, d0, rts, T) -> torch.Tensor:
 
 def _smem_floats(tile, T, nd, csz, fsz, charted) -> int:
     """Shared memory (floats) of one block of ``nd_fused.cu`` (its host
-    formula, for the 3-box with a unit middle axis on 2-D levels)."""
+    formula ``nd_smem_floats``, for the 3-box with a unit middle axis on
+    2-D levels): the axis-2 output, one buffer for the box and the axis-1
+    output, and the matrices."""
     s = fsz // 2
     b = tile if nd == 3 else (tile[0], 1, tile[1])
     ch = charted if nd == 3 else (charted[0], False, charted[1])
-    e = [(b[0] - 1) * s + csz, (b[1] - 1) * s + csz if nd == 3 else 1,
-         (b[2] - 1) * s + csz]
+    e0, e2 = (b[0] - 1) * s + csz, (b[2] - 1) * s + csz
+    e1 = (b[1] - 1) * s + csz if nd == 3 else 1
     g1 = b[1] * fsz if nd == 3 else 1
-    g2 = b[2] * fsz
-    n = max(e[0] * e[1] * e[2], e[0] * g1 * g2) + e[0] * e[1] * g2
+    g2 = -(-b[2] * fsz // 4) * 4
+    n = e0 * e1 * g2 + max(e0 * e1 * e2, e0 * g1 * g2 if nd == 3 else 0)
     n += (b[0] if ch[0] else 1) * (fsz * csz + fsz * fsz)
     n += (b[1] if ch[1] else 1) * fsz * csz if nd == 3 else 0
     n += (b[2] if ch[2] else 1) * fsz * csz
     return n
 
 
-def nd_tile(T: tuple, csz: int, fsz: int, charted: tuple) -> tuple:
-    """Families per block on each axis: about 16K fine outputs per block
-    (4x8x8 families at n_fsz=4 in 3-D), clipped to the level and halved
-    along the largest axis until the block fits the shared budget."""
+def _work_items(tile, nd, fsz) -> int:
+    """Axis-0 work items of a tile: one axis-0 family times four
+    consecutive fine positions of the trailing axes."""
+    g1 = tile[1] * fsz if nd == 3 else 1
+    return tile[0] * g1 * -(-tile[-1] * fsz // 4)
+
+
+def nd_tile(T: tuple, csz: int, fsz: int, charted: tuple,
+            samples: int = 1) -> tuple:
+    """Families per block on each axis: 2x8x8 in 3-D (2x16x16 at n_fsz=2),
+    8x64 in 2-D (8x128), 512 work items of four fine positions, clipped to
+    the level and halved along the largest axis until the block fits the
+    shared budget (four blocks per SM); then, while the level has fewer
+    than ``_TARGET_TILES`` tiles at ``samples`` samples, halved further as
+    long as a tile keeps ``_MIN_ITEMS`` work items, so that small levels
+    fill the card."""
     nd = len(T)
     if nd == 3:
-        tile = [4, 8, 8] if fsz >= 4 else [8, 16, 16]
+        tile = [2, 8, 8] if fsz >= 4 else [2, 16, 16]
     else:
-        tile = [16, 64] if fsz >= 4 else [32, 128]
+        tile = [8, 64] if fsz >= 4 else [8, 128]
     tile = [max(1, min(b, t)) for b, t in zip(tile, T)]
-    while _smem_floats(tile, T, nd, csz, fsz, charted) * 4 > _SMEM_BUDGET:
+
+    def halved(tile):
         a = max(range(nd), key=lambda i: tile[i])
-        if tile[a] == 1:
+        return None if tile[a] == 1 else [
+            b // 2 if i == a else b for i, b in enumerate(tile)]
+
+    while _smem_floats(tile, T, nd, csz, fsz, charted) * 4 > _SMEM_BUDGET:
+        tile = halved(tile)
+        if tile is None:
             raise ValueError(f"no tile of {T} fits shared memory")
-        tile[a] //= 2
+    while samples * math.prod(-(-t // b) for t, b in zip(T, tile)) < \
+            _TARGET_TILES:
+        smaller = halved(tile)
+        if smaller is None or _work_items(smaller, nd, fsz) < _MIN_ITEMS:
+            break
+        tile = smaller
     return tuple(tile)
 
 
@@ -178,7 +211,7 @@ def _nd_fused(field, xi0, r0, d0, rts, T) -> torch.Tensor:
     charted = (r0.ndim == 3,) + tuple(r.ndim == 3 for r in rts)
     if n_s > 65535:
         raise ValueError(f"{n_s} samples exceed the launch grid")
-    tile = nd_tile(T, csz, fsz, charted)
+    tile = nd_tile(T, csz, fsz, charted, n_s)
     out = torch.empty_like(xi0)
     if nd == 3:
         L, TT, B = field.shape[1:], T, tile

@@ -1,7 +1,8 @@
 """The pyramid: the first levels of a chart in one cooperative launch.
 
-``refine_pyramid`` runs the covered prefix of a chart's levels
-(``dispatch.pyramid_cover``) as ONE launch of ``csrc/pyramid.cu``: the
+``refine_pyramid`` runs consecutive levels of a chart (at most
+``dispatch.pyramid_prefix`` of them; ``ICR`` takes ``dispatch.pyramid_cover``,
+the 1-D stationary ones) as ONE launch of ``csrc/pyramid.cu``: the
 blocks walk each level's tiles with a grid stride and meet at a grid-wide
 barrier before the next level, so the fields that one covered level hands
 to the next stay in the card's L2 instead of being written by one launch
@@ -47,6 +48,7 @@ from .icr_refine import (
     refine_stationary,
     refine_stationary_adjoint,
     refine_stationary_plain,
+    stream_shape_1d,
 )
 from .nd_fused import nd_tile, prepare_xi0, refine_nd_fused_adjoint
 from .nd_fused import refine_nd_fused_plain
@@ -141,11 +143,15 @@ def _table(field, geoms, levels) -> np.ndarray:
         if tuple(xi0.shape) != (n_s, T[0] * fsz, prod_f):
             raise ValueError(f"xi0 {tuple(xi0.shape)} does not match T={T}")
         bb = 1
-        if nd == 1:
-            tile = (block_shape_1d(n_s, T[0], fsz)[0],)
-            bb = block_shape_1d(n_s, T[0], fsz)[1]
+        if nd == 1 and charted[0]:
+            bf, bb = block_shape_1d(n_s, T[0], fsz)
+            tile = (bf,)
+        elif nd == 1:   # a stationary level streams: (families, runs)
+            nf, bb = stream_shape_1d(n_s, T[0], fsz, csz,
+                                     field.element_size())[:2]
+            tile = (nf,)
         else:
-            tile = nd_tile(T, csz, fsz, charted)
+            tile = nd_tile(T, csz, fsz, charted, n_s)
         # the kernel's 3-axis form: a 2-D level's trailing axis is axis 2
         r1 = rs[1].data_ptr() if nd == 3 else 0
         r2 = rs[-1].data_ptr() if nd > 1 else 0

@@ -69,6 +69,10 @@ def on_card_at(a, dt, device, offset=0):
 # lengths and operand starts off a 16-byte boundary; one family
 ROW_CASES = ((5, 1001, 3, 0), (300, 33, 3, 0), (1, 1, 3, 0), (37, 32, 0, 1),
              (37, 32, 1, 3), (64, 17, 2, 2))
+# the adjoints also at the charted adjoint's two main-path shapes, where a
+# thread holds its families' stencils for several rows: 8 long rows, and
+# very many short ones
+ADJOINT_ROW_CASES = ROW_CASES + ((8, 70001, 3, 1), (40000, 16, 4, 2))
 
 
 def _1d_operands(rng, *, batch, t, n_csz, n_fsz, charted):
@@ -144,32 +148,58 @@ def test_whole_slice_on_the_card(cuda, pol):
                                           else "bfloat16"]
 
 
+def shifted(t, offset):
+    """`t` copied into a contiguous view that starts `offset` elements
+    into its allocation (off a 16-byte boundary for offset > 0)."""
+    flat = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# N-D card cases: (chart, samples). Ragged last tiles; a fine trailing
+# extent that is no multiple of 4 (n_fsz = 2 and an odd family count), in
+# 2-D and 3-D; reflect padding on every axis; a batch of 37
+ND_CASES = [
+    (charts.regular_chart((300, 260), 1), 3),
+    (charts.regular_chart((12, 14), 1, boundary="reflect"), 3),
+    (charts.regular_chart((9, 21, 40), 1, n_csz=5, n_fsz=4), 3),
+    (charts.regular_chart((10, 21), 1), 37),
+    (charts.regular_chart((7, 9, 11), 1), 3),
+    (charts.regular_chart((6, 8, 10), 1, n_csz=5, n_fsz=4,
+                          boundary="reflect"), 37),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dname", sorted(TOL))
-def test_nd_fused_charted_axes_on_the_card(cuda, dname):
-    """2-D and 3-D levels with per-family factors on the trailing axes and
-    ragged last tiles (random factors: the kernel is linear in them)."""
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_nd_fused_charted_axes_on_the_card(cuda, dname, offset):
+    """2-D and 3-D levels with per-family factors on every axis (random
+    factors: the kernel is linear in them) at the ``ND_CASES``, every
+    operand starting `offset` elements into its allocation."""
     rng = np.random.default_rng(10)
     dt = DTYPES[dname]
-    for chart in (charts.regular_chart((300, 260), 1),
-                  charts.regular_chart((12, 14), 1, boundary="reflect"),
-                  charts.regular_chart((9, 21, 40), 1, n_csz=5, n_fsz=4)):
+    for chart, n_s in ND_CASES:
         geom = trefine.LevelGeom.for_level(chart, 0)
         f, c = geom.n_fsz, geom.n_csz
         rs = [rng.normal(size=(t, f, c)) / c for t in geom.T]
         ds = [rng.normal(size=(t, f, f)) / f for t in geom.T]
-        field = rng.normal(size=(3,) + geom.coarse_shape)
-        xi = rng.normal(size=(3, int(np.prod(geom.T)), f ** len(geom.T)))
+        field = rng.normal(size=(n_s,) + geom.coarse_shape)
+        xi = rng.normal(size=(n_s, int(np.prod(geom.T)), f ** len(geom.T)))
 
         def on_card(a):
             return torch.tensor(a, dtype=torch.float32, device=cuda).to(dt)
 
-        args = nd_fused.nd_operands(
+        field, xi0, r0, d0, rts, T = nd_fused.nd_operands(
             on_card(field), on_card(xi), [on_card(r) for r in rs],
             [on_card(d) for d in ds], geom, sample_axis=True)
+        args = (shifted(field, offset), shifted(xi0, offset),
+                shifted(r0, offset), shifted(d0, offset),
+                tuple(shifted(r, offset) for r in rts), T)
         got = nd_fused.refine_nd_fused_core(*args)
         want = nd_fused.refine_nd_fused_plain(*args)
-        assert rel(got, want) < TOL[dname]
+        assert rel(got, want) < TOL[dname], (chart.shape0, n_s)
 
 
 ADJOINTS = {
@@ -188,14 +218,15 @@ def test_cuda_adjoint_kernels_match_plain(cuda, n_csz, n_fsz, dname):
     against their plain versions, at the ``ROW_CASES``: ragged last
     blocks, short rows packed several to a block, rows and operands that
     start off a 16-byte boundary, and a coarse tail past the last window
-    that must come back zero."""
+    that must come back zero; and (``ADJOINT_ROW_CASES``) the charted
+    adjoint's long and many short rows, several rows to a thread."""
     rng = np.random.default_rng([n_csz, n_fsz, 12])
     dt = DTYPES[dname]
     s = n_fsz // 2
 
     for charted in (False, True):
         kern, plain = ADJOINTS[charted]
-        for batch, t, extra, offset in ROW_CASES:
+        for batch, t, extra, offset in ADJOINT_ROW_CASES:
             lead = (t,) if charted else ()
 
             def on_card(a):
@@ -304,14 +335,20 @@ def test_cuda_noise_free_kernels_match_plain(cuda, n_csz, n_fsz, dname):
             assert rel(got, want) < TOL[dname], (charted, batch, t)
 
 
-# small charts with ragged levels: 1-D stationary and charted, 2-D with
-# charted axes, 3-D with a charted axis 0; reflect and shrink boundaries
+# small charts with ragged levels: 1-D stationary at every stencil the
+# pyramid has an instance for ((2, 3), (4, 5), and (8, 3) on the runtime-size
+# one) with ragged last runs, 1-D charted, 2-D with charted axes, 3-D with a
+# charted axis 0; reflect and shrink boundaries
 PYRAMID_CHARTS = [
     (charts.regular_chart(100, 3, boundary="reflect"), 8.0),
+    (charts.regular_chart(38, 3, n_csz=5, n_fsz=4, boundary="reflect"), 8.0),
+    (charts.regular_chart(28, 3, n_csz=3, n_fsz=8, boundary="reflect"), 6.0),
     (charts.log_chart(12, 3, n_csz=5, n_fsz=4, delta0=0.05), 0.3),
     (charts.log_polar_chart((8, 8), 2), 1.0),
     (charts.regular_chart((12, 14), 2, boundary="reflect"), 4.0),
     (charts.galactic_dust_chart((6, 8, 12), 2, delta_logr=0.2), 0.5),
+    (charts.regular_chart((6, 8, 10), 2, n_csz=5, n_fsz=4,
+                          boundary="reflect"), 3.0),
 ]
 
 
@@ -340,8 +377,9 @@ def _pyramid_case(chart, rho, dt, device, n_s=3):
 @pytest.mark.parametrize("dname", sorted(TOL))
 def test_cuda_pyramid_matches_plain(cuda, dname):
     """The pyramid (#10) against its plain version at every level of
-    small charts with ragged levels, on the co-resident grid and on a grid
-    of 3 blocks that must stride over the tiles; a two-level cover too."""
+    small charts with ragged levels and edge tiles that reflect on every
+    axis, on the co-resident grid and on grids of 3 blocks and of 1 that
+    must stride over the tiles; a two-level cover too."""
     dt = DTYPES[dname]
     for chart, rho in PYRAMID_CHARTS:
         geoms, field, xis, pmats = _pyramid_case(chart, rho, dt, cuda)
@@ -349,7 +387,7 @@ def test_cuda_pyramid_matches_plain(cuda, dname):
             f, levels = pyramid.pyramid_operands(field, xis[:k], pmats[:k],
                                                  geoms[:k], sample_axis=True)
             want = pyramid.refine_pyramid_plain(f, geoms[:k], levels)
-            for max_blocks in (0, 3):
+            for max_blocks in (0, 3, 1):
                 before = build.LAUNCHES["refine_pyramid"]
                 got = pyramid.refine_pyramid_core(f, geoms[:k], levels,
                                                   max_blocks=max_blocks)
@@ -363,7 +401,8 @@ def test_cuda_pyramid_matches_plain(cuda, dname):
 @pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
 def test_cuda_pyramid_matches_per_level_chain(cuda, pol):
     """ICR with the pyramid against the per-level kernels on the card:
-    the same tile bodies, so the same fields."""
+    the same bodies, so the same fields; the pyramid launches where the
+    cover rule takes the chart (1-D stationary levels)."""
     tol = TOL["float32" if pol is None else "bfloat16"]
     for chart, rho in PYRAMID_CHARTS:
         kern = kernels.matern32.with_defaults(rho=rho)
@@ -374,7 +413,9 @@ def test_cuda_pyramid_matches_per_level_chain(cuda, pol):
         xi = on.init_xi(torch.Generator(device=cuda).manual_seed(1), batch=4)
         build.LAUNCHES.clear()
         got = on.apply_sqrt_batch(mats, xi)
-        assert build.LAUNCHES["refine_pyramid"] == 1
+        cover = dispatch.pyramid_cover(
+            chart, samples=4, itemsize=on.policy.storage_dtype.itemsize)
+        assert build.LAUNCHES["refine_pyramid"] == int(cover is not None)
         want = off.apply_sqrt_batch(mats, xi)
         assert rel(got, want) < tol, chart
 
@@ -461,11 +502,16 @@ def test_cuda_theta_gradient_matches_float64(cuda):
 
 @pytest.mark.cuda
 def test_cuda_pyramid_reads_fields_through_l2(cuda, tmp_path):
-    """Both pyramid instances (1-D and N-D levels) at both storage dtypes
-    load the fields that other blocks wrote before ``grid.sync()`` with
-    ``ld.global.cg`` (SASS ``LDG.E[.U16].STRONG.GPU``): the read-only
-    path (``LDG.E.CONSTANT``, which ``__restrict__`` lets nvcc pick) is
-    undefined for data written during the launch."""
+    """Every pyramid instance (1-D and N-D levels, three stencils, both
+    storage dtypes) loads the fields that other blocks wrote before
+    ``grid.sync()`` through the L2 only: ``ld.cg`` (SASS
+    ``LDG.E[.64|.128|.U16].STRONG.GPU``, or ``LD.E...STRONG.GPU`` where
+    nvcc keeps the address generic), or an asynchronous copy that bypasses
+    L1 (``LDGSTS...BYPASS``). Since SASS does not say which
+    pointer a load reads, every global load of the kernel must take such a
+    path: the read-only path (``LDG.E.CONSTANT``, which ``__restrict__``
+    lets nvcc pick) and L1-cached loads are undefined for data written
+    during the launch."""
     import re
     import subprocess
     from pathlib import Path
@@ -485,9 +531,12 @@ def test_cuda_pyramid_reads_fields_through_l2(cuda, tmp_path):
         if m:
             fn = m.group(1)
             continue
-        m = re.search(r"\bLDG(\.[A-Z0-9_]+)*", line)
+        m = re.search(r"\b(LDGSTS|LDG|LD)(?![A-Z])(\.[A-Z0-9_]+)*", line)
         if m and fn and "refine_pyramid_kernel" in fn:
             loads.setdefault(fn, []).append(m.group(0))
-    assert len(loads) == 4, sorted(loads)
+    assert len(loads) == 12, sorted(loads)
     for fn, kinds in loads.items():
-        assert any(k.endswith(".STRONG.GPU") for k in kinds), (fn, kinds)
+        assert kinds, fn
+        for k in kinds:
+            assert (k.startswith(("LDG.", "LD.")) and ".STRONG.GPU" in k) \
+                or (k.startswith("LDGSTS.") and ".BYPASS" in k), (fn, k)

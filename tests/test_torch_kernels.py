@@ -201,10 +201,20 @@ def test_nd_fused_single_field_without_sample_axis():
     ((64, 64, 64), 2, 3, (True, True, True)),
 ])
 def test_nd_tile_fits_shared_memory(T, fsz, csz, charted):
-    tile = nd_fused.nd_tile(T, csz, fsz, charted)
-    assert all(1 <= b <= t for b, t in zip(tile, T))
-    floats = nd_fused._smem_floats(tile, T, len(T), csz, fsz, charted)
-    assert floats * 4 <= nd_fused._SMEM_BUDGET
+    """The tile fits the shared budget, and four blocks of it fit on an
+    H100 SM (228 KB, 1 KB reserved per block), at one sample and at the
+    serving slab's 8 (where small levels take smaller tiles)."""
+    for samples in (1, 8):
+        tile = nd_fused.nd_tile(T, csz, fsz, charted, samples)
+        assert all(1 <= b <= t for b, t in zip(tile, T))
+        floats = nd_fused._smem_floats(tile, T, len(T), csz, fsz, charted)
+        assert floats * 4 <= nd_fused._SMEM_BUDGET
+        assert nd_fused.BLOCKS_PER_SM * (floats * 4 + 1024) <= 228 * 1024
+    # the flagship's levels at S=8: 2x8x8 on the last, 128 work items and
+    # 512 tiles on the first two
+    dust = [nd_fused.nd_tile(t, 5, 4, (True, False, False), 8)
+            for t in ((4, 8, 8), (8, 16, 16), (16, 32, 32))]
+    assert dust == [(2, 4, 4), (2, 4, 4), (2, 8, 8)]
 
 
 def test_block_shape_1d():
@@ -252,10 +262,68 @@ def test_stream_shape_owns_every_output_once(batch, t, n_fsz, n_csz,
     assert blocks <= 2**31 - 1
 
 
+def _charted_adjoint_owners(batch, t, n_fsz, n_csz, itemsize, length):
+    """How many threads of the streaming charted adjoint own each coarse
+    output and each dxi family: thread i owns run i % runs of the rows
+    [(i // runs)·SB, +SB), the last run of a row dcoarse on to its end."""
+    nf, rows, runs, blocks = icr_refine.charted_adjoint_shape(
+        batch, t, n_fsz, n_csz, itemsize)
+    s = n_fsz // 2
+    coarse = np.zeros((batch, length), dtype=int)
+    fam = np.zeros((batch, t), dtype=int)
+    for i in range(blocks * icr_refine.THREADS):
+        b0, t0 = i // runs * rows, i % runs * nf
+        for b in range(b0, min(b0 + rows, batch)):
+            fam[b, t0:min(t0 + nf, t)] += 1
+            end = length if t0 + nf >= t else (t0 + nf) * s
+            coarse[b, min(t0 * s, length):end] += 1
+    return (nf, rows, runs, blocks), coarse, fam
+
+
+@pytest.mark.parametrize("batch,t,n_fsz,n_csz,itemsize,extra", [
+    (3, 37, 2, 3, 4, 0), (5, 16, 4, 5, 2, 1), (300, 17, 4, 5, 4, 4),
+    (7, 33, 8, 3, 4, 0), (1, 1, 2, 3, 2, 3), (37, 32, 4, 5, 4, 4),
+])
+@pytest.mark.parametrize("threads", [None, 64], ids=["default", "few"])
+def test_charted_adjoint_shape_owns_every_output_once(
+        batch, t, n_fsz, n_csz, itemsize, extra, threads, monkeypatch):
+    """Every coarse output and every dxi family of the charted adjoint #7
+    is owned by exactly one thread, also when a thread takes several rows
+    (few threads aimed for)."""
+    if threads:
+        monkeypatch.setattr(icr_refine, "CHARTED_ADJ_THREADS", threads)
+    length = (t - 1) * (n_fsz // 2) + n_csz + extra
+    (nf, rows, runs, blocks), coarse, fam = _charted_adjoint_owners(
+        batch, t, n_fsz, n_csz, itemsize, length)
+    assert (coarse == 1).all() and (fam == 1).all()
+    assert 1 <= rows <= icr_refine.CHARTED_ADJ_MAX_ROWS
+    assert (blocks - 1) * icr_refine.THREADS < -(-batch // rows) * runs <= (
+        blocks * icr_refine.THREADS)
+    if threads and (n_fsz, n_csz, itemsize) in icr_refine.CHARTED_ADJ_FAMILIES:
+        assert rows == min(batch, icr_refine.CHARTED_ADJ_MAX_ROWS,
+                           -(-batch // -(-batch // max(
+                               1, batch * runs // threads))))
+
+
+def test_charted_adjoint_shape_of_the_main_path():
+    """#7's two shapes at S=8: the log chart's last level (8 rows of 65 026
+    families: each thread reads its stencils once for 3 rows) and the dust
+    backward's axis-0 pass (131 072 rows of 16 families, 8 rows a
+    thread); the runtime-size stencil takes one family of one row."""
+    shape = icr_refine.charted_adjoint_shape
+    assert shape(8, 65026, 4, 5, 4) == (1, 3, 65026, 763)
+    assert shape(131072, 16, 4, 5, 4) == (1, 8, 16, 1024)
+    assert shape(8, 65026, 4, 5, 2)[:2] == (1, 3)
+    assert shape(5, 1001, 8, 3, 4)[:2] == (1, 1)
+    with pytest.raises(ValueError, match="exceed one launch"):
+        shape(2**20, 2**20, 8, 3, 4)
+
+
 def test_stream_shape_of_the_main_path():
     """The charts' largest stationary levels: regular's last level (#1,
     #5) and dust's trailing axes (#2, #6: rows of 32 families, several to
-    a block); the pyramid's 1-D tiles keep ``block_shape_1d``."""
+    a block); the pyramid's stationary levels stream with the same
+    geometry."""
     shape = icr_refine.stream_shape_1d
     assert shape(8, 524288, 2, 3, 4) == (4, 131072, 4096)
     assert shape(8, 524288, 2, 3, 2) == (8, 65536, 2048)
@@ -271,9 +339,9 @@ def test_stream_shape_of_the_main_path():
     assert shape(5, 1001, 8, 3, 4)[0] == 1            # runtime-size instance
     with pytest.raises(ValueError, match="exceed one launch"):
         shape(2**20, 2**20, 2, 3, 4)
-    # the pyramid's launch table: (families, samples) of each 1-D tile in
-    # its last two columns, as before the stationary kernels streamed
-    # (regular's cover at S=8; the tiles depend on shapes only)
+    # the pyramid's launch table: (families per run, runs per row) of each
+    # stationary level in its last two columns (regular's cover at S=8;
+    # they depend on shapes only)
     from repro_torch.kernels import pyramid as tpyramid
 
     chart = tcharts.regular_chart(1024, 10, boundary="reflect")
@@ -287,7 +355,7 @@ def test_stream_shape_of_the_main_path():
                                               sample_axis=True)
     table = tpyramid._table(field, geoms, levels)
     assert [tuple(row[[18, 21]]) for row in table] == [
-        (256, 1)] * 6 + [(256, 3), (256, 7), (256, 8)]
+        (4, 256 * 2**lvl) for lvl in range(9)]
 
 
 # -- dispatch ----------------------------------------------------------------------

@@ -235,16 +235,19 @@ def test_dispatch_takes_nd_axes_for_learned_factors(monkeypatch):
 @pytest.mark.parametrize("name", ["2d", "3d"])
 def test_theta_gradient_of_quadratic_form_nd(name):
     """d/dρ of vᵀ K_ICR(ρ) v = ‖sqrt(K_ICR)ᵀ v‖² on a shrink N-D chart:
-    through ``implicit_sqrt`` on the port's kernel route (the pyramid's
-    forward; its backward replays the levels over nd-axes, the noise-free
-    kernels included) against jax.grad of the reference's kernel route."""
+    through ``implicit_sqrt`` on the port's kernel route (no pyramid cover
+    on an N-D chart: every level on nd-axes, the noise-free kernels
+    included) against jax.grad of the reference's kernel route, whose
+    pyramid covers both levels."""
     build = {"2d": lambda m: m.regular_chart((6, 7), 2),
              "3d": lambda m: m.regular_chart((5, 6, 7), 2)}[name]
     rho0 = {"2d": 3.0, "3d": 2.0}[name]
     jicr = JICR(build(jcharts), jkernels.matern32, use_pallas=True)
     ticr = ICR(build(tcharts), tkernels.matern32, use_pallas=True,
                device="cpu")
-    assert dispatch.pyramid_cover(ticr.chart, samples=ticr.xi_size()) == 2
+    assert dispatch.pyramid_prefix(ticr.chart, samples=ticr.xi_size()) == 2
+    assert dispatch.pyramid_cover(ticr.chart,
+                                  samples=ticr.xi_size()) is None
     v = np.random.default_rng(7).normal(size=jicr.out_shape)
 
     def jq(rho):
@@ -263,8 +266,8 @@ def test_theta_gradient_of_quadratic_form_nd(name):
 
 @pytest.mark.parametrize("name", ["dust", "log_polar"])
 def test_theta_gradient_float32_against_float64(name):
-    """dρ of a Gaussian loss through the port's kernel route (the pyramid's
-    replay over nd-axes) with the matrices built in float32, against the
+    """dρ of a Gaussian loss through the port's kernel route (nd-axes on
+    every level) with the matrices built in float32, against the
     same route in float64 (``ICR.matrices(dtype=torch.float64)``), which
     a central difference holds at 1e-5. What float32 leaves is the
     rounding of the level-0 eigenvalues near the clip, which the square

@@ -12,8 +12,9 @@
 * ``ICR(use_pallas=True)`` with the pyramid on (the default in both
   packages): ``apply_sqrt_batch`` and ``apply_sqrt_T_batch`` against the
   reference, on the reference's matrices.
-* The cover rule (``dispatch.pyramid_cover``), its covers of the four
-  charts ``chip_smoke.py`` drives, and ``plan(pyramid=True)``.
+* The residency rule (``dispatch.pyramid_prefix``), the cover rule
+  (``dispatch.pyramid_cover``: 1-D stationary levels only), their covers
+  of the four charts ``chip_smoke.py`` drives, and ``plan(pyramid=True)``.
 
 Operands come from numpy seeds. Tolerances are relative to the largest
 magnitude: 1e-5 at float32 and 5e-2 with bfloat16 storage for fields and
@@ -185,16 +186,20 @@ ICR_CHARTS = {
 @pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", sorted(ICR_CHARTS))
 def test_icr_with_pyramid_matches_reference(name, pol):
-    """apply_sqrt_batch with the pyramid prefix and apply_sqrt_T_batch on
-    the kernel route, against the reference ICR(use_pallas=True), whose
-    pyramid is on by default too."""
+    """apply_sqrt_batch with the pyramid on (the default: its cover on the
+    1-D stationary chart, per level on the others) and apply_sqrt_T_batch
+    on the kernel route, against the reference ICR(use_pallas=True), whose
+    pyramid is on by default too and covers every chart here."""
     build, rho = ICR_CHARTS[name]
     jicr = JICR(build(jcharts), jkernels.matern32.with_defaults(rho=rho),
                 use_pallas=True, dtype_policy=pol)
     ticr = ICR(build(tcharts), tkernels.matern32.with_defaults(rho=rho),
                use_pallas=True, dtype_policy=pol, device="cpu")
     assert ticr.use_pyramid and jicr.use_pyramid
-    assert dispatch.pyramid_cover(ticr.chart, samples=2) == ticr.chart.n_levels
+    n = ticr.chart.n_levels
+    assert dispatch.pyramid_prefix(ticr.chart, samples=2) == n
+    assert dispatch.pyramid_cover(ticr.chart, samples=2) == (
+        n if name == "tod" else None)
     storage = jicr.policy.storage_dtype
     mats = jax.jit(jicr.matrices)()
     tmats = matrices_to_torch(jax.tree.map(np.asarray, mats))
@@ -218,8 +223,10 @@ def test_icr_with_pyramid_matches_reference(name, pol):
 # -- the cover rule -------------------------------------------------------------------
 def test_cover_is_a_prefix_monotone_in_the_budget():
     deep = tcharts.galactic_dust_chart((8, 16, 16), n_levels=4)
-    covers = [dispatch.pyramid_cover(deep, samples=8, budget=b) or 0
+    covers = [dispatch.pyramid_prefix(deep, samples=8, budget=b) or 0
               for b in (2**10, 2**20, 8 * 2**20, 40 * 2**20, 2**40)]
+    # an N-D chart gets no cover, whatever the budget
+    assert dispatch.pyramid_cover(deep, samples=8, budget=2**40) is None
     assert covers == sorted(covers)
     assert covers[0] == 0 and covers[-1] == 4
     # the budget bounds the fields handed between covered levels
@@ -232,24 +239,31 @@ def test_cover_is_a_prefix_monotone_in_the_budget():
 
 
 def test_one_level_is_no_pyramid():
-    assert dispatch.pyramid_cover(
+    assert dispatch.pyramid_prefix(
         tcharts.galactic_dust_chart((6, 8, 8), 1)) is None
     c = tcharts.galactic_dust_chart((6, 8, 8), 2)
-    assert dispatch.pyramid_cover(c) == 2
+    assert dispatch.pyramid_prefix(c) == 2
     # a budget that holds no handed field leaves one level: no pyramid
-    assert dispatch.pyramid_cover(c, budget=1) is None
+    assert dispatch.pyramid_prefix(c, budget=1) is None
+    assert dispatch.pyramid_cover(tcharts.regular_chart(32, 1)) is None
+    r = tcharts.regular_chart(32, 2)
+    assert dispatch.pyramid_cover(r) == 2
+    assert dispatch.pyramid_cover(r, budget=1) is None
 
 
 def test_level_without_factors_ends_the_prefix():
     c = tcharts.galactic_dust_chart((6, 8, 8), n_levels=2)
-    assert dispatch.pyramid_cover(c, have_axis_mats=False) is None
+    assert dispatch.pyramid_prefix(c, have_axis_mats=False) is None
+    assert dispatch.pyramid_prefix(c) == 2
     assert dispatch.pyramid_cover(tcharts.regular_chart(32, 3)) == 3
 
 
 def test_covers_of_the_chip_charts():
-    """The covers at S=8 that PERF.md lists, float32 and bfloat16: the
-    whole dust, log and log-polar charts, and 9 of regular's 10 levels at
-    float32 (its last handed field would pass the 25 MiB)."""
+    """The prefixes and covers at S=8 that PERF.md lists, float32 and
+    bfloat16: the residency rule takes the whole dust, log and log-polar
+    charts, and 9 of regular's 10 levels at float32 (its last handed field
+    would pass the 25 MiB); the cover rule keeps regular's alone, the one
+    1-D stationary chart."""
     charts = {
         "dust": tcharts.galactic_dust_chart((8, 16, 16), 3),
         "regular": tcharts.regular_chart(1024, 10, boundary="reflect"),
@@ -257,12 +271,17 @@ def test_covers_of_the_chip_charts():
                                  delta0=0.0197 / 16),
         "log_polar": tcharts.log_polar_chart((64, 64), 3),
     }
-    f32 = {n: dispatch.pyramid_cover(c, samples=8, itemsize=4)
-           for n, c in charts.items()}
-    bf16 = {n: dispatch.pyramid_cover(c, samples=8, itemsize=2)
-            for n, c in charts.items()}
-    assert f32 == {"dust": 3, "regular": 9, "log": 8, "log_polar": 3}
-    assert bf16 == {"dust": 3, "regular": 10, "log": 8, "log_polar": 3}
+    for rule, want32, want16 in (
+            (dispatch.pyramid_prefix,
+             {"dust": 3, "regular": 9, "log": 8, "log_polar": 3},
+             {"dust": 3, "regular": 10, "log": 8, "log_polar": 3}),
+            (dispatch.pyramid_cover,
+             {"dust": None, "regular": 9, "log": None, "log_polar": None},
+             {"dust": None, "regular": 10, "log": None, "log_polar": None})):
+        f32 = {n: rule(c, samples=8, itemsize=4) for n, c in charts.items()}
+        bf16 = {n: rule(c, samples=8, itemsize=2) for n, c in charts.items()}
+        assert f32 == want32
+        assert bf16 == want16
 
 
 def test_plan_reports_the_pyramid():
