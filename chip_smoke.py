@@ -10,8 +10,9 @@ Phases (any failure ends the run with a non-zero exit code):
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch``
    (one nvcc per source, in parallel); print the build time and the card,
    and (``ptxas`` line) the registers and spills of each instance of the
-   streaming 1-D kernels, the N-D kernel and the pyramid, with the shared
-   memory of the N-D and pyramid launches and the blocks an SM holds.
+   streaming 1-D kernels (stationary and charted, forward and adjoint),
+   the N-D kernel and the pyramid, with the shared memory of the N-D and
+   pyramid launches and the blocks an SM holds.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes of every level of four charts (flagship dust
    ``galactic_dust_chart((8,16,16), 3)``, ``regular_chart(1024, 10)``,
@@ -21,9 +22,12 @@ Phases (any failure ends the run with a non-zero exit code):
    kernels, the two noise-free forward kernels at every non-final pass the
    nd-axes route makes on the N-D levels, the pyramid at each chart's
    residency prefix (``dispatch.pyramid_prefix`` at S=8; ``pyramid_cover``
-   keeps regular's alone), and the four adjoint kernels
-   at every launch a level's backward makes (1-D levels; axis 0 and the
-   trailing axes of N-D levels).
+   keeps regular's alone; on the 1-D charts it must equal the per-level
+   kernels bit for bit), the four adjoint kernels at every launch a
+   level's backward makes (1-D levels; axis 0 and the trailing axes of N-D
+   levels), and the charted forward at the nd-axes route's axis-0 pass of
+   dust's last level in a learned-θ step (S=1: 16,384 rows of 16
+   families).
 3. path    — ``ICR(..., use_pallas=True).sample_batch(gen, 8)`` on each
    chart at both dtype policies, twice: with the pyramid (the default),
    which must launch once for its cover plus the per-level kernel once per
@@ -51,7 +55,8 @@ Phases (any failure ends the run with a non-zero exit code):
    (``F.conv1d``, ``F.conv_transpose1d`` or an einsum over a strided view
    of the coarse rows); a device copy of as many bytes (``copy_ms``: what
    this timing gives a kernel that only moves its bytes); #7 also at the
-   N-D backward's axis-0 shape (dust's last level); the
+   N-D backward's axis-0 shape (dust's last level), #3 at the nd-axes
+   route's axis-0 shape (``shape.nd_axes``); the
    byte/operation bound; whole-path milliseconds per chart with the
    pyramid on and off; per level of each chart at float32, the torch glue
    against the kernels, forward and backward; and one training step's
@@ -462,11 +467,8 @@ def window_einsum(coarse, r, t):
 # mangled name and how to name it from the pattern's groups (dtype, then
 # the instance's template arguments)
 _INSTANCES = (
-    (r"(stationary(?:_adj)?)_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)ELi"
-     r"(\d+)ELi(\d+)E", lambda kind, noise, f, c, nf: (
-         kind, "noise" if noise == "1" else "nn", f, c, nf)),
-    (r"(charted_adj)_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)ELi(\d+)ELi"
-     r"(\d+)E", lambda kind, noise, f, c, nf: (
+    (r"((?:stationary|charted)(?:_adj)?)_kernelI(13__nv_bfloat16|f)Lb([01])E"
+     r"Li(\d+)ELi(\d+)ELi(\d+)E", lambda kind, noise, f, c, nf: (
          kind, "noise" if noise == "1" else "nn", f, c, nf)),
     (r"(nd_fused)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
      lambda kind, f, c: (kind, "", f, c, None)),
@@ -537,10 +539,9 @@ def ptxas_lines(smem=None,
 def main_path_smem(models) -> dict:
     """Dynamic shared memory (bytes) of the N-D and pyramid launches at
     S=8: nd_fused at dust's last level, the pyramid at the dust prefix (its
-    N-D instance) and at the log prefix (its 1-D instance with charted
-    tiles; stationary levels stream without shared memory)."""
+    N-D instance); its 1-D levels stream without shared memory."""
     from repro_torch.core.refine import LevelGeom
-    from repro_torch.kernels import dispatch, icr_refine, nd_fused
+    from repro_torch.kernels import dispatch, nd_fused
 
     def nd_smem(geom, charted):
         tile = nd_fused.nd_tile(tuple(geom.T), geom.n_csz, geom.n_fsz,
@@ -552,15 +553,10 @@ def main_path_smem(models) -> dict:
     charted = tuple(not k for k in dust.invariant)
     k = dispatch.pyramid_prefix(dust, samples=S) or 1
     geoms = [LevelGeom.for_level(dust, lvl) for lvl in range(k)]
-    log = models["log"][0].chart
-    lg = LevelGeom.for_level(log, log.n_levels - 1)
-    bf = icr_refine.block_shape_1d(S, lg.T[0], lg.n_fsz)[0]
-    s, c, f = lg.n_fsz // 2, lg.n_csz, lg.n_fsz
     return {"nd_fused": nd_smem(LevelGeom.for_level(dust, dust.n_levels - 1),
                                 charted),
             "pyramid nd": max(nd_smem(g, charted) for g in geoms),
-            "pyramid 1d": 4 * (bf * (f * c + f * f) + (bf - 1) * s + c
-                               + bf * f)}
+            "pyramid 1d": 0}
 
 
 def bound(moved, fmas, bandwidth) -> tuple:
@@ -611,6 +607,14 @@ def check_kernels(models, gen) -> dict:
                 ref = pyramid.refine_pyramid_plain(field, geoms, levels)
                 record(PYRAMID, dname, *rel_err(got, ref),
                        f"{cname} cover {len(geoms)}")
+                if icr.chart.ndim == 1:
+                    # a 1-D level runs its per-level kernel's body: the
+                    # same sums, so the same bits
+                    kern, args, _ = per_level_chain(field, geoms, levels)[-1]
+                    if not torch.equal(got, kern(*args).reshape(got.shape)):
+                        raise AssertionError(
+                            f"{cname} {dname}: the pyramid differs from "
+                            f"its per-level kernels")
             for lvl in range(icr.chart.n_levels):
                 if icr.chart.ndim > 1:
                     for name, coarse, r, t, _ in nn_cases(icr, m, lvl,
@@ -640,6 +644,16 @@ def check_kernels(models, gen) -> dict:
                     absd = max(rel_err(a, b)[0] for a, b in zip(got, want))
                     record(name, dname, absd, max_rel(got, want),
                            f"{cname} level {lvl} g {tuple(g.shape)}")
+    from repro_torch.kernels import icr_refine
+
+    for dtype in (torch.float32, torch.bfloat16):
+        gen.manual_seed(2)
+        args = nd_axes_operands(models, dtype, gen)
+        got = icr_refine.refine_charted(*args)
+        torch.cuda.synchronize()
+        record("refine_charted", str(dtype).split(".")[1],
+               *rel_err(got, icr_refine.refine_charted_plain(*args)),
+               f"dust nd-axes axis 0 rows {args[0].shape[0]}")
     missing = [k for k, v in errors.items() if not v]
     if missing:
         raise AssertionError(f"kernels never checked: {missing}")
@@ -1022,6 +1036,9 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 enq = enqueue_ms(lambda: kern(*args))
                 shape = {"coarse": list(field.shape),
                          "fine": [S] + list(geom.fine_shape)}
+                if kname == "refine_charted":
+                    shape["nd_axes"] = nd_axes_time(models, dtype, gen,
+                                                    bandwidth, flush)
             elif kname in NOISE_FREE:
                 (_, coarse, r, t, a), = [
                     c for c in nn_cases(icr, m, lvl, dtype, gen)
@@ -1093,6 +1110,46 @@ def kernel_times(models, bandwidth, flush, gen) -> dict:
                 "level": lvl, "shape": shape}
         out[kname] = per_dtype
     return out
+
+
+def nd_axes_operands(models, dtype, gen) -> tuple:
+    """The other shape of #3's launches: the axis-0 pass (with ξ0) of the
+    nd-axes route at dust's last level, as a learned-θ training step (S=1)
+    launches it, very many short rows: ``(coarse, xi, r, d)``."""
+    import torch
+
+    from repro_torch.core.refine import LevelGeom
+    from repro_torch.kernels.policy import cast_tree
+
+    icr, mats, _ = models["dust"]
+    lvl = icr.chart.n_levels - 1
+    geom = LevelGeom.for_level(icr.chart, lvl)
+    fsz, t = geom.n_fsz, geom.T
+    b = geom.b if geom.boundary == "reflect" else 0
+    rows = math.prod(n * fsz for n in t[1:])
+    r = cast_tree(mats["Rax"][lvl][0], dtype).contiguous()
+    d = cast_tree(mats["sqrtDax"][lvl][0], dtype).contiguous()
+    coarse = torch.randn((rows, geom.coarse_shape[0] + 2 * b), generator=gen,
+                         device="cuda").to(dtype)
+    xi = torch.randn((rows, t[0], fsz), generator=gen,
+                     device="cuda").to(dtype)
+    return coarse, xi, r, d
+
+
+def nd_axes_time(models, dtype, gen, bandwidth, flush) -> dict:
+    """#3 at the nd-axes route's axis-0 shape (``nd_axes_operands``)."""
+    from repro_torch.kernels import icr_refine as ir
+
+    args = nd_axes_operands(models, dtype, gen)
+    ms = time_ms(lambda: ir.refine_charted(*args), flush)
+    moved = operand_bytes("charted-1d", args, ir.refine_charted(*args))
+    bound_ms, bound_by = bound(moved, kernel_fmas("charted-1d", args),
+                               bandwidth)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": moved, "copy_ms": copy_ms(moved, flush),
+            "coarse": list(args[0].shape), "xi": list(args[1].shape),
+            "chart": "dust", "level": models["dust"][0].chart.n_levels - 1,
+            "axis": 0, "samples": 1}
 
 
 def nd_backward_time(models, dtype, gen, bandwidth, flush) -> dict:

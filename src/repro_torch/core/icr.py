@@ -297,8 +297,10 @@ class ICR:
     def implicit_sqrt(self, theta=None,
                       dtype=torch.float32) -> torch.Tensor:
         """Dense sqrt(K_ICR) as an (N, n_xi) matrix: the map is linear in
-        ξ, so it is the batched apply of the identity basis. Small N only."""
-        mats = cast_tree(self.matrices(theta), dtype)
+        ξ, so it is the batched apply of the identity basis, with the
+        matrices built in `dtype` (float32 for the kernels; float64 gives
+        the reference on the plain versions). Small N only."""
+        mats = cast_tree(self.matrices(theta, dtype=dtype), dtype)
         n_xi = self.xi_size()
         eye = torch.eye(n_xi, dtype=dtype, device=self.device)
         xs, o = [], 0

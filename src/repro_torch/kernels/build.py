@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # ending in (int device, void* stream)
 SIGNATURES = {
     "refine_1d": {
-        "refine_1d_charted_fwd": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+        "refine_1d_charted_fwd": [_I, _I] + [_P] * 5 + [_I] * 9 + [_P],
         "refine_1d_stationary_fwd": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]},
     "refine_1d_adjoint": {
         "refine_1d_charted_adj": [_I, _I] + [_P] * 5 + [_I] * 9 + [_P],

@@ -74,6 +74,14 @@ constexpr long long kMaxRuns = (1LL << 31) - kThreads;
 constexpr int kMaxCsz = 9;  // n_csz bound of the register windows
 constexpr int kMaxFsz = 8;  // n_fsz bound of the register noise rows
 
+// Families per run of the streaming charted kernels, forward and adjoint,
+// by stencil (icr_refine.CHARTED_FAMILIES holds the same): 2 at (2, 3), 1
+// at (4, 5) (their compile-time instances) and for the runtime-size
+// instance.
+__host__ __device__ constexpr int charted_families(int F, int C) {
+  return F == 2 && C == 3 ? 2 : 1;
+}
+
 // -- spans ------------------------------------------------------------------
 // A span is N consecutive elements of one row, held as N floats. It moves
 // with the widest accesses (up to 16 bytes) its address allows: narrower

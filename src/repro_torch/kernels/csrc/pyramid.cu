@@ -14,10 +14,10 @@
 //    grid stride, then meet at cooperative_groups::this_grid().sync()
 //    before the next level reads what they wrote;
 //  * a level runs the per-level kernel's own body (nd_tile.cuh for 2-D
-//    and 3-D levels; refine_1d_tile.cuh for 1-D levels: the streaming run
-//    of the stationary kernel, one run of families per thread, and the
-//    tile of the charted one), so every level computes exactly what its
-//    per-level kernel computes;
+//    and 3-D levels; refine_1d_tile.cuh for 1-D levels: the streaming runs
+//    of the stationary and charted kernels, one run of families per
+//    thread, in a grid-stride loop), so every level computes exactly what
+//    its per-level kernel computes;
 //  * every load goes through the L2 only (ld.global.cg, the bodies'
 //    COHERENT flag): a level's field was written by other blocks before
 //    the grid.sync(), where the read-only path is not defined, and no
@@ -32,8 +32,11 @@
 //    most kMaxLevels levels, read in place (__grid_constant__);
 //  * a chart's levels are all 1-D or all N-D, so the kernel is compiled
 //    once per kind (ND) and stencil (the charts' (4, 5) and (2, 3), and a
-//    runtime-size instance): each instance holds one kind's registers, and
-//    four blocks of 256 threads fit on an SM.
+//    runtime-size instance): each instance holds one kind's registers.
+//    Four blocks of 256 threads fit on an SM with an N-D instance (its
+//    shared memory allows four), three with a 1-D one (80 registers: the
+//    charted run holds its families' stencils in registers across rows,
+//    and at 64 it spilled up to 540 bytes and ran its levels slower).
 // What bounds it: bytes, as each of its levels (~2-4 FLOP per byte at
 // f32): the first field read, every level's xi0 and matrices read once and
 // the last field written once are the device-memory traffic it cannot
@@ -61,8 +64,8 @@ struct PyrLevel {
   const void* r2;  // N-D levels only
   NdParams q;      // a 1-D level uses L0, pad0, T0, ch0, B0, C, F
   int ndim;        // 1, 2 or 3
-  int BB;          // samples per tile of a 1-D level
-  int tiles;       // tiles of this level, samples included
+  int BB;          // runs per row of a 1-D level
+  int tiles;       // tiles (N-D) or blocks of runs (1-D) of this level
 };
 
 struct PyrParams {
@@ -84,9 +87,10 @@ __device__ __forceinline__ T* level_out(const PyrParams& p, int l) {
 }
 
 template <typename T, bool ND, int FT, int CT>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, ND ? 4 : 3)
     refine_pyramid_kernel(const __grid_constant__ PyrParams p) {
   constexpr int NF = stream_fwd_families<T>(FT, CT);
+  constexpr int NFC = charted_families(FT, CT);
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   if constexpr (ND) {
@@ -144,13 +148,25 @@ __global__ void __launch_bounds__(kThreads, 4)
                                                  q.F, t0);
         }
       } else {
-        const int nfb = (q.T0 + q.B0 - 1) / q.B0;
-        for (int tile = blockIdx.x; tile < lv.tiles; tile += gridDim.x) {
-          refine_1d_tile<T, true, true, true>(in, xi0, r0, d0, out, p.S,
-                                              q.L0, q.pad0, q.T0, q.C, q.F,
-                                              q.B0, lv.BB, tile % nfb,
-                                              tile / nfb, smem);
-          __syncthreads();  // the next tile reuses shared memory
+        // a charted level: run i % runs (of NFC = B0 families) of the rows
+        // [(i / runs) * SB, + SB), SB = B1, over the grid
+        const int runs = lv.BB, SB = q.B1;
+        const long long total = (long long)((p.S + SB - 1) / SB) * runs;
+        for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+             i < total; i += (long long)gridDim.x * kThreads) {
+          const int chunk = (int)(i / runs);
+          const size_t b0 = (size_t)chunk * SB;
+          const int nb = min(SB, p.S - chunk * SB);
+          const int t0 = (int)(i - (long long)chunk * runs) * NFC;
+          if constexpr (FT > 0) {
+            charted_fwd_run<T, true, FT, CT, NFC, true>(
+                in, xi0, r0, d0, out, b0, nb, q.L0, q.pad0, q.T0, t0);
+          } else {
+            for (int bi = 0; bi < nb; ++bi)
+              charted_fwd_family<T, true, true>(in, xi0, r0, d0, out,
+                                                b0 + bi, q.L0, q.pad0, q.T0,
+                                                q.C, q.F, t0);
+          }
         }
       }
       if (l + 1 < p.n_levels) grid.sync();
@@ -208,10 +224,11 @@ template <typename T>
 cudaError_t launch_kind(const PyrParams& p, int C, int F, size_t smem,
                         int max_tiles, int max_blocks, int* grid_out,
                         cudaStream_t st) {
-  // a stationary 1-D level's runs hold the instance's families
+  // a 1-D level's runs hold the instance's families
   for (int l = 0; l < p.n_levels; ++l)
-    if (p.lv[l].ndim == 1 && !p.lv[l].q.ch0 &&
-        p.lv[l].q.B0 != stream_fwd_families<T>(F, C))
+    if (p.lv[l].ndim == 1 &&
+        p.lv[l].q.B0 != (p.lv[l].q.ch0 ? charted_families(F, C)
+                                        : stream_fwd_families<T>(F, C)))
       return cudaErrorInvalidValue;
   return p.lv[0].ndim > 1
              ? launch_stencil<T, true>(p, C, F, smem, max_tiles, max_blocks,
@@ -226,9 +243,8 @@ cudaError_t launch_kind(const PyrParams& p, int C, int F, size_t smem,
 // level, in order: ndim, xi0, r0, d0, r1, r2 (device pointers, r1/r2 0
 // where absent), L0, L1, L2 (stored coarse extents), pad0, pad1, pad2
 // (reflect padding per axis), T0, T1, T2, ch0, ch1, ch2 (charted axes),
-// B0, B1, B2 (families per tile; of a stationary 1-D level, families per
-// run), BB (samples per tile of a charted 1-D level; runs per row of a
-// stationary one);
+// B0, B1, B2 (families per tile; of a 1-D level, families per run and, of
+// a charted one, rows per thread), BB (runs per row of a 1-D level);
 // 2-D levels set the middle axis to extent 1, 1-D levels the two
 // trailing axes; the levels are all 1-D or all 2-D/3-D. field (S, *coarse
 // shape of level 0), out (S, *fine shape of the last level),
@@ -281,13 +297,10 @@ extern "C" int refine_pyramid_fwd(int dtype, const long long* table,
       return (int)cudaErrorInvalidValue;
     size_t floats;
     long long tiles;
-    if (lv.ndim == 1 && !q.ch0) {
+    if (lv.ndim == 1) {
+      const long long chunks = q.ch0 ? (S + q.B1 - 1) / q.B1 : S;
       floats = 0;
-      tiles = ((long long)S * lv.BB + repro::kThreads - 1) / repro::kThreads;
-    } else if (lv.ndim == 1) {
-      floats = repro::refine_1d_smem_floats(true, true, q.B0, C, F);
-      tiles = (long long)((q.T0 + q.B0 - 1) / q.B0) *
-              ((S + lv.BB - 1) / lv.BB);
+      tiles = (chunks * lv.BB + repro::kThreads - 1) / repro::kThreads;
     } else {
       floats = repro::nd_smem_floats(q);
       tiles = (long long)repro::nd_tiles_per_sample(q) * S;

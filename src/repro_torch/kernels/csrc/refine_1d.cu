@@ -33,42 +33,63 @@
 // left of it, element by element. On an H100 the instances take no longer
 // than a device copy of as many bytes (chip_smoke.py's copy_ms, PERF.md).
 //
-// Charted (refine_1d_charted_fwd): a tile body, BF families of BB samples
-// per block, the block's stencils staged in shared memory once and reused
-// for all its samples. Both bodies live in refine_1d_tile.cuh, shared with
+// Charted (refine_1d_charted_fwd): the same streaming body with a stencil
+// per family. Its shapes are of two kinds, as the charted adjoint's: long
+// rows and few samples (a charted 1-D chart: 8 rows of 65K families),
+// where R[t] and D[t] weigh as much as xi, and very many short rows (the
+// axis-0 pass of the nd-axes route: 16K rows of 16 families). So a thread
+// owns a run of NF families of SB rows: it reads its families' stencils
+// once, holds them in registers for all SB rows, and per row streams the
+// coarse window and xi in and its outputs out through spans; on short rows
+// the few families' stencils stay in L1 and a block packs several rows.
+// The launch geometry (NF, SB, runs) is icr_refine.charted_shape_1d, the
+// charted adjoint's. Both bodies live in refine_1d_tile.cuh, shared with
 // the pyramid's 1-D levels.
 //
 // Storage is float or bf16 (intrinsic conversions); every sum is f32, in
-// the order of the tile body, and each output is rounded once.
+// the order of refine_1d_tile.cuh, and each output is rounded once.
 #include "refine_1d_tile.cuh"
 
 namespace repro {
 
-template <typename T, bool NOISE>
-__global__ void __launch_bounds__(kThreads) refine_1d_fwd_kernel(
+// One run of rows per thread: thread i owns run i % runs of the rows
+// [(i / runs) * SB, + SB). F = 0 is the runtime-size instance (NF = 1).
+template <typename T, bool NOISE, int F, int C, int NF>
+__global__ void __launch_bounds__(kThreads) refine_1d_charted_kernel(
     const T* __restrict__ coarse, const T* __restrict__ xi,
     const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
-    int B, int L, int nT, int C, int F, int BF, int BB) {
-  extern __shared__ float smem[];
-  refine_1d_tile<T, true, NOISE>(coarse, xi, r, d, out, B, L, 0, nT, C, F,
-                                 BF, BB, blockIdx.x, blockIdx.y, smem);
+    int B, int L, int nT, int Crt, int Frt, int runs, int SB) {
+  const unsigned run = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned chunk = run / runs;
+  const size_t b0 = (size_t)chunk * SB;
+  if (b0 >= (size_t)B) return;
+  const int nb = min(SB, B - (int)b0);
+  const int t0 = (int)(run - chunk * runs) * NF;
+  if constexpr (F > 0) {
+    charted_fwd_run<T, NOISE, F, C, NF>(coarse, xi, r, d, out, b0, nb, L, 0,
+                                        nT, t0);
+  } else {
+    for (int bi = 0; bi < nb; ++bi)
+      charted_fwd_family<T, NOISE>(coarse, xi, r, d, out, b0 + bi, L, 0, nT,
+                                   Crt, Frt, t0);
+  }
 }
 
-template <typename T, bool NOISE>
+template <typename T, bool NOISE, int F, int C, int NF>
 cudaError_t launch_charted(const void* coarse, const void* xi, const void* r,
                            const void* d, void* out, int B, int L, int nT,
-                           int C, int F, int BF, int BB,
+                           int Crt, int Frt, int runs, int SB,
                            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * refine_1d_smem_floats(true, NOISE, BF, C, F);
-  auto kernel = refine_1d_fwd_kernel<T, NOISE>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((nT + BF - 1) / BF, (B + BB - 1) / BB);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(coarse), static_cast<const T*>(xi),
-      static_cast<const T*>(r), static_cast<const T*>(d),
-      static_cast<T*>(out), B, L, nT, C, F, BF, BB);
+  if (runs < 1 || SB < 1) return cudaErrorInvalidValue;
+  const long long threads = (long long)((B + SB - 1) / SB) * runs;
+  if (threads > kMaxRuns) return cudaErrorInvalidValue;
+  if (threads == 0) return cudaSuccess;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  refine_1d_charted_kernel<T, NOISE, F, C, NF>
+      <<<blocks, kThreads, 0, stream>>>(
+          static_cast<const T*>(coarse), static_cast<const T*>(xi),
+          static_cast<const T*>(r), static_cast<const T*>(d),
+          static_cast<T*>(out), B, L, nT, Crt, Frt, runs, SB);
   return cudaGetLastError();
 }
 
@@ -129,15 +150,36 @@ cudaError_t launch_stationary_any(const void* coarse, const void* xi,
                                               nT, C, F, runs, st);
 }
 
-template <typename T>
-cudaError_t launch_charted_any(int noise, const void* coarse, const void* xi,
+// The compile-time instances of the charted forward, NF families per run
+// by stencil (charted_families; icr_refine.CHARTED_FAMILIES picks the
+// same), and the runtime-size instance (NF = 1) for any other stencil.
+template <typename T, bool NOISE>
+cudaError_t launch_charted_any(const void* coarse, const void* xi,
                                const void* r, const void* d, void* out, int B,
-                               int L, int nT, int C, int F, int BF, int BB,
-                               cudaStream_t st) {
-  return noise ? launch_charted<T, true>(coarse, xi, r, d, out, B, L, nT, C,
-                                         F, BF, BB, st)
-               : launch_charted<T, false>(coarse, xi, r, d, out, B, L, nT, C,
-                                          F, BF, BB, st);
+                               int L, int nT, int C, int F, int NF, int SB,
+                               int runs, cudaStream_t st) {
+  constexpr int NF23 = charted_families(2, 3), NF45 = charted_families(4, 5);
+  if (F == 2 && C == 3 && NF == NF23)
+    return launch_charted<T, NOISE, 2, 3, NF23>(coarse, xi, r, d, out, B, L,
+                                                nT, C, F, runs, SB, st);
+  if (F == 4 && C == 5 && NF == NF45)
+    return launch_charted<T, NOISE, 4, 5, NF45>(coarse, xi, r, d, out, B, L,
+                                                nT, C, F, runs, SB, st);
+  if (NF != 1) return cudaErrorInvalidValue;
+  return launch_charted<T, NOISE, 0, 0, 1>(coarse, xi, r, d, out, B, L, nT, C,
+                                           F, runs, SB, st);
+}
+
+template <typename T>
+cudaError_t launch_charted_dtype(int noise, const void* coarse,
+                                 const void* xi, const void* r, const void* d,
+                                 void* out, int B, int L, int nT, int C,
+                                 int F, int NF, int SB, int runs,
+                                 cudaStream_t st) {
+  return noise ? launch_charted_any<T, true>(coarse, xi, r, d, out, B, L, nT,
+                                             C, F, NF, SB, runs, st)
+               : launch_charted_any<T, false>(coarse, xi, r, d, out, B, L,
+                                              nT, C, F, NF, SB, runs, st);
 }
 
 template <typename T>
@@ -157,22 +199,24 @@ cudaError_t launch_stationary_dtype(int noise, const void* coarse,
 // dtype: 0 float32, 1 bfloat16. Shapes: coarse (B, L), xi (B, nT, F),
 // r (nT, F, C), d (nT, F, F), out (B, nT*F); all contiguous,
 // L >= (nT-1)*F/2 + C, on `device`, launched on `stream`. noise = 0 drops
-// xi and d (they may be null). A block owns BF families of BB samples.
-// Returns the launch's cudaError_t.
+// xi and d (they may be null). A thread owns NF families (an instance of
+// the stencil's, or 1 for the runtime-size instance) of SB rows, a row
+// `runs` = ceil(nT / NF) threads, the grid ceil(ceil(B / SB) * runs / 256)
+// blocks of 256. Returns the launch's cudaError_t.
 extern "C" int refine_1d_charted_fwd(int dtype, int noise, const void* coarse,
                                      const void* xi, const void* r,
                                      const void* d, void* out, int B, int L,
-                                     int nT, int C, int F, int BF, int BB,
-                                     int device, void* stream) {
+                                     int nT, int C, int F, int NF, int SB,
+                                     int runs, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_charted_any<float>(noise, coarse, xi, r, d, out, B,
-                                            L, nT, C, F, BF, BB, st);
+    return repro::launch_charted_dtype<float>(noise, coarse, xi, r, d, out, B,
+                                              L, nT, C, F, NF, SB, runs, st);
   if (dtype == 1)
-    return repro::launch_charted_any<__nv_bfloat16>(
-        noise, coarse, xi, r, d, out, B, L, nT, C, F, BF, BB, st);
+    return repro::launch_charted_dtype<__nv_bfloat16>(
+        noise, coarse, xi, r, d, out, B, L, nT, C, F, NF, SB, runs, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -47,7 +47,7 @@
 // them in registers for all SB rows, and per row streams g in and dcoarse
 // and dxi out through spans, as above; on short rows the few families'
 // stencils stay in L1 and a block packs several rows. The launch geometry
-// (NF, SB, runs) is icr_refine.charted_adjoint_shape.
+// (NF, SB, runs) is icr_refine.charted_shape_1d, the charted forward's.
 //
 // Storage is float or bf16 (intrinsic conversions); every sum is f32, in
 // the same order in both bodies (nearest family first, then f), and each
@@ -390,14 +390,14 @@ cudaError_t launch_stationary_any(const void* g, const void* r, const void* d,
 }
 
 // The compile-time instances of the charted adjoint, NF families per run
-// by stencil and storage type (icr_refine.CHARTED_ADJ_FAMILIES picks the
+// by stencil (charted_families; icr_refine.CHARTED_FAMILIES picks the
 // same), and the runtime-size instance (NF = 1) for any other stencil.
 template <typename T, bool NOISE>
 cudaError_t launch_charted_any(const void* g, const void* r, const void* d,
                                void* dc, void* dxi, int B, int L, int nT,
                                int C, int F, int NF, int SB, int runs,
                                cudaStream_t st) {
-  constexpr int NF23 = 2, NF45 = 1;
+  constexpr int NF23 = charted_families(2, 3), NF45 = charted_families(4, 5);
   if (F == 2 && C == 3 && NF == NF23)
     return launch_charted<T, NOISE, 2, 3, NF23>(g, r, d, dc, dxi, B, L, nT,
                                                 C, F, runs, SB, st);

@@ -1,17 +1,22 @@
 // The bodies of the 1-D forward refinement, shared by the per-level
 // kernels (refine_1d.cu) and the pyramid (pyramid.cu), so that a level
-// computes the same in both: the streaming run of the stationary kernel
-// (stationary_fwd_run, stationary_fwd_family) and the tile of the charted
-// one (refine_1d_tile).
+// computes the same in both: the streaming runs of the stationary kernel
+// (stationary_fwd_run, stationary_fwd_family) and of the charted one
+// (charted_fwd_run, charted_fwd_family).
 //
-// One tile is BF consecutive families of BB samples. With s = F/2,
+// With s = F/2,
 //   fine[b, t*F + f] = sum_k R[t][f][k] coarse[b, t*s + k]
 //                    (+ sum_j D[t][f][j] xi[b, t, j]   if NOISE),
-// R and D shared (stationary) or per family (CHARTED). Per sample the tile
-// stages the coarse run (BF-1)*s + n_csz (its windows and their halo) and,
-// with noise, the xi tile in shared memory with coalesced loads; one thread
-// per output element, so the writes are coalesced. The noise-free variant
-// (NOISE = false) has no xi or sqrtD operand and stages neither.
+// R and D shared (stationary) or per family (charted). A thread owns a run
+// of NF consecutive families: it reads their coarse window ((NF-1)*s + C
+// values) and, with noise, their xi in spans (common.cuh: the widest
+// accesses the addresses allow), and writes their NF*F outputs the same
+// way; no shared memory, no barrier. The stationary run holds the one
+// stencil in registers; the charted run holds its families' R[t] (and
+// D[t]) in registers for all the rows it owns. The noise-free variant
+// (NOISE = false) has no xi or sqrtD operand. Every output is summed in
+// f32 in one order, sum_k over R*w in k order, then the noise sum_j in j
+// order, then acc + noise, and rounded once.
 //
 // Coarse rows hold L stored entries and are read at padded coordinates
 // through reflect_index: pad = 0 reads them as they are (the per-level
@@ -36,76 +41,23 @@ __host__ __device__ constexpr int stream_fwd_families(int F, int C) {
                           : (F == 4 && C == 5 ? 2 : 1);
 }
 
-// Shared memory (floats) of one tile.
-__host__ __device__ inline size_t refine_1d_smem_floats(bool charted,
-                                                        bool noise, int BF,
-                                                        int C, int F) {
-  const int s = F / 2;
-  return (size_t)(charted ? BF : 1) * (F * C + (noise ? F * F : 0)) +
-         (size_t)(BF - 1) * s + C + (noise ? (size_t)BF * F : 0);
-}
-
-// Tile (fb, bb): families [fb*BF, fb*BF + BF) of samples [bb*BB, bb*BB +
-// BB), the last of each masked. Every thread of the block calls it.
-template <typename T, bool CHARTED, bool NOISE, bool COHERENT = false>
-__device__ __forceinline__ void refine_1d_tile(
-    const T* __restrict__ coarse, const T* __restrict__ xi,
-    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
-    int B, int L, int pad, int nT, int C, int F, int BF, int BB, int fb,
-    int bb, float* smem) {
-  const int s = F / 2, FC = F * C, FF = F * F;
-  const int t0 = fb * BF;
-  const int nf = min(BF, nT - t0);
-  const int b0 = bb * BB;
-  const int nb = min(BB, B - b0);
-  const int run = (nf - 1) * s + C;
-  const int nmat = CHARTED ? BF : 1;
-  float* sr = smem;                          // stencils R
-  float* sd = sr + nmat * FC;                // noise factors sqrtD
-  float* sc = sd + (NOISE ? nmat * FF : 0);  // coarse run of one sample
-  float* sx = sc + (BF - 1) * s + C;         // xi tile of one sample
-
-  const int nr = (CHARTED ? nf : 1) * FC;
-  const T* rg = r + (CHARTED ? (size_t)t0 * FC : 0);
-  for (int i = threadIdx.x; i < nr; i += blockDim.x)
-    sr[i] = to_float(load<COHERENT>(rg + i));
-  if (NOISE) {
-    const int ndd = (CHARTED ? nf : 1) * FF;
-    const T* dg = d + (CHARTED ? (size_t)t0 * FF : 0);
-    for (int i = threadIdx.x; i < ndd; i += blockDim.x)
-      sd[i] = to_float(load<COHERENT>(dg + i));
-  }
-
-  const int nout = nf * F;
-  for (int bi = 0; bi < nb; ++bi) {
-    const size_t b = (size_t)(b0 + bi);
-    __syncthreads();  // the previous sample's readers are done
-    const T* cg = coarse + b * L;
-    for (int i = threadIdx.x; i < run; i += blockDim.x)
-      sc[i] = to_float(
-          load<COHERENT>(cg + reflect_index(t0 * s + i, pad, L)));
-    if (NOISE) {
-      const T* xg = xi + (b * nT + t0) * F;
-      for (int i = threadIdx.x; i < nout; i += blockDim.x)
-        sx[i] = to_float(load<COHERENT>(xg + i));
-    }
-    __syncthreads();
-    T* og = out + (b * nT + t0) * F;
-    for (int i = threadIdx.x; i < nout; i += blockDim.x) {
-      const int t = i / F, f = i - t * F;
-      const float* rr = sr + (CHARTED ? t * FC : 0) + f * C;
-      const float* w = sc + t * s;
-      float acc = 0.f;
-      for (int k = 0; k < C; ++k) acc = fmaf(rr[k], w[k], acc);
-      if (NOISE) {
-        const float* dd = sd + (CHARTED ? t * FF : 0) + f * F;
-        const float* x = sx + t * F;
-        float noise = 0.f;
-        for (int j = 0; j < F; ++j) noise = fmaf(dd[j], x[j], noise);
-        acc += noise;
-      }
-      og[i] = from_float<T>(acc);
-    }
+// The first n values of a coarse window of W at padded coordinates p0...
+// of a row of L stored entries reflect-padded by `pad` (0 for a row
+// padded beforehand), the rest 0: in a span where the whole window lies
+// inside the row, else element by element through reflect_index (a row's
+// first and last runs).
+template <bool COHERENT, typename T, int W>
+__device__ __forceinline__ void load_window(const T* crow, int p0, int n,
+                                            int pad, int L, float (&w)[W]) {
+  const int first = p0 - pad;  // stored index of the window's start
+  if (n == W && first >= 0 && first + W <= L) {
+    load_span<COHERENT>(crow + first, w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      w[i] = i < n ? to_float(load<COHERENT>(
+                         crow + reflect_index(p0 + i, pad, L)))
+                   : 0.f;
   }
 }
 
@@ -113,9 +65,7 @@ __device__ __forceinline__ void refine_1d_tile(
 // their coarse window ((NF-1)*s + C values at padded coordinates t0*s...,
 // the C - s halo shared with the next run served by L1) and, with noise,
 // their xi, in spans; their NF*F outputs out in a span. The row holds L
-// stored entries, reflect-padded by `pad` in the index (0 for a row padded
-// beforehand): a window that reaches past either end (the row's first and
-// last runs) is read element by element through reflect_index.
+// stored entries, reflect-padded by `pad` in the index (load_window).
 template <typename T, bool NOISE, int F, int C, int NF, bool COHERENT = false>
 __device__ __forceinline__ void stationary_fwd_run(
     const T* __restrict__ coarse, const T* __restrict__ xi,
@@ -124,21 +74,11 @@ __device__ __forceinline__ void stationary_fwd_run(
   constexpr int s = F / 2, W = (NF - 1) * s + C, V = NF * F;
   float rr[F * C];
   load_span<COHERENT>(r, rr);
-  const T* crow = coarse + b * L;
-  const int first = t0 * s - pad;  // stored index of the window's start
   const size_t o0 = (b * nT + t0) * F;
   const bool full = t0 + NF <= nT;
   float w[W];
-  if (full && first >= 0 && first + W <= L) {
-    load_span<COHERENT>(crow + first, w);
-  } else {
-    const int n = full ? W : (nT - t0 - 1) * s + C;
-#pragma unroll
-    for (int i = 0; i < W; ++i)
-      w[i] = i < n ? to_float(load<COHERENT>(
-                         crow + reflect_index(t0 * s + i, pad, L)))
-                   : 0.f;
-  }
+  load_window<COHERENT>(coarse + b * L, t0 * s,
+                        full ? W : (nT - t0 - 1) * s + C, pad, L, w);
   float o[V];
 #pragma unroll
   for (int u = 0; u < NF; ++u)
@@ -199,6 +139,84 @@ __device__ __forceinline__ void stationary_fwd_family(
     }
     out[o0 + f] = from_float<T>(acc);
   }
+}
+
+// Families [t0, t0 + NF) of rows [b0, b0 + nb), per-family stencils,
+// (F, C) fixed at compile time: R[t] (and D[t]) of the run's families are
+// read once and held in registers for all nb rows; per row the coarse
+// window and xi come in spans and the NF*F outputs go out in a span.
+// Reflect padding as in load_window.
+template <typename T, bool NOISE, int F, int C, int NF, bool COHERENT = false>
+__device__ __forceinline__ void charted_fwd_run(
+    const T* __restrict__ coarse, const T* __restrict__ xi,
+    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
+    size_t b0, int nb, int L, int pad, int nT, int t0) {
+  constexpr int s = F / 2, FC = F * C, FF = F * F;
+  constexpr int W = (NF - 1) * s + C, V = NF * F;
+  const bool full = t0 + NF <= nT;
+  float rr[NF * FC];
+  if (full)
+    load_span<COHERENT>(r + (size_t)t0 * FC, rr);
+  else
+    load_range<COHERENT>(r, t0 * FC, nT * FC, rr);
+  float dd[NOISE ? NF * FF : 1];
+  if constexpr (NOISE) {
+    if (full)
+      load_span<COHERENT>(d + (size_t)t0 * FF, dd);
+    else
+      load_range<COHERENT>(d, t0 * FF, nT * FF, dd);
+  }
+  const int n = full ? W : (nT - t0 - 1) * s + C;  // window values used
+  for (int bi = 0; bi < nb; ++bi) {
+    const size_t b = b0 + bi;
+    const size_t o0 = (b * nT + t0) * F;
+    float w[W];
+    load_window<COHERENT>(coarse + b * L, t0 * s, n, pad, L, w);
+    float o[V];
+#pragma unroll
+    for (int u = 0; u < NF; ++u)
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+          acc = fmaf(rr[u * FC + f * C + k], w[u * s + k], acc);
+        o[u * F + f] = acc;
+      }
+    if constexpr (NOISE) {
+      float x[V];
+      if (full)
+        load_span<COHERENT>(xi + o0, x);
+      else
+        load_range<COHERENT>(xi + o0, 0, (nT - t0) * F, x);
+#pragma unroll
+      for (int u = 0; u < NF; ++u)
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          float noise = 0.f;
+#pragma unroll
+          for (int j = 0; j < F; ++j)
+            noise = fmaf(dd[u * FF + f * F + j], x[u * F + j], noise);
+          o[u * F + f] += noise;
+        }
+    }
+    if (full)
+      store_span(out + o0, o);
+    else
+      store_prefix(out + o0, (nT - t0) * F, o);
+  }
+}
+
+// Family t of row b, per-family stencils, (F, C) given at run time;
+// reflect padding as in stationary_fwd_run.
+template <typename T, bool NOISE, bool COHERENT = false>
+__device__ __forceinline__ void charted_fwd_family(
+    const T* __restrict__ coarse, const T* __restrict__ xi,
+    const T* __restrict__ r, const T* __restrict__ d, T* __restrict__ out,
+    size_t b, int L, int pad, int nT, int C, int F, int t) {
+  stationary_fwd_family<T, NOISE, COHERENT>(
+      coarse, xi, r + (size_t)t * F * C, NOISE ? d + (size_t)t * F * F : d,
+      out, b, L, pad, nT, C, F, t);
 }
 
 }  // namespace repro

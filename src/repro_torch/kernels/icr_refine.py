@@ -22,10 +22,10 @@ correlated correction ``sqrt(D) ξ``:
 The forward launches ``csrc/refine_1d.cu`` and the adjoint
 ``csrc/refine_1d_adjoint.cu`` on CUDA tensors; on CPU tensors each runs
 its plain version, the oracles of ``ref.py``. A CUDA tensor never reaches
-the plain version: the kernel launches or the wrapper raises. The charted
-forward kernel is tiled (``block_shape_1d``); the stationary kernels and
-the charted adjoint stream, one run of families per thread
-(``stream_shape_1d``, ``charted_adjoint_shape``).
+the plain version: the kernel launches or the wrapper raises. Every kernel
+streams, one run of families per thread (``stream_shape_1d`` for the
+stationary ones; ``charted_shape_1d`` for the charted ones, whose threads
+also take several rows).
 
 The forward wrappers are differentiable: where an operand requires grad
 they run inside a ``torch.autograd.Function`` whose backward is the
@@ -49,24 +49,8 @@ __all__ = ["refine_stationary", "refine_charted", "refine_stationary_plain",
            "refine_stationary_nn_plain", "refine_charted_nn_plain",
            "refine_stationary_adjoint",
            "refine_charted_adjoint", "refine_stationary_adjoint_plain",
-           "refine_charted_adjoint_plain", "block_shape_1d",
-           "stream_shape_1d", "charted_adjoint_shape"]
-
-# outputs per sample staged by one block: two per thread of 256
-_OUTPUTS_PER_BLOCK = 512
-# blocks to aim for, a few per SM of the H100's 132
-_TARGET_BLOCKS = 528
-
-
-def block_shape_1d(batch: int, t: int, n_fsz: int) -> tuple:
-    """(families, samples) one block of the charted ``refine_1d.cu``
-    kernel, and of the pyramid's 1-D levels, owns: 512 outputs per sample,
-    and as many samples as keep ~528 blocks in flight."""
-    bf = max(1, _OUTPUTS_PER_BLOCK // n_fsz)
-    nbf = -(-t // bf)
-    bb = max(1, min(batch, nbf * batch // _TARGET_BLOCKS))
-    return bf, bb
-
+           "refine_charted_adjoint_plain", "stream_shape_1d",
+           "charted_shape_1d"]
 
 # threads per block of the streaming kernels (kThreads in csrc/common.cuh)
 THREADS = 256
@@ -96,33 +80,35 @@ def stream_shape_1d(batch: int, t: int, n_fsz: int, n_csz: int,
     return nf, runs, -(-batch * runs // THREADS)
 
 
-# families per thread of the streaming charted adjoint by (n_fsz, n_csz,
-# storage itemsize): its compile-time instances; any other stencil runs
+# families per thread of the streaming charted kernels, forward and
+# adjoint, by (n_fsz, n_csz, storage itemsize): their compile-time
+# instances (charted_families in csrc/common.cuh); any other stencil runs
 # the runtime-size instance, one family of one row per thread
-CHARTED_ADJ_FAMILIES = {(2, 3, 4): 2, (2, 3, 2): 2, (4, 5, 4): 1,
-                        (4, 5, 2): 1}
-# threads the charted adjoint aims for (4 blocks of 256 on each of the
+CHARTED_FAMILIES = {(2, 3, 4): 2, (2, 3, 2): 2, (4, 5, 4): 1,
+                    (4, 5, 2): 1}
+# threads the charted kernels aim for (4 blocks of 256 on each of the
 # H100's 132 SMs), and the rows one thread takes at most
-CHARTED_ADJ_THREADS = 132 * 4 * THREADS
-CHARTED_ADJ_MAX_ROWS = 8
+CHARTED_THREADS = 132 * 4 * THREADS
+CHARTED_MAX_ROWS = 8
 
 
-def charted_adjoint_shape(batch: int, t: int, n_fsz: int, n_csz: int,
-                          itemsize: int) -> tuple:
+def charted_shape_1d(batch: int, t: int, n_fsz: int, n_csz: int,
+                     itemsize: int) -> tuple:
     """(families per run, rows per thread, runs per row, blocks) of the
-    streaming charted adjoint: thread i owns run ``i % runs`` (the last run
-    of a row also dcoarse's tail) of the rows ``[(i // runs)·SB, +SB)``,
-    holding its families' stencils for all of them. A thread takes as many
-    rows (up to ``CHARTED_ADJ_MAX_ROWS``) as leave ``CHARTED_ADJ_THREADS``
+    streaming charted kernels, forward and adjoint, and of the pyramid's
+    charted levels: thread i owns run ``i % runs`` (of the adjoint, the
+    last run of a row also dcoarse's tail) of the rows ``[(i // runs)·SB,
+    +SB)``, holding its families' stencils for all of them. A thread takes
+    as many rows (up to ``CHARTED_MAX_ROWS``) as leave ``CHARTED_THREADS``
     threads, so long rows read each stencil once or twice and short rows
     pack several to a block."""
     key = (n_fsz, n_csz, itemsize)
-    nf = CHARTED_ADJ_FAMILIES.get(key, 1)
+    nf = CHARTED_FAMILIES.get(key, 1)
     runs = -(-t // nf)
     rows = 1
-    if key in CHARTED_ADJ_FAMILIES:
-        rows = max(1, min(batch, CHARTED_ADJ_MAX_ROWS,
-                          batch * runs // CHARTED_ADJ_THREADS))
+    if key in CHARTED_FAMILIES:
+        rows = max(1, min(batch, CHARTED_MAX_ROWS,
+                          batch * runs // CHARTED_THREADS))
         rows = -(-batch // -(-batch // rows))   # even out the chunks
     threads = -(-batch // rows) * runs
     if threads > _MAX_RUNS:
@@ -181,9 +167,9 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None):
     _check_1d("refine_1d", batch, t, n_fsz, n_csz, length,
               mat_lead=(t,) if charted else (), r=r, d=d)
     if charted:
-        fn, shape = "refine_1d_charted_fwd", block_shape_1d(batch, t, n_fsz)
-        if -(-batch // shape[1]) > 65535:
-            raise ValueError(f"batch {batch} exceeds the launch grid")
+        fn = "refine_1d_charted_fwd"
+        shape = charted_shape_1d(batch, t, n_fsz, n_csz,
+                                 coarse.element_size())[:3]
     else:
         fn = "refine_1d_stationary_fwd"
         shape = stream_shape_1d(batch, t, n_fsz, n_csz,
@@ -217,8 +203,8 @@ def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
               mat_lead=(t,) if charted else (), r=r, d=d)
     if charted:
         fn = "refine_1d_charted_adj"
-        shape = charted_adjoint_shape(batch, t, n_fsz, n_csz,
-                                      g.element_size())[:3]
+        shape = charted_shape_1d(batch, t, n_fsz, n_csz,
+                                 g.element_size())[:3]
     else:
         fn = "refine_1d_stationary_adj"
         shape = stream_shape_1d(batch, t, n_fsz, n_csz, g.element_size(),

@@ -41,7 +41,7 @@ from repro_torch.core.refine import LevelGeom, reflect_pad, reflect_pad_T
 
 from . import build, nd
 from .icr_refine import (
-    block_shape_1d,
+    charted_shape_1d,
     refine_charted,
     refine_charted_adjoint,
     refine_charted_plain,
@@ -133,6 +133,12 @@ def _table(field, geoms, levels) -> np.ndarray:
             raise ValueError(f"the pyramid takes 1-D to 3-D levels, not {nd}-D")
         fsz, csz, s = geom.n_fsz, geom.n_csz, geom.n_fsz // 2
         T = tuple(geom.T)
+
+        def axes3(v, fill):
+            v = tuple(v)
+            return (v if nd == 3 else (v[0], fill, v[1]) if nd == 2
+                    else (v[0], fill, fill))
+
         b = geom.b if geom.boundary == "reflect" else 0
         for a, (n, p) in enumerate(zip(geom.coarse_shape, _padded(geom))):
             if p < (T[a] - 1) * s + csz or (b and n <= b):
@@ -143,28 +149,24 @@ def _table(field, geoms, levels) -> np.ndarray:
         if tuple(xi0.shape) != (n_s, T[0] * fsz, prod_f):
             raise ValueError(f"xi0 {tuple(xi0.shape)} does not match T={T}")
         bb = 1
-        if nd == 1 and charted[0]:
-            bf, bb = block_shape_1d(n_s, T[0], fsz)
-            tile = (bf,)
-        elif nd == 1:   # a stationary level streams: (families, runs)
+        if nd == 1 and charted[0]:   # (families, rows per thread), runs
+            nf, sb, bb = charted_shape_1d(n_s, T[0], fsz, csz,
+                                          field.element_size())[:3]
+            tile = (nf, sb, 1)
+        elif nd == 1:   # a stationary level streams: families, runs
             nf, bb = stream_shape_1d(n_s, T[0], fsz, csz,
                                      field.element_size())[:2]
-            tile = (nf,)
+            tile = (nf, 1, 1)
         else:
-            tile = nd_tile(T, csz, fsz, charted, n_s)
+            tile = axes3(nd_tile(T, csz, fsz, charted, n_s), 1)
         # the kernel's 3-axis form: a 2-D level's trailing axis is axis 2
         r1 = rs[1].data_ptr() if nd == 3 else 0
         r2 = rs[-1].data_ptr() if nd > 1 else 0
 
-        def axes3(v, fill):
-            v = tuple(v)
-            return (v if nd == 3 else (v[0], fill, v[1]) if nd == 2
-                    else (v[0], fill, fill))
-
         rows.append([nd, xi0.data_ptr(), rs[0].data_ptr(), d0.data_ptr(),
                      r1, r2, *axes3(geom.coarse_shape, 1),
                      *axes3((b,) * nd, 0), *axes3(T, 1),
-                     *axes3(map(int, charted), 0), *axes3(tile, 1), bb])
+                     *axes3(map(int, charted), 0), *tile, bb])
     return np.asarray(rows, dtype=np.int64).reshape(-1, _LEVEL_FIELDS)
 
 

@@ -73,6 +73,10 @@ ROW_CASES = ((5, 1001, 3, 0), (300, 33, 3, 0), (1, 1, 3, 0), (37, 32, 0, 1),
 # thread holds its families' stencils for several rows: 8 long rows, and
 # very many short ones
 ADJOINT_ROW_CASES = ROW_CASES + ((8, 70001, 3, 1), (40000, 16, 4, 2))
+# the charted forward also at its two main-path shapes: the log chart's
+# last level (8 long rows, several a thread) and the nd-axes route's
+# axis-0 pass (very many short rows)
+CHARTED_ROW_CASES = ROW_CASES + ((8, 65026, 3, 1), (16384, 16, 4, 2))
 
 
 def _1d_operands(rng, *, batch, t, n_csz, n_fsz, charted):
@@ -87,20 +91,30 @@ def _1d_operands(rng, *, batch, t, n_csz, n_fsz, charted):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dname", sorted(TOL))
 def test_cuda_kernels_match_plain(cuda, dname):
-    """Each CUDA kernel against its plain version on the same card, at a
-    family count that leaves a ragged last block."""
+    """Each CUDA kernel against its plain version on the same card: the
+    stationary one at a family count that leaves a ragged last block, the
+    charted one (#3) at every ``CHARTED_ROW_CASES`` entry (extra coarse
+    entries, operands off a 16-byte boundary, its main-path shapes) and
+    the runtime-size stencil (3, 8) besides the charts' two."""
     rng = np.random.default_rng(9)
     dt = DTYPES[dname]
-    for charted, (n_csz, n_fsz), (batch, t, _, offset) in itertools.product(
-            (False, True), ((5, 4), (3, 2)), ((5, 1001, 0, 0), ROW_CASES[4])):
-        ops = [on_card_at(a, dt, cuda, offset)
-               for a in _1d_operands(rng, batch=batch, t=t, n_csz=n_csz,
-                                     n_fsz=n_fsz, charted=charted)]
+    cases = [(False, stencil, (batch, t, 0, offset))
+             for stencil, (batch, t, _, offset) in itertools.product(
+                 ((5, 4), (3, 2)), ((5, 1001, 0, 0), ROW_CASES[4]))]
+    cases += [(True, stencil, case) for stencil, case in itertools.product(
+        ((5, 4), (3, 2), (3, 8)), CHARTED_ROW_CASES)]
+    for charted, (n_csz, n_fsz), (batch, t, extra, offset) in cases:
+        coarse, xi, r, d = _1d_operands(rng, batch=batch, t=t, n_csz=n_csz,
+                                        n_fsz=n_fsz, charted=charted)
+        coarse = np.concatenate([coarse, rng.normal(size=(batch, extra))],
+                                axis=1)
+        ops = [on_card_at(a, dt, cuda, offset) for a in (coarse, xi, r, d)]
         route = "charted-1d" if charted else "stationary-1d"
         before = build.LAUNCHES[dispatch.KERNEL_OF_ROUTE[route]]
         got = dispatch.KERNELS[route](*ops)
         assert build.LAUNCHES[dispatch.KERNEL_OF_ROUTE[route]] == before + 1
         want = dispatch.PLAIN[route](*ops)
+        assert got.dtype == dt and got.shape == (batch, t * n_fsz)
         assert rel(got, want) < TOL[dname], (charted, n_fsz, batch, t)
     c = charts.galactic_dust_chart((8, 16, 16), 2)
     geom = trefine.LevelGeom.for_level(c, 1)
@@ -307,13 +321,15 @@ def test_cuda_noise_free_kernels_match_plain(cuda, n_csz, n_fsz, dname):
     """The noise-free forward kernels (#2 stationary, #4 charted) against
     their plain versions, at the ``ROW_CASES``: ragged last blocks, short
     rows packed several to a block, rows and operands that start off a
-    16-byte boundary, and one family."""
+    16-byte boundary, and one family; #4 also at the charted forward's
+    main-path shapes (``CHARTED_ROW_CASES``)."""
     rng = np.random.default_rng([n_csz, n_fsz, 13])
     dt = DTYPES[dname]
     s = n_fsz // 2
 
     for charted in (False, True):
-        for batch, t, extra, offset in ROW_CASES:
+        for batch, t, extra, offset in (CHARTED_ROW_CASES if charted
+                                        else ROW_CASES):
             lead = (t,) if charted else ()
 
             def on_card(a):
@@ -395,6 +411,44 @@ def test_cuda_pyramid_matches_plain(cuda, dname):
                 assert 0 < pyramid.last_grid <= (max_blocks or 10**6)
                 assert got.dtype == dt and got.shape == want.shape
                 assert rel(got, want) < TOL[dname], (chart, k, max_blocks)
+
+
+# charted 1-D charts at the three pyramid instances' stencils ((4, 5),
+# (2, 3) and the runtime-size (8, 3)), shrink and reflect boundaries
+CHARTED_1D_CHARTS = [
+    charts.log_chart(12, 3, n_csz=5, n_fsz=4, delta0=0.05),
+    charts.log_chart(30, 3, delta0=0.05, boundary="reflect"),
+    charts.log_chart(16, 2, n_csz=3, n_fsz=8, delta0=0.05,
+                     boundary="reflect"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", sorted(TOL))
+@pytest.mark.parametrize("threads", [None, 8], ids=["default", "few"])
+def test_cuda_pyramid_charted_levels_equal_per_level_kernel(
+        cuda, dname, threads, monkeypatch):
+    """A charted 1-D chart's pyramid levels run #3's streaming body, as the
+    per-level kernel does: the same sums in the same order, so the pyramid
+    equals the per-level kernels on the same operands bit for bit, also
+    when a thread takes several rows (few threads aimed for)."""
+    if threads:
+        monkeypatch.setattr(icr_refine, "CHARTED_THREADS", threads)
+    dt = DTYPES[dname]
+    n_s = 5
+    for chart in CHARTED_1D_CHARTS:
+        geoms, field, xis, pmats = _pyramid_case(chart, 0.3, dt, cuda, n_s)
+        f, levels = pyramid.pyramid_operands(field, xis, pmats, geoms,
+                                             sample_axis=True)
+        got = pyramid.refine_pyramid_core(f, geoms, levels)
+        x = f
+        for geom, (xi0, rs, d0) in zip(geoms, levels):
+            if geom.boundary == "reflect":
+                x = trefine.reflect_pad(x, geom.b, 1)
+            x = icr_refine.refine_charted(
+                x.contiguous(), xi0.reshape(n_s, geom.T[0], geom.n_fsz),
+                rs[0], d0)
+        assert torch.equal(got, x.reshape(got.shape)), chart
 
 
 @pytest.mark.cuda

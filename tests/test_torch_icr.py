@@ -8,7 +8,8 @@
 * Sign-free: ``implicit_cov`` from the port's own matrices against the
   JAX package's, at float32. The two build their matrices independently
   in float32, so the bound is 1e-4 relative (measured: <= 3e-5 on these
-  charts); eigh's arbitrary column signs cancel in the covariance.
+  charts); eigh's arbitrary column signs cancel in the covariance. At
+  float64 (the JAX package under x64) both build in float64: 1e-10.
 """
 import jax
 import jax.numpy as jnp
@@ -118,6 +119,27 @@ def test_implicit_cov_matches_reference(name, use_pallas):
     got = ticr.implicit_cov()
     assert tuple(got.shape) == want.shape == (ticr.chart.size,) * 2
     assert rel(t2n(got), want) < 1e-4
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["plain-joint", "kernel-route"])
+@pytest.mark.parametrize("name", sorted(COV_CHARTS))
+def test_implicit_cov_float64_matches_reference(name, use_pallas):
+    """At float64 the port builds its matrices in float64, as the JAX
+    package does under x64: the two agree to 1e-10 relative (measured
+    <= 1.7e-14; a float32 build left 2.1e-6 to 1.3e-5)."""
+    build_chart, rho = COV_CHARTS[name]
+    with jax.enable_x64(True):
+        jicr = JICR(build_chart(jcharts),
+                    jkernels.matern32.with_defaults(rho=rho),
+                    use_pallas=use_pallas, use_pyramid=False)
+        want = np.asarray(jax.jit(lambda: jicr.implicit_cov())())
+    assert want.dtype == np.float64
+    ticr = ICR(build_chart(tcharts), tkernels.matern32.with_defaults(rho=rho),
+               use_pallas=use_pallas, device="cpu")
+    got = ticr.implicit_cov(dtype=torch.float64)
+    assert got.dtype == torch.float64
+    assert rel(got.numpy(), want) < 1e-10
 
 
 def test_plain_path_equals_kernel_route_on_1d():

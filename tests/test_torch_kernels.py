@@ -217,13 +217,6 @@ def test_nd_tile_fits_shared_memory(T, fsz, csz, charted):
     assert dust == [(2, 4, 4), (2, 4, 4), (2, 8, 8)]
 
 
-def test_block_shape_1d():
-    assert icr_refine.block_shape_1d(8, 524288, 2) == (256, 8)
-    bf, bb = icr_refine.block_shape_1d(8, 1000, 4)
-    assert bf == 128 and bb == 1
-    assert icr_refine.block_shape_1d(1, 3, 2)[1] == 1
-
-
 def _stream_owners(batch, t, n_fsz, n_csz, itemsize, length, adjoint):
     """How many threads of the streaming launch own each fine output and,
     for the adjoint, each coarse output: the kernels' run numbering (run i
@@ -262,47 +255,91 @@ def test_stream_shape_owns_every_output_once(batch, t, n_fsz, n_csz,
     assert blocks <= 2**31 - 1
 
 
-def _charted_adjoint_owners(batch, t, n_fsz, n_csz, itemsize, length):
-    """How many threads of the streaming charted adjoint own each coarse
-    output and each dxi family: thread i owns run i % runs of the rows
-    [(i // runs)·SB, +SB), the last run of a row dcoarse on to its end."""
-    nf, rows, runs, blocks = icr_refine.charted_adjoint_shape(
+def _charted_owners(batch, t, n_fsz, n_csz, itemsize, length):
+    """How many threads of a streaming charted launch own each fine output,
+    each coarse output of the adjoint and each ξ family: thread i owns run
+    i % runs of the rows [(i // runs)·SB, +SB), the adjoint's last run of a
+    row dcoarse on to its end."""
+    nf, rows, runs, blocks = icr_refine.charted_shape_1d(
         batch, t, n_fsz, n_csz, itemsize)
     s = n_fsz // 2
+    fine = np.zeros((batch, t * n_fsz), dtype=int)
     coarse = np.zeros((batch, length), dtype=int)
     fam = np.zeros((batch, t), dtype=int)
     for i in range(blocks * icr_refine.THREADS):
         b0, t0 = i // runs * rows, i % runs * nf
         for b in range(b0, min(b0 + rows, batch)):
+            fine[b, t0 * n_fsz:min(t0 + nf, t) * n_fsz] += 1
             fam[b, t0:min(t0 + nf, t)] += 1
             end = length if t0 + nf >= t else (t0 + nf) * s
             coarse[b, min(t0 * s, length):end] += 1
-    return (nf, rows, runs, blocks), coarse, fam
+    return (nf, rows, runs, blocks), fine, coarse, fam
 
 
-@pytest.mark.parametrize("batch,t,n_fsz,n_csz,itemsize,extra", [
+CHARTED_SHAPE_CASES = [
     (3, 37, 2, 3, 4, 0), (5, 16, 4, 5, 2, 1), (300, 17, 4, 5, 4, 4),
     (7, 33, 8, 3, 4, 0), (1, 1, 2, 3, 2, 3), (37, 32, 4, 5, 4, 4),
-])
+]
+
+
+def _check_charted_shape(batch, t, n_fsz, n_csz, itemsize, extra, threads,
+                         monkeypatch, *, adjoint):
+    if threads:
+        monkeypatch.setattr(icr_refine, "CHARTED_THREADS", threads)
+    length = (t - 1) * (n_fsz // 2) + n_csz + extra
+    (nf, rows, runs, blocks), fine, coarse, fam = _charted_owners(
+        batch, t, n_fsz, n_csz, itemsize, length)
+    assert (fam == 1).all()
+    assert ((coarse if adjoint else fine) == 1).all()
+    assert 1 <= rows <= icr_refine.CHARTED_MAX_ROWS
+    assert (blocks - 1) * icr_refine.THREADS < -(-batch // rows) * runs <= (
+        blocks * icr_refine.THREADS)
+    if threads and (n_fsz, n_csz, itemsize) in icr_refine.CHARTED_FAMILIES:
+        assert rows == min(batch, icr_refine.CHARTED_MAX_ROWS,
+                           -(-batch // -(-batch // max(
+                               1, batch * runs // threads))))
+
+
+@pytest.mark.parametrize("batch,t,n_fsz,n_csz,itemsize,extra",
+                         CHARTED_SHAPE_CASES)
+@pytest.mark.parametrize("threads", [None, 64], ids=["default", "few"])
+def test_charted_forward_shape_owns_every_output_once(
+        batch, t, n_fsz, n_csz, itemsize, extra, threads, monkeypatch):
+    """Every fine output and every ξ family of the charted forward #3/#4
+    (``charted_shape_1d``) is owned by exactly one thread, also when a
+    thread takes several rows (few threads aimed for)."""
+    _check_charted_shape(batch, t, n_fsz, n_csz, itemsize, extra, threads,
+                         monkeypatch, adjoint=False)
+
+
+@pytest.mark.parametrize("batch,t,n_fsz,n_csz,itemsize,extra",
+                         CHARTED_SHAPE_CASES)
 @pytest.mark.parametrize("threads", [None, 64], ids=["default", "few"])
 def test_charted_adjoint_shape_owns_every_output_once(
         batch, t, n_fsz, n_csz, itemsize, extra, threads, monkeypatch):
     """Every coarse output and every dxi family of the charted adjoint #7
-    is owned by exactly one thread, also when a thread takes several rows
-    (few threads aimed for)."""
-    if threads:
-        monkeypatch.setattr(icr_refine, "CHARTED_ADJ_THREADS", threads)
-    length = (t - 1) * (n_fsz // 2) + n_csz + extra
-    (nf, rows, runs, blocks), coarse, fam = _charted_adjoint_owners(
-        batch, t, n_fsz, n_csz, itemsize, length)
-    assert (coarse == 1).all() and (fam == 1).all()
-    assert 1 <= rows <= icr_refine.CHARTED_ADJ_MAX_ROWS
-    assert (blocks - 1) * icr_refine.THREADS < -(-batch // rows) * runs <= (
-        blocks * icr_refine.THREADS)
-    if threads and (n_fsz, n_csz, itemsize) in icr_refine.CHARTED_ADJ_FAMILIES:
-        assert rows == min(batch, icr_refine.CHARTED_ADJ_MAX_ROWS,
-                           -(-batch // -(-batch // max(
-                               1, batch * runs // threads))))
+    (the same ``charted_shape_1d``) is owned by exactly one thread, also
+    when a thread takes several rows (few threads aimed for)."""
+    _check_charted_shape(batch, t, n_fsz, n_csz, itemsize, extra, threads,
+                         monkeypatch, adjoint=True)
+
+
+def test_charted_forward_shape_of_the_main_path():
+    """#3's two shapes: the log chart's last level at S=8 (8 rows of
+    65 026 families: each thread reads its stencils once for 3 rows) and
+    the nd-axes route's axis-0 pass at dust's last level in a learned-θ
+    step (S=1: 16 384 rows of 16 families, one row a thread at 1024
+    blocks, two a thread at fewer threads aimed for); #4 at log-polar's
+    last level (axis 1); the pyramid's charted levels stream with the
+    same geometry."""
+    shape = icr_refine.charted_shape_1d
+    assert shape(8, 65026, 4, 5, 4) == (1, 3, 65026, 763)
+    assert shape(8, 65026, 4, 5, 2) == (1, 3, 65026, 763)
+    assert shape(16384, 16, 4, 5, 4) == (1, 1, 16, 1024)
+    assert shape(16384, 16, 4, 5, 2) == (1, 1, 16, 1024)
+    assert shape(3, 37, 2, 3, 4) == (2, 1, 19, 1)
+    with pytest.raises(ValueError, match="exceed one launch"):
+        shape(2**20, 2**20, 4, 5, 4)
 
 
 def test_charted_adjoint_shape_of_the_main_path():
@@ -310,7 +347,7 @@ def test_charted_adjoint_shape_of_the_main_path():
     families: each thread reads its stencils once for 3 rows) and the dust
     backward's axis-0 pass (131 072 rows of 16 families, 8 rows a
     thread); the runtime-size stencil takes one family of one row."""
-    shape = icr_refine.charted_adjoint_shape
+    shape = icr_refine.charted_shape_1d
     assert shape(8, 65026, 4, 5, 4) == (1, 3, 65026, 763)
     assert shape(131072, 16, 4, 5, 4) == (1, 8, 16, 1024)
     assert shape(8, 65026, 4, 5, 2)[:2] == (1, 3)
