@@ -47,7 +47,27 @@ Phases (any failure ends the run with a non-zero exit code):
    learned-θ paths the matrix cotangents <= 1e-4 and dρ reported, see
    ``theta_gradient``), and ``ICR.apply_sqrt_T_batch`` on the kernels
    against autograd of the plain apply at both policies.
-5. times   — per kernel at its chart's largest level (the pyramid at
+5. serve   — ``GPFieldServer(demo_posterior(...), slab=8)`` on each
+   chart at both dtype policies serves ``mixed_requests(3, 16)`` cold,
+   then warm, the launch counters zeroed just before and read just after
+   (every kernel of the chart's plan must have launched). Each slab is
+   one replay of a captured CUDA graph whose kernel nodes, counted by
+   name at capture, equal the plan's launches kernel for kernel (each
+   replay adds those counts); checked: the graph's slab equals
+   the eager kernel route on the same ξ bit for bit (and that route its
+   plain version, at the tolerances above), warm traffic captures no
+   graph and rebuilds no matrices and no plan, the card's integer noise
+   stream equals the CPU's, every field is finite and every moments std
+   positive. The ``serve`` line gives per chart and dtype the slab's
+   milliseconds replayed and eager (CUDA events after the flush), the
+   host milliseconds to enqueue each, the draw's and the device-to-host
+   copy's milliseconds, the host milliseconds of one numpy Welford merge
+   of a whole slab, cold and warm milliseconds, rows per second, the
+   modeled slab bytes (``plan()``'s ``hbm_bytes``) and their bound at the
+   card's bandwidth, the draw's floor bytes (``draw_floor_bytes``) and
+   bound, the bound of the whole slab (levels, draw and the f32 cast),
+   and the card's name and power limit.
+6. times   — per kernel at its chart's largest level (the pyramid at
    regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
    per-level kernels it replaces beside it):
    CUDA-event medians of the kernel, its plain version and, where one
@@ -71,6 +91,7 @@ and convolutions run without TF32 throughout.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -1338,6 +1359,167 @@ def train_step_times(problems, flush) -> dict:
     return out
 
 
+def draw_floor_bytes(entry, storage) -> int:
+    """The least bytes a slab's draw must move, each input read once and
+    each output written once: the q-parameters (mean, std: float32 over
+    the excitation), the client ξ rows of the rows flagged in the entry's
+    buffers, and every row's excitation written at the storage dtype. The
+    hash and Box-Muller are arithmetic on counters and move nothing."""
+    import torch
+
+    n_xi, cap = sum(entry["sizes"]), entry["capacity"]
+    flagged = int(entry["bufs"]["meta"][2].count_nonzero())
+    width = torch.finfo(storage).bits // 8
+    return 4 * n_xi * (2 + flagged) + width * n_xi * cap
+
+
+def serve_case(cname, chart, rho, pol, flush, bandwidth, card) -> tuple:
+    """Phase 5 on one chart and dtype policy: ``GPFieldServer(
+    demo_posterior(...), slab=8)`` serves ``mixed_requests(3, 16)`` cold,
+    then warm, with the launch counters zeroed just before and read just
+    after; then the checks and times of the ``serve`` line. Returns
+    ``(launches, record)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.launch import serve_gp as sg
+
+    key = f"{cname}-{pol or 'fp32'}"
+    post = sg.demo_posterior(chart, rho, dtype_policy=pol)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    srv = sg.GPFieldServer(post, slab=S)
+    cold_reqs = srv.run(sg.mixed_requests(3, 16))
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    mats_stats = dict(post.icr.matrices_cache_stats)
+    plan_stats = dict(dispatch.plan_cache_stats)
+    rows0, slabs0 = srv.rows_served, srv.slabs_run
+    t0 = time.perf_counter()
+    warm_reqs = srv.run(sg.mixed_requests(3, 16))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+    m = srv.metrics()
+
+    # 2. warm traffic: no new graph, no matrices, no plan
+    if (m["graph_captures"] != m["cached_entries"] or m["graph_captures"]
+            != 1 or m["mode"] != "single:cuda-graph"):
+        raise AssertionError(f"serve {key}: captures {m}")
+    if (dict(post.icr.matrices_cache_stats) != mats_stats
+            or dict(dispatch.plan_cache_stats) != plan_stats):
+        raise AssertionError(f"serve {key}: warm traffic rebuilt matrices "
+                             f"or the plan")
+    want = collections.Counter()
+    for lvl in srv._entry["plan"]:
+        want[lvl["kernel"]] += lvl["launches"]
+    want = +want
+    nodes = srv._entry["fn"].launches   # the graph's kernel nodes
+    # each slab attempt replays the graph once; the capture's eager
+    # warm-up launched every node's kernel once more
+    runs = m["slabs_attempted"] + m["graph_captures"]
+    if not want or nodes != want or {k: n for k, n in launches.items()
+                                     if n} != {k: n * runs
+                                               for k, n in nodes.items()}:
+        raise AssertionError(f"serve {key}: launches {launches}, graph "
+                             f"nodes {dict(nodes)}, the plan runs "
+                             f"{dict(want)}")
+    # 4. finite fields, positive moments std
+    for r in cold_reqs + warm_reqs:
+        if not r.done or r.error:
+            raise AssertionError(f"serve {key}: request failed: {r.error}")
+        arrays = r.fields if r.kind == "sample" else [r.mean, r.std]
+        if not all(np.isfinite(a).all() for a in arrays) or (
+                r.kind == "moments" and not (r.std > 0).all()):
+            raise AssertionError(f"serve {key}: non-finite field or "
+                                 f"non-positive std ({r.kind})")
+
+    # 1. the graph's slab equals the eager kernel route bit for bit, and
+    # the eager route its plain version (the buffers hold the last slab)
+    e = srv._entry
+    graph_out = e["fn"]().clone()
+    xi = e["draw"](*e["args"])
+    eager = post.icr.apply_sqrt_batch(e["mats"], xi).float()
+    if not torch.equal(graph_out, eager):
+        raise AssertionError(f"serve {key}: graph and eager slabs differ by "
+                             f"{rel_err(graph_out, eager)[0]:.3g}")
+    _, rel_plain = rel_err(eager, plain_apply(post.icr, e["mats"], xi))
+    tol = TOL["float32" if pol is None else "bfloat16"]
+    if not rel_plain <= tol:
+        raise AssertionError(f"serve {key}: eager slab against the plain "
+                             f"versions {rel_plain:.3g} > {tol}")
+    # 3. the card's integer noise stream equals the CPU's
+    if pol is None:
+        seeds, rows = e["bufs"]["meta"][0], e["bufs"]["meta"][1]
+        counters = sg.noise_counters(sum(e["sizes"]), "cuda")
+        bits = sg.row_noise_bits(seeds, rows, counters).cpu()
+        if not torch.equal(bits, sg.row_noise_bits(
+                seeds.cpu(), rows.cpu(), counters.cpu())):
+            raise AssertionError(f"serve {key}: card and CPU noise streams "
+                                 "differ")
+        del bits, counters
+
+    # times (CUDA events after the 2 GiB flush; host clock for enqueue)
+    out = e["fn"]()
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    args = e["args"]
+    moved = srv.modeled_slab_bytes()
+    drawn = draw_floor_bytes(e, post.icr.policy.storage_dtype)
+    cast = (0 if post.icr.policy.storage_dtype == torch.float32 else
+            out.numel() * (torch.finfo(post.icr.policy.storage_dtype).bits
+                           // 8 + out.element_size()))
+    batch = out.cpu().numpy()      # one slab's fields on the host
+    state = sg._welford_merge(0, None, None, batch)
+    welford = []
+    for _ in range(REPS // 5):
+        t0 = time.perf_counter()
+        sg._welford_merge(*state, batch)
+        welford.append((time.perf_counter() - t0) * 1e3)
+    record = {
+        "slab_graph_ms": time_ms(e["fn"], flush),
+        "slab_eager_ms": time_ms(lambda: e["slab_fn"](*args), flush),
+        "host_graph_ms": enqueue_ms(e["fn"]),
+        "host_eager_ms": enqueue_ms(lambda: e["slab_fn"](*args)),
+        "draw_ms": time_ms(lambda: e["draw"](*args), flush),
+        "d2h_ms": time_ms(lambda: host.copy_(out, non_blocking=True), flush),
+        "welford_ms": statistics.median(welford),
+        "cold_ms": cold_ms, "warm_ms": warm_s * 1e3,
+        "rows_per_s": (srv.rows_served - rows0) / warm_s,
+        "slabs_warm": m["slabs_run"] - slabs0, "route": srv.route,
+        "modeled_slab_bytes": moved,
+        "bound_ms": moved / bandwidth * 1e3,
+        "draw_floor_bytes": drawn,
+        "draw_bound_ms": drawn / bandwidth * 1e3,
+        "cast_bytes": cast,
+        "slab_bound_ms": (moved + drawn + cast) / bandwidth * 1e3,
+        "field_bytes": out.numel() * out.element_size(),
+        "graph_kernel_nodes": dict(nodes),
+        "eager_vs_plain_rel": rel_plain,
+        "cache": {k: m[k] for k in ("cache_hits", "cache_misses",
+                                    "graph_captures")},
+        "card": card}
+    del srv, e, out, host, xi, eager, graph_out, batch, state
+    torch.cuda.empty_cache()
+    return launches, record
+
+
+def check_serve(flush, bandwidth, card) -> tuple:
+    """Phase 5: the server on the four charts at both dtype policies."""
+    launches = {k: 0 for k in KERNEL_INFO}
+    records = {}
+    for cname, (chart, kernel) in charts().items():
+        for pol in (None, "bf16"):
+            counts, rec = serve_case(cname, chart,
+                                     kernel.default_theta["rho"], pol,
+                                     flush, bandwidth, card)
+            for k, n in counts.items():
+                launches[k] += n
+            records[f"{cname}-{pol or 'fp32'}"] = rec
+    return launches, records
+
+
 def main() -> int:
     import torch
 
@@ -1406,8 +1588,16 @@ def main() -> int:
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # -- 5. times ---------------------------------------------------------------
+    # -- 5. serving: one CUDA graph per slab ------------------------------------
     flush = torch.empty(512 * 2**20, dtype=torch.float32, device="cuda")
+    serve_launches, serve = check_serve(flush, bandwidth, card)
+    for k, n in serve_launches.items():
+        launches[k] += n
+    print("serve: " + json.dumps(serve), flush=True)
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 6. times ---------------------------------------------------------------
     times = kernel_times(models, bandwidth, flush, gen)
     entries = []
     for kname, info in KERNEL_INFO.items():

@@ -4,8 +4,10 @@ A second package beside the JAX reference ``repro``: it imports torch and
 numpy only. ``ICR`` applies the generative square root and its transpose
 on the kernel route (``use_pallas=True``) with hand-written Hopper
 kernels, forward and backward, or on the plain torch path; ``map_fit``
-and ``advi_fit`` train on it. Tensors default to the ``cuda`` device;
-pass ``device="cpu"`` to run the kernels' plain versions instead.
+and ``advi_fit`` train on it; ``GPFieldServer`` serves posterior fields
+and moments from a fit, each slab one replay of a CUDA graph. Tensors
+default to the ``cuda`` device; pass ``device="cpu"`` to run the
+kernels' plain versions instead.
 """
 from .core import (
     ICR,
@@ -34,6 +36,7 @@ from .core import (
     uniform_prior,
 )
 from .data import charted_gp_dataset
+from .distributed import DeviceLossError, ServingFaultSupervisor
 from .kernels import (
     BF16,
     FP32,
@@ -45,6 +48,23 @@ from .kernels import (
     refine_stationary_adjoint,
 )
 from .optim import adamw, linear_warmup_cosine
+from .roofline import refine_level_traffic
+
+# the server's names load on first use: importing ``launch.serve_gp`` with
+# the package would make ``python -m repro_torch.launch.serve_gp`` run a
+# second copy of the module
+_LAZY = {"GPFieldServer": "launch.serve_gp", "GPRequest": "launch.serve_gp",
+         "RequestError": "launch.serve_gp"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ICR", "Chart", "Kernel", "Posterior", "Prior", "StandardizedModel",
@@ -55,5 +75,6 @@ __all__ = [
     "uniform_prior", "charted_gp_dataset", "BF16", "FP32", "DtypePolicy",
     "refine_charted", "refine_charted_adjoint", "refine_nd_fused",
     "refine_stationary", "refine_stationary_adjoint", "adamw",
-    "linear_warmup_cosine",
+    "linear_warmup_cosine", "DeviceLossError", "ServingFaultSupervisor",
+    "GPFieldServer", "GPRequest", "RequestError", "refine_level_traffic",
 ]

@@ -21,9 +21,10 @@ __all__ = ["to_torch", "matrices_to_torch", "xi_to_torch",
            "posterior_to_torch"]
 
 
-def to_torch(tree, *, device="cpu", dtype=None):
-    """Numpy arrays of a nested dict/list/tuple -> tensors on `device`, in
-    `dtype` (default: each array's own dtype)."""
+def to_torch(tree, *, device="cuda", dtype=None):
+    """Numpy arrays of a nested dict/list/tuple -> tensors on `device` (the
+    card by default, as ``ICR``), in `dtype` (default: each array's own
+    dtype)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -40,12 +41,12 @@ def to_torch(tree, *, device="cpu", dtype=None):
     return t.to(device=device, dtype=as_dtype(dtype) if dtype else src)
 
 
-def matrices_to_torch(mats: dict, *, device="cpu", dtype=None) -> dict:
+def matrices_to_torch(mats: dict, *, device="cuda", dtype=None) -> dict:
     """The JAX package's ``ICR.matrices()`` dict as the port's."""
     return to_torch(dict(mats), device=device, dtype=dtype)
 
 
-def xi_to_torch(xi, *, device="cpu", dtype=None) -> list:
+def xi_to_torch(xi, *, device="cuda", dtype=None) -> list:
     """A ξ list (one array per level) as the port's."""
     return list(to_torch(list(xi), device=device, dtype=dtype))
 

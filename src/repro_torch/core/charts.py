@@ -185,7 +185,7 @@ class Chart:
         off = (np.arange(self.n_fsz) - (self.n_fsz - 1) / 2.0) * d / 2.0
         return c[:, None] + off[None, :]
 
-    def grid_positions(self, level: int, *, device="cpu",
+    def grid_positions(self, level: int, *, device="cuda",
                        dtype=torch.float32) -> torch.Tensor:
         """All charted positions at `level`, (prod(shape_l), dim_D).
 

@@ -163,13 +163,13 @@ def _conditional(k_cc, k_fc, k_ff, jitter, *, scale=None):
 
 
 def refinement_matrices_level(chart: Chart, kernel_fn: Callable, level: int,
-                              *, jitter: float = 1e-6, device="cpu",
+                              *, jitter: float = 1e-6, device="cuda",
                               dtype=torch.float32):
     """Joint refinement matrices (R, sqrt(D)) for all families refining
     `level`, batched over the families.
 
     Returns R: (*kept_T, n_fsz^d, n_csz^d), sqrtD: (*kept_T, n_fsz^d,
-    n_fsz^d), `dtype` on `device`.
+    n_fsz^d), `dtype` on `device` (the card by default, as ``ICR``).
     """
     coarse_axes, fine_axes, _, _ = _family_positions(chart, level)
     cpos = chart.map_to_D(_family_points(coarse_axes, device, dtype))
@@ -181,7 +181,7 @@ def refinement_matrices_level(chart: Chart, kernel_fn: Callable, level: int,
 
 def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
                                    level: int, *, jitter: float = 1e-6,
-                                   device="cpu", dtype=torch.float32):
+                                   device="cuda", dtype=torch.float32):
     """Per-axis 1-D refinement factors for the separable N-D route.
 
     Axis ``a``'s factors come from its 1-D coarse/fine windows with every
@@ -230,7 +230,7 @@ def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
 
 
 def level0_sqrt(chart: Chart, kernel_fn: Callable, *, jitter: float = 1e-6,
-                device="cpu", dtype=torch.float32) -> torch.Tensor:
+                device="cuda", dtype=torch.float32) -> torch.Tensor:
     """Exact square root of the level-0 kernel matrix (small by design)."""
     k = kernel_matrix(kernel_fn, chart.grid_positions(0, device=device,
                                                       dtype=dtype))

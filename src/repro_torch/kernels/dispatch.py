@@ -23,7 +23,8 @@ in the JAX package) runs the chart's first levels as one launch
 (``pyramid.refine_pyramid``): ``pyramid_cover`` says how many (on the
 H100, 1-D stationary levels only), ``pyramid_prefix`` how many the kernel
 could take, and ``plan(pyramid=True)`` shows the cover as the ``pyramid``
-route.
+route. ``plan()`` also gives each level's modeled device-memory bytes
+(``roofline.level_traffic``); ``plan_cached`` memoizes it for serving.
 
 CUDA tensors launch the kernels; CPU tensors take each kernel's plain
 version. There is no override.
@@ -38,10 +39,15 @@ transpose of ``refine`` without a forward pass.
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 
 from repro_torch.core.refine import LevelGeom, reflect_pad, reflect_pad_T
+from repro_torch.roofline.level_traffic import (
+    refine_level_traffic,
+    storage_width,
+)
 
 from . import nd, nd_fused
 from .icr_refine import (
@@ -171,17 +177,24 @@ def _adjoint_name(charted: bool, noise: bool) -> str:
 
 
 def plan(chart, *, pyramid: bool = False, samples: int = 1,
-         itemsize: int = 4) -> list:
+         dtype=None) -> list:
     """Per-level route, kernel and launch count of a forward apply on the
     kernel route, where N-D charts carry their per-axis factors, and under
     ``"vjp"`` the adjoint kernels its backward launches at fixed matrices
     (introspection; no tensors are touched).
 
     ``pyramid=True`` overlays the prefix that ``ICR(use_pyramid=True)``
-    runs at ``samples`` samples of ``itemsize`` bytes: its levels report
-    the ``pyramid`` route and the ``refine_pyramid`` kernel, with the one
-    launch of the group on its first level. The default shows the
-    per-level routes underneath."""
+    runs at ``samples`` samples of the storage ``dtype`` (float32 by
+    default): its levels report the ``pyramid`` route
+    and the ``refine_pyramid`` kernel, with the one launch of the group on
+    its first level. The default shows the per-level routes underneath.
+
+    Each entry carries the ``"dtype"`` column and ``"hbm_bytes"``: the
+    ``roofline.level_traffic`` total of the selected route beside every
+    route the level could take on the card (1-D: its one route; N-D:
+    ``nd-fused`` and ``nd-axes``; a covered level also ``pyramid``), and
+    under ``"selected"`` the one it takes."""
+    itemsize, dtype_name = storage_width(dtype)
     cover = (pyramid_cover(chart, samples=samples, itemsize=itemsize)
              if pyramid else None) or 0
     out = []
@@ -191,15 +204,67 @@ def plan(chart, *, pyramid: bool = False, samples: int = 1,
         if route == ROUTE_ND_FUSED:
             vjp = [_adjoint_name(not chart.invariant[a], a == 0)
                    for a in range(chart.ndim)]
+            candidates = (ROUTE_ND_FUSED, ROUTE_AXES_ND)
         else:
             vjp = [_adjoint_name(route == ROUTE_CHARTED_1D, True)]
+            candidates = (route,)
+        hbm = {rt: refine_level_traffic(geom, rt, samples=samples,
+                                        dtype=dtype)["total"]
+               for rt in candidates}
         launches = 1
         if lvl < cover:
             route, launches = ROUTE_PYRAMID, int(lvl == 0)
+            hbm[route] = refine_level_traffic(
+                geom, route, samples=samples, dtype=dtype,
+                first=lvl == 0, last=lvl == cover - 1)["total"]
+        hbm["selected"] = hbm[route]
         out.append({"level": lvl, "route": route,
                     "kernel": KERNEL_OF_ROUTE[route], "launches": launches,
+                    "dtype": dtype_name, "hbm_bytes": hbm,
                     "vjp": [{"kernel": k, "launches": 1} for k in vjp]})
     return out
+
+
+# plan() walks every level's geometry and traffic model: repeat traffic
+# against the same (chart, sample count, dtype, pyramid, device type) asks
+# for the same answer, so the server's warm path reads it from here. The
+# JAX package keys the backend; the port's backend is the device type.
+_PLAN_CACHE: dict = {}
+plan_cache_stats = {"hits": 0, "misses": 0}
+
+
+def _frozen(x):
+    if isinstance(x, dict):
+        return types.MappingProxyType({k: _frozen(v) for k, v in x.items()})
+    if isinstance(x, list):
+        return tuple(_frozen(v) for v in x)
+    return x
+
+
+def plan_cached(chart, *, samples: int = 1, dtype=None, pyramid: bool = True,
+                device="cuda") -> tuple:
+    """Memoized ``plan()`` (LRU, 32 entries) behind a key of the chart,
+    ``samples``, the storage dtype, ``pyramid`` and the device type. The
+    result is shared by every caller, so it is read-only: a tuple of
+    read-only mappings, equal entry for entry to ``plan()``'s."""
+    key = (chart, int(samples), storage_width(dtype)[1], bool(pyramid),
+           torch.device(device).type)
+    hit = _PLAN_CACHE.pop(key, None)
+    if hit is not None:
+        plan_cache_stats["hits"] += 1
+        _PLAN_CACHE[key] = hit  # re-insert: LRU order
+        return hit
+    plan_cache_stats["misses"] += 1
+    out = _PLAN_CACHE[key] = _frozen(plan(chart, pyramid=pyramid,
+                                          samples=samples, dtype=dtype))
+    while len(_PLAN_CACHE) > 32:
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    return out
+
+
+def plan_cache_clear() -> None:
+    _PLAN_CACHE.clear()
+    plan_cache_stats.update(hits=0, misses=0)
 
 
 def level_operands(field, xi, r, d, geom: LevelGeom, *, axis_mats=None,

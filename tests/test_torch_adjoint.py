@@ -65,7 +65,7 @@ def pair(arr, dname="float32"):
     """The same numpy array as a JAX array and a torch tensor of dtype."""
     jdt, tdt = DTYPES[dname]
     j = jnp.asarray(arr, jdt)
-    return j, to_torch(np.asarray(j)).to(tdt)
+    return j, to_torch(np.asarray(j), device="cpu").to(tdt)
 
 
 def _1d_operands(rng, *, batch, t, n_csz, n_fsz, charted):
@@ -223,7 +223,8 @@ def test_nd_function_backward_matches_jax_vjp(name, dname="float32"):
     rng = np.random.default_rng([len(name), 5])
     for lvl in range(jc.n_levels):
         geom = jrefine.LevelGeom.for_level(jc, lvl)
-        rs, ds = trefine.axis_refinement_matrices_level(tc, k, lvl)
+        rs, ds = trefine.axis_refinement_matrices_level(tc, k, lvl,
+                                                        device="cpu")
         n_fine = int(np.prod(geom.fine_shape))
         field, tfield = pair(rng.normal(size=(1,) + geom.coarse_shape), dname)
         xi, txi = pair(rng.normal(size=(1, int(np.prod(geom.T)),
@@ -239,8 +240,8 @@ def test_nd_function_backward_matches_jax_vjp(name, dname="float32"):
         tfield.requires_grad_(True)
         txi.requires_grad_(True)
         tout = nd_fused.refine_nd_fused(
-            tfield, txi, [to_torch(np.asarray(m)) for m in jrs],
-            [to_torch(np.asarray(m)) for m in jds],
+            tfield, txi, [to_torch(np.asarray(m), device="cpu") for m in jrs],
+            [to_torch(np.asarray(m), device="cpu") for m in jds],
             trefine.LevelGeom.for_level(tc, lvl), sample_axis=True)
         got = torch.autograd.grad(tout, (tfield, txi), tg.reshape(tout.shape))
         for g_, w_ in zip(got, want):
@@ -290,8 +291,9 @@ def test_apply_sqrt_T_matches_reference(name, pol):
     storage = jicr.policy.storage_dtype
     v = np.random.default_rng(6).normal(size=jicr.out_shape)
     want = jicr.apply_sqrt_T(mats, jnp.asarray(v, storage))
-    got = ticr.apply_sqrt_T(matrices_to_torch(jax.tree.map(np.asarray, mats)),
-                            to_torch(np.asarray(jnp.asarray(v, storage))))
+    got = ticr.apply_sqrt_T(
+        matrices_to_torch(jax.tree.map(np.asarray, mats), device="cpu"),
+        to_torch(np.asarray(jnp.asarray(v, storage)), device="cpu"))
     assert [tuple(x.shape) for x in got] == [tuple(s)
                                              for s in ticr.xi_shapes()]
     for g_, w_ in zip(got, want):

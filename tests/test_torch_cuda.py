@@ -594,3 +594,75 @@ def test_cuda_pyramid_reads_fields_through_l2(cuda, tmp_path):
         for k in kinds:
             assert (k.startswith(("LDG.", "LD.")) and ".STRONG.GPU" in k) \
                 or (k.startswith("LDGSTS.") and ".BYPASS" in k), (fn, k)
+
+
+# -- serving: one captured CUDA graph per slab ----------------------------------
+SERVE_CHARTS = ((charts.regular_chart(1024, 10, boundary="reflect"), 5000.0),
+                (charts.galactic_dust_chart((8, 16, 16), 3), 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", [0, 1], ids=["regular", "dust"])
+def test_cuda_served_slab_is_one_graph_equal_to_eager(cuda, case, pol):
+    """A slab of ``GPFieldServer`` on the card is one replay of its
+    captured graph, whose kernel nodes (counted by name at capture) are
+    the plan's launches (the pyramid's cooperative launch among them on
+    regular); every replay counts them once. The replay equals bit for
+    bit the eager slab on the same buffers and the eager kernel route on
+    the same ξ; warm traffic captures no graph."""
+    import collections
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve_gp as sg
+
+    chart, rho = SERVE_CHARTS[case]
+    post = sg.demo_posterior(chart, rho, dtype_policy=pol)
+    build.LAUNCHES.clear()
+    srv = sg.GPFieldServer(post, slab=4)
+    entry = srv._entry
+    assert entry["fn"].graph is not None
+    want = collections.Counter()
+    for e in entry["plan"]:
+        want[e["kernel"]] += e["launches"]
+    assert entry["fn"].launches == +want
+    srv.run(sg.mixed_requests(2, 5))
+    srv.run(sg.mixed_requests(2, 5))
+    m = srv.metrics()
+    assert (m["graph_captures"], m["cache_misses"], m["cache_hits"]) \
+        == (1, 1, 2)
+    # the capture's eager warm-up, then one replay per slab attempt
+    runs = 1 + m["slabs_attempted"]
+    assert +build.LAUNCHES == {k: n * runs for k, n in want.items() if n}
+    assert m["mode"] == "single:cuda-graph"
+    graph = entry["fn"]().clone()
+    eager = entry["slab_fn"](*entry["args"])
+    assert torch.equal(graph, eager)
+    xi = entry["draw"](*entry["args"])
+    icr = srv.posterior.icr
+    assert torch.equal(graph, icr.apply_sqrt_batch(entry["mats"], xi).float())
+
+
+@pytest.mark.cuda
+def test_cuda_cache_hit_copies_the_new_q_parameters(cuda):
+    """The graph baked in the addresses of the entry's mean/std buffers: a
+    hit after ``set_posterior`` with a new mean serves that mean (it was
+    copied into the buffers, not rebound)."""
+    import dataclasses
+
+    from repro_torch.launch import serve_gp as sg
+
+    chart, rho = SERVE_CHARTS[0]
+    post = sg.demo_posterior(chart, rho)
+    srv = sg.GPFieldServer(post, slab=4)
+    new = dataclasses.replace(post, mean=[m + 0.5 for m in post.mean],
+                              log_std=None)
+    srv.set_posterior(new)
+    req = sg.GPRequest(kind="moments", n=3, seed=2)
+    srv.run([req])
+    assert (srv.cache_misses, srv.cache_hits, srv.graph_captures) \
+        == (1, 2, 1)
+    want = post.icr.apply_sqrt(post.icr.matrices_cached(), new.mean)
+    assert rel(torch.from_numpy(req.mean), want.float().cpu()) < TOL[
+        "float32"]
+    assert float(abs(req.std).max()) <= 1e-5 * float(want.abs().max())

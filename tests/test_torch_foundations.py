@@ -153,7 +153,8 @@ def test_chart_geometry_is_identical(name):
                     tc.axis_fine_windows(lvl, a),
                     jc.axis_fine_windows(lvl, a))
     lvl = min(1, jc.n_levels)
-    assert rel(t2n(tc.grid_positions(lvl)), jc.grid_positions(lvl)) < 1e-6
+    assert rel(t2n(tc.grid_positions(lvl, device="cpu")),
+               jc.grid_positions(lvl)) < 1e-6
 
 
 def test_chart_is_frozen_and_hashable():
@@ -192,18 +193,21 @@ def test_refinement_matrices_match_reference(name):
     tk = tkernels.matern32.with_defaults(rho=rho)()
     # jit: the eager reference dispatches its vmapped linalg op by op
     s0 = np.asarray(jax.jit(lambda: jrefine.level0_sqrt(jc, jk))())
-    assert rel(_sq(t2n(trefine.level0_sqrt(tc, tk))), _sq(s0)) < 1e-4
+    assert rel(_sq(t2n(trefine.level0_sqrt(tc, tk, device="cpu"))),
+               _sq(s0)) < 1e-4
     for lvl in range(jc.n_levels):
         if jc.ndim < 3:  # the joint 3-D build is n_csz^9 per family
             r, d = jax.jit(lambda: jrefine.refinement_matrices_level(
                 jc, jk, lvl))()
-            r2, d2 = trefine.refinement_matrices_level(tc, tk, lvl)
+            r2, d2 = trefine.refinement_matrices_level(tc, tk, lvl,
+                                                       device="cpu")
             assert r2.shape == r.shape and d2.shape == d.shape
             assert rel(t2n(r2), r) < 1e-4
             assert rel(_sq(t2n(d2)), _sq(np.asarray(d))) < 1e-4
         rs, ds = jax.jit(lambda: jrefine.axis_refinement_matrices_level(
             jc, jk, lvl))()
-        rs2, ds2 = trefine.axis_refinement_matrices_level(tc, tk, lvl)
+        rs2, ds2 = trefine.axis_refinement_matrices_level(tc, tk, lvl,
+                                                          device="cpu")
         for a in range(jc.ndim):
             assert rs2[a].shape == rs[a].shape
             assert rel(t2n(rs2[a]), rs[a]) < 1e-4
@@ -243,7 +247,8 @@ def test_refine_level_on_reference_matrices(name):
             field, xi)
         got = trefine.refine_level(
             torch.from_numpy(field), torch.from_numpy(xi),
-            to_torch(np.asarray(r)), to_torch(np.asarray(d)),
+            to_torch(np.asarray(r), device="cpu"),
+            to_torch(np.asarray(d), device="cpu"),
             trefine.LevelGeom.for_level(tc, lvl))
         assert tuple(got.shape) == tuple(want.shape)
         assert rel(t2n(got), want) < 1e-5
@@ -309,14 +314,15 @@ def test_convert_carries_nesting_and_bf16():
             "Rax": [[bf16(3, 4, 5), bf16(4, 5)], [bf16(6, 4, 5), bf16(4, 5)]],
             "sqrtDax": [[bf16(3, 4, 4), bf16(4, 4)],
                         [bf16(6, 4, 4), bf16(4, 4)]]}
-    got = matrices_to_torch(mats)
+    got = matrices_to_torch(mats, device="cpu")
     assert set(got) == {"sqrt0", "Rax", "sqrtDax"}
     assert got["Rax"][0][0].dtype == torch.bfloat16
     assert isinstance(got["Rax"][1], list) and len(got["Rax"][1]) == 2
     np.testing.assert_array_equal(t2n(got["Rax"][1][1]),
                                   mats["Rax"][1][1].astype(np.float32))
-    assert matrices_to_torch(mats, dtype="float32")["sqrt0"].dtype \
+    assert matrices_to_torch(mats, dtype="float32",
+                             device="cpu")["sqrt0"].dtype \
         == torch.float32
     xi = [np.ones((2, 3), np.float32), np.zeros(4, np.float32)]
-    out = xi_to_torch(xi, dtype="bfloat16")
+    out = xi_to_torch(xi, dtype="bfloat16", device="cpu")
     assert isinstance(out, list) and out[0].dtype == torch.bfloat16

@@ -74,8 +74,8 @@ def test_whole_slice_matches_reference(name, pol):
     xi = _xi(jicr, 3)
     want = jax.jit(jicr.apply_sqrt_batch)(mats, xi)
     got = ticr.apply_sqrt_batch(
-        matrices_to_torch(jax.tree.map(np.asarray, mats)),
-        xi_to_torch([np.asarray(x) for x in xi]))
+        matrices_to_torch(jax.tree.map(np.asarray, mats), device="cpu"),
+        xi_to_torch([np.asarray(x) for x in xi], device="cpu"))
     assert got.dtype == ticr.policy.storage_dtype
     assert tuple(got.shape) == tuple(want.shape) == (3,) + ticr.out_shape
     assert rel(t2n(got), np.asarray(want.astype(jnp.float32))) < TOL[pol]
@@ -84,7 +84,8 @@ def test_whole_slice_matches_reference(name, pol):
 def test_apply_sqrt_is_one_sample_of_the_batch():
     jicr, ticr = _pair("dust", None)
     mats = ticr.matrices()
-    xi = xi_to_torch([np.asarray(x) for x in _xi(jicr, 2, seed=1)])
+    xi = xi_to_torch([np.asarray(x) for x in _xi(jicr, 2, seed=1)],
+                     device="cpu")
     batch = ticr.apply_sqrt_batch(mats, xi)
     one = ticr.apply_sqrt(mats, [x[1] for x in xi])
     torch.testing.assert_close(one, batch[1], rtol=1e-6, atol=1e-6)

@@ -55,7 +55,7 @@ def pair(arr, dname):
     """The same numpy array as a JAX array and a torch tensor of dtype."""
     jdt, tdt = DTYPES[dname]
     j = jnp.asarray(arr, jdt)
-    return j, to_torch(np.asarray(j)).to(tdt)
+    return j, to_torch(np.asarray(j), device="cpu").to(tdt)
 
 
 def _1d_operands(rng, *, batch, t, n_csz, n_fsz, charted):
@@ -116,9 +116,10 @@ def test_refine_axes_oracle_matches_reference(boundary):
     kw = dict(T=geom.T, n_fsz=geom.n_fsz, boundary=boundary, b=geom.b)
     want = jref.refine_axes_ref(jnp.asarray(field), jnp.asarray(xi), rs, ds,
                                 **kw)
-    got = ref.refine_axes_ref(torch.from_numpy(field), torch.from_numpy(xi),
-                              to_torch([np.asarray(r) for r in rs]),
-                              to_torch([np.asarray(d) for d in ds]), **kw)
+    got = ref.refine_axes_ref(
+        torch.from_numpy(field), torch.from_numpy(xi),
+        to_torch([np.asarray(r) for r in rs], device="cpu"),
+        to_torch([np.asarray(d) for d in ds], device="cpu"), **kw)
     assert rel(t2n(got), want) < TOL["float32"]
 
 
@@ -446,7 +447,8 @@ def test_dispatch_refine_matches_reference(build_chart, dname, monkeypatch):
                                 geom, sample_axis=True, policy=dname)
         got = dispatch.refine(
             torch.from_numpy(field), torch.from_numpy(xi),
-            to_torch(np.asarray(r)), to_torch(np.asarray(d)),
+            to_torch(np.asarray(r), device="cpu"),
+            to_torch(np.asarray(d), device="cpu"),
             trefine.LevelGeom.for_level(tc, lvl), sample_axis=True,
             policy=dname)
         assert got.dtype == DTYPES[dname][1]

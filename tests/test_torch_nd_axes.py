@@ -67,7 +67,7 @@ def pair(arr, dname="float32"):
     """The same numpy array as a JAX array and a torch tensor of dtype."""
     jdt, tdt = DTYPES[dname]
     j = jnp.asarray(arr, jdt)
-    return j, to_torch(np.asarray(j)).to(tdt)
+    return j, to_torch(np.asarray(j), device="cpu").to(tdt)
 
 
 # -- the noise-free 1-D kernels --------------------------------------------------

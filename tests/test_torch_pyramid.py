@@ -93,8 +93,8 @@ def _case(name, dname, seed, *, batch=None):
     jmats = [([jnp.asarray(r, jdt) for r in rs], [jnp.asarray(d, jdt)
                                                   for d in ds])
              for rs, ds in mats]
-    tmats = [([to_torch(np.asarray(r)).to(tdt) for r in rs],
-              [to_torch(np.asarray(d)).to(tdt) for d in ds])
+    tmats = [([to_torch(np.asarray(r), device="cpu").to(tdt) for r in rs],
+              [to_torch(np.asarray(d), device="cpu").to(tdt) for d in ds])
              for rs, ds in jmats]
     jgeoms = [jrefine.LevelGeom.for_level(jc, lvl)
               for lvl in range(jc.n_levels)]
@@ -107,8 +107,8 @@ def _case(name, dname, seed, *, batch=None):
     xis = [jnp.asarray(rng.normal(size=lead + (int(np.prod(g.T)),
                                                 g.n_fsz ** jc.ndim)), jdt)
            for g in jgeoms]
-    tfield = to_torch(np.asarray(field)).to(tdt)
-    txis = [to_torch(np.asarray(x)).to(tdt) for x in xis]
+    tfield = to_torch(np.asarray(field), device="cpu").to(tdt)
+    txis = [to_torch(np.asarray(x), device="cpu").to(tdt) for x in xis]
     return (jgeoms, jmats, field, xis), (tgeoms, tmats, tfield, txis)
 
 
@@ -202,19 +202,21 @@ def test_icr_with_pyramid_matches_reference(name, pol):
         n if name == "tod" else None)
     storage = jicr.policy.storage_dtype
     mats = jax.jit(jicr.matrices)()
-    tmats = matrices_to_torch(jax.tree.map(np.asarray, mats))
+    tmats = matrices_to_torch(jax.tree.map(np.asarray, mats), device="cpu")
     rng = np.random.default_rng(9)
     xi = [jnp.asarray(rng.normal(size=(2,) + s), storage)
           for s in jicr.xi_shapes()]
     want = jax.jit(jicr.apply_sqrt_batch)(mats, xi)
     got = ticr.apply_sqrt_batch(tmats, xi_to_torch([np.asarray(x)
-                                                    for x in xi]))
+                                                    for x in xi],
+                                                   device="cpu"))
     tol = TOL["float32" if pol is None else "bfloat16"]
     assert got.dtype == ticr.policy.storage_dtype
     assert rel(t2n(got), j2n(want)) < tol
     v = jnp.asarray(rng.normal(size=(2,) + jicr.out_shape), storage)
     want_t = [jicr.apply_sqrt_T(mats, v[i]) for i in range(2)]
-    got_t = ticr.apply_sqrt_T_batch(tmats, to_torch(np.asarray(v)))
+    got_t = ticr.apply_sqrt_T_batch(tmats,
+                                    to_torch(np.asarray(v), device="cpu"))
     for lvl, g_ in enumerate(got_t):
         w = np.stack([j2n(wt[lvl]) for wt in want_t])
         assert rel(t2n(g_), w) < tol, lvl
@@ -286,7 +288,7 @@ def test_covers_of_the_chip_charts():
 
 def test_plan_reports_the_pyramid():
     c = tcharts.regular_chart(1024, 10, boundary="reflect")
-    p = dispatch.plan(c, pyramid=True, samples=8, itemsize=4)
+    p = dispatch.plan(c, pyramid=True, samples=8, dtype=torch.float32)
     assert [e["route"] for e in p] == ["pyramid"] * 9 + ["stationary-1d"]
     assert [e["launches"] for e in p] == [1] + [0] * 8 + [1]
     assert {e["kernel"] for e in p[:9]} == {"refine_pyramid"}

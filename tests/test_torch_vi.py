@@ -50,7 +50,7 @@ def problem():
     icr = ICR(regular_chart(16, 2), matern32.with_defaults(rho=10.0),
               use_pallas=True, device="cpu")
     jmats = jax.jit(jicr.matrices)()
-    mats = matrices_to_torch(jax.tree.map(np.asarray, jmats))
+    mats = matrices_to_torch(jax.tree.map(np.asarray, jmats), device="cpu")
     rng = np.random.default_rng(7)
     xi = [torch.tensor(rng.normal(size=s), dtype=torch.float32)
           for s in icr.xi_shapes()]
