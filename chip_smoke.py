@@ -67,7 +67,34 @@ Phases (any failure ends the run with a non-zero exit code):
    card's bandwidth, the draw's floor bytes (``draw_floor_bytes``) and
    bound, the bound of the whole slab (levels, draw and the f32 cast),
    and the card's name and power limit.
-6. times   — per kernel at its chart's largest level (the pyramid at
+6. condition — the data-conditioned solve on the four charts at full
+   width, float32, one ``condition`` line per chart, the launch counters
+   zeroed just before each driven path and read just after (every kernel
+   of the forward's plan and of its adjoint must have launched):
+   (a) ``cg_posterior`` with 4,096 seeded on-grid observations of a prior
+   draw, σ = 0.25, under its own ``CGConfig``: rungs, iterations, status,
+   the reported relres and the solve's wall ms; matvec milliseconds by
+   CUDA events at k = 1 and 17 and the host time to enqueue one; checked:
+   status ``converged`` or ``dense``, and the residual ‖y − A α‖/‖y‖ of
+   the solve's own α (``cg_posterior``'s ``_solution``) recomputed through
+   the plain versions at float64 on the solve's own matrices
+   (``residuals64``, ``same``) within 10·max(rtol, δ), δ the rounding of
+   one float32 kernel-route matvec at α (no float32 α gets below it:
+   10·rtol alone is not reachable, ``PERF.md``); the residual on
+   matrices built at float64 is printed beside it; (b)
+   ``condition_matvec`` on the kernels against the plain route
+   (``plain_matvec``) at k = 17, <= 1e-5 at f32 and <= 5e-2 with bf16
+   storage; on dust and regular, (c) one served ``kind="condition"``
+   request (n = 16): its mean and (a)'s against each other and against
+   the float64 posterior mean of the same system (``mean64``) within
+   ``COND_MEAN_F64``, its std finite, its ``SolveReport`` in
+   ``metrics()``; (d) the ICR rung at the level-0 basis
+   (``precond_max_basis``) against the unpreconditioned rung on
+   ``charted_gp_dataset``'s pattern (30 %, σ = 0.05, 500 iterations):
+   iterations, status and the float64 residual of each; a rung that
+   reports ``converged`` above 10·rtol on its own matrices fails the
+   run.
+7. times   — per kernel at its chart's largest level (the pyramid at
    regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
    per-level kernels it replaces beside it):
    CUDA-event medians of the kernel, its plain version and, where one
@@ -1520,6 +1547,319 @@ def check_serve(flush, bandwidth, card) -> tuple:
     return launches, records
 
 
+# the condition phase: the entry-point solve's on-grid observations (the
+# dense rung's dense_max, so the whole ladder is available), its noise (the
+# CG example's default), the matvec batch timed beside k = 1 (the mean and
+# 16 Matheron columns of a served request), and the charts served
+COND_OBS = 4096
+COND_NOISE = 0.25
+COND_K = 17
+COND_SERVED = ("dust", "regular")
+# the served and the entry point's mean fields against each other and
+# against the float64 posterior mean of the same system (``mean64``):
+# 10x the largest reading of a sound run, 1.8e-5 (dust; both solves end
+# on the dense rung; NVIDIA H100 80GB HBM3 at 700 W, PERF.md §5).
+# The float32 mean field amplifies α's rounding some 250x, so two float32
+# means of one system at different widths do not meet 1e-5 there
+COND_MEAN_F64 = 2e-4
+
+
+def plain_correct(icr, mats, op, v):
+    """``ConditionSystem.correct`` (K Wᵀ v, the fields) with every kernel
+    replaced by its plain version, on the same device: Sᵀ by autograd
+    through ``plain_apply`` at zero ξ (the map is linear in ξ), then
+    ``plain_apply``."""
+    import torch
+
+    k = v.shape[0]
+    u = op.apply_t(v).reshape((k,) + tuple(icr.chart.final_shape))
+    zero = [torch.zeros((k,) + tuple(s), dtype=mats["sqrt0"].dtype,
+                        device=v.device, requires_grad=True)
+            for s in icr.xi_shapes()]
+    with torch.enable_grad():
+        f = plain_apply(icr, mats, zero)
+        xi = torch.autograd.grad(f, zero, grad_outputs=u.to(f.dtype))
+    with torch.no_grad():
+        return plain_apply(icr, mats, list(xi)).reshape(k, -1)
+
+
+def plain_matvec(icr, mats, op, noise_var, v):
+    """``condition_matvec`` on the plain versions."""
+    return (op.apply(plain_correct(icr, mats, op, v)).to(v.dtype)
+            + noise_var * v)
+
+
+def residuals64(icr, mats, mats64, op, noise_var, x, y, matvec,
+                rtol) -> dict:
+    """The residual ‖y − A64 x‖/‖y‖ of a float32 solution `x` (1, n_obs),
+    A64 applied through the plain versions at float64, beside δ =
+    ‖A32 x − A64 x‖/‖y‖, the float32 kernel-route operator's (`matvec`)
+    own distance from A64 at x, and 10·max(rtol, δ). A64 is built two
+    ways: from the solve's own float32 matrices at float64 (``same``, the
+    checked one: δ is then the rounding of one float32 matvec at x, the
+    floor under which no float32 solution holds its residual) and, for
+    the record, from matrices built at float64 (``built_f64``: δ also
+    holds the two builds' difference, up to percent on reflect charts,
+    ROADMAP queue 3)."""
+    import torch
+
+    from repro_torch.kernels.policy import cast_tree
+
+    yd = y.reshape(1, -1).double()
+    ny = float(torch.linalg.vector_norm(yd))
+    with torch.no_grad():
+        a32 = matvec(x).double()
+    out = {}
+    for key, m in (("same", cast_tree(mats, torch.float64)),
+                   ("built_f64", mats64)):
+        with torch.no_grad():
+            a64 = plain_matvec(icr, m, op, noise_var, x.double())
+        delta = float(torch.linalg.vector_norm(a32 - a64)) / ny
+        out[key] = {"residual": float(torch.linalg.vector_norm(a64 - yd))
+                    / ny, "delta": delta, "bound": 10 * max(rtol, delta)}
+    return out
+
+
+def mean64(system, mats, alpha, y, steps=3):
+    """The posterior mean field K Wᵀ α64 at float64 on the solve's own
+    matrices: α64 solves A64 α = y (A64 the plain versions at float64),
+    reached by iterative refinement from the float32 `alpha` with the
+    dense rung's matrix as the approximate inverse (‖A⁻¹(A64 − A)‖ is the
+    float32 rounding). Returns ``(field, ‖y − A64 α64‖/‖y‖, α64)``."""
+    import torch
+
+    from repro_torch.kernels.policy import cast_tree
+
+    icr, op, nv = system.icr, system.obs, system.noise_var
+    m64 = cast_tree(mats, torch.float64)
+    yd = y.reshape(1, -1).double()
+    lu = torch.linalg.lu_factor(
+        system.dense_matrix(torch.float32, y.device).double())
+    a = alpha.double()
+    for _ in range(steps):
+        r = yd - plain_matvec(icr, m64, op, nv, a)
+        a = a + torch.linalg.lu_solve(*lu, r.T).T
+    res = float(torch.linalg.vector_norm(
+        yd - plain_matvec(icr, m64, op, nv, a))
+        / torch.linalg.vector_norm(yd))
+    return plain_correct(icr, m64, op, a).reshape(-1), res, a
+
+
+def condition_reaches(chart, samples) -> set:
+    """The kernels a matvec at `samples` columns launches: the forward's
+    per level (the pyramid over its cover), and the adjoints of every
+    level (``apply_sqrt_T_batch`` runs no pyramid)."""
+    from repro_torch.kernels import dispatch
+
+    plan = dispatch.plan(chart, pyramid=True, samples=samples)
+    return ({e["kernel"] for e in plan if e["launches"]}
+            | {v["kernel"] for e in plan for v in e["vjp"]})
+
+
+def condition_case(cname, chart, kernel, flush, card,
+                   device="cuda") -> tuple:
+    """Phase 6 on one chart, float32: (a) ``cg_posterior`` on 4,096
+    seeded on-grid observations of a prior draw at σ = 0.25, its residual
+    recomputed at float64 through the plain versions; (b) the kernel
+    route's matvec against the plain route at k = 17, f32 and bf16; on
+    dust and regular (c) one served ``kind="condition"`` request (n = 16)
+    whose mean is held to (a)'s and to the float64 posterior mean, and
+    (d) the ICR rung at the level-0 basis
+    against the unpreconditioned rung on the training data's pattern.
+    Returns ``(launches, record)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ICR, cg_posterior, charted_gp_dataset
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve_gp as sg
+    from repro_torch.solvers import (CGConfig, build_condition_system,
+                                     condition_matvec, obs_operator,
+                                     solve_guarded)
+
+    sync = (torch.cuda.synchronize if device == "cuda" else lambda: None)
+    post = sg.demo_posterior(chart, kernel.default_theta["rho"],
+                             device=device)
+    icr = post.icr
+    mats = icr.matrices_cached()
+    mats64 = icr.matrices(dtype=torch.float64)
+    srv = (sg.GPFieldServer(post, slab=S) if cname in COND_SERVED
+           else None)
+    gen = torch.Generator(device=device).manual_seed(31)
+    truth = icr.sample(gen).reshape(-1)
+    n_obs = min(COND_OBS, truth.numel() // 2)
+    obs = torch.sort(torch.randperm(truth.numel(), generator=gen,
+                                    device=device)[:n_obs]).values
+    y = truth[obs].float() + COND_NOISE * torch.randn(
+        n_obs, generator=gen, device=device)
+    obs_np = obs.cpu().numpy()
+    noise_var = COND_NOISE ** 2
+    launches = {k: 0 for k in KERNEL_INFO}
+
+    def reached(window, samples):
+        counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+        missing = sorted(k for k in condition_reaches(chart, samples)
+                         if counts[k] == 0)
+        if missing:
+            raise AssertionError(f"condition {cname} {window}: kernels "
+                                 f"never launched: {missing} ({counts})")
+        for k, n in counts.items():
+            launches[k] += n
+
+    # (a) the entry point, the launch counters zeroed just before; the
+    # residual of its own α, recomputed at float64 through the plain
+    # versions on the solve's own matrices
+    sync()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    solution = {}
+    post_a, rep = cg_posterior(icr, obs_np, y, noise_std=COND_NOISE,
+                               _solution=solution)
+    sync()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    reached("cg_posterior", 1)
+    if rep.status[0] not in ("converged", "dense"):
+        raise AssertionError(f"condition {cname}: cg_posterior ended "
+                             f"{rep.summary()}")
+    system, alpha, rtol = (solution["system"], solution["alpha"],
+                           solution["cfg"].rtol)
+    op = system.obs
+    with torch.no_grad():
+        mean_a = icr.apply_sqrt(mats, post_a.mean).reshape(-1)
+    residuals = residuals64(icr, mats, mats64, op, noise_var, alpha, y,
+                            system.matvec, rtol)
+    if not residuals["same"]["residual"] <= residuals["same"]["bound"]:
+        raise AssertionError(f"condition {cname}: float64 residual "
+                             f"{residuals}")
+
+    # matvec times by CUDA events, k = 1 and 17, and one matvec's enqueue
+    v1 = torch.randn((1, n_obs), generator=gen, device=device)
+    vk = torch.randn((COND_K, n_obs), generator=gen, device=device)
+    times = {"matvec_k1_ms": time_ms(lambda: system.matvec(v1), flush),
+             f"matvec_k{COND_K}_ms": time_ms(lambda: system.matvec(vk),
+                                             flush),
+             "matvec_k1_enqueue_ms": enqueue_ms(lambda: system.matvec(v1))}
+
+    # (b) the kernel route's matvec against the plain route, same matrices
+    parity = {}
+    icr_bf = ICR(chart, icr.kernel, use_pallas=True, dtype_policy="bf16",
+                 device=device)
+    for key, ic, m in (("fp32", icr, mats),
+                       ("bf16", icr_bf, icr_bf.matrices())):
+        with torch.no_grad():
+            got = condition_matvec(ic, m, op, noise_var, vk)
+        _, parity[key] = rel_err(got, plain_matvec(ic, m, op, noise_var, vk))
+        tol = TOL["float32" if key == "fp32" else "bfloat16"]
+        if not parity[key] <= tol:
+            raise AssertionError(f"condition {cname} {key}: matvec against "
+                                 f"the plain route {parity[key]:.3g} > {tol}")
+    del icr_bf
+    record = {"chart": cname, "n_obs": n_obs, "noise_std": COND_NOISE,
+              "rtol": rtol, "report": rep.summary(),
+              "relres_reported": rep.relres[0], "solve_ms": solve_ms,
+              "residual_f64": residuals, **times,
+              "matvec_vs_plain_rel": parity}
+
+    if srv is not None:
+        # (c) one served request on (a)'s system (column 0 y, 16 Matheron
+        # columns): its mean against (a)'s, and both against the float64
+        # posterior mean of the same system and matrices
+        req = sg.GPRequest(kind="condition", n=COND_K - 1, seed=5,
+                           y=y.cpu().numpy(), obs_idx=obs_np,
+                           noise_std=COND_NOISE)
+        sync()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        srv.run([req])
+        sync()
+        served_ms = (time.perf_counter() - t0) * 1e3
+        reached("served", COND_K)
+        if not req.done or req.error is not None:
+            raise AssertionError(f"condition {cname}: served request "
+                                 f"failed: {req.error}")
+
+        def rel2(got, want):
+            got = torch.as_tensor(got, device=device).reshape(-1).double()
+            want = want.reshape(-1).double()
+            return float(torch.linalg.vector_norm(got - want)
+                         / torch.linalg.vector_norm(want))
+
+        want, res64, alpha64 = mean64(system, mats, alpha, y)
+        with torch.no_grad():
+            # the float32 correction alone, from the float64 α
+            corr = system.correct(alpha64.float()).reshape(-1)
+        served = {"ms": served_ms,
+                  "correct_f32_of_alpha64_vs_f64": rel2(corr, want),
+                  "mean_vs_cg_posterior": rel2(req.mean, mean_a),
+                  "mean_vs_f64": rel2(req.mean, want),
+                  "cg_posterior_vs_f64": rel2(mean_a, want),
+                  "f64_residual": res64,
+                  "std_mean": float(np.mean(req.std)),
+                  "report": req.report.summary()}
+        reports = srv.metrics()["solve_reports"]
+        if (not served["mean_vs_cg_posterior"] <= COND_MEAN_F64
+                or not served["mean_vs_f64"] <= COND_MEAN_F64
+                or not served["cg_posterior_vs_f64"] <= COND_MEAN_F64
+                or not np.isfinite(req.std).all() or not reports
+                or reports[-1] != req.report.summary()):
+            raise AssertionError(f"condition {cname}: served {served}, "
+                                 f"finite std "
+                                 f"{bool(np.isfinite(req.std).all())}, "
+                                 f"reports {len(reports)}")
+        record["served"] = served
+
+        # (d) the ICR rung at the level-0 basis on the training pattern
+        gen.manual_seed(21)
+        _, obs_d, y_d = charted_gp_dataset(icr, gen, obs_frac=OBS_FRAC,
+                                           noise_std=NOISE)
+        op_d = obs_operator(icr, obs_idx=obs_d.cpu().numpy())
+        level0 = icr.xi_shapes()[0][0]
+        t0 = time.perf_counter()
+        sys_d = build_condition_system(icr, op_d, NOISE ** 2,
+                                       precond_max_basis=level0)
+        sync()
+        rungs = {"n_obs": op_d.n_obs, "basis": level0,
+                 "precond_build_ms": (time.perf_counter() - t0) * 1e3}
+        cfg_d = CGConfig(max_iters=500)
+        for name, pc in (("icr", sys_d.precond), ("none", None)):
+            t0 = time.perf_counter()
+            x, rep_d = solve_guarded(sys_d.matvec, y_d[None],
+                                     preconds=[(name, pc)], cfg=cfg_d,
+                                     tag=f"rung:{name}")
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            res_d = residuals64(icr, mats, mats64, op_d, NOISE ** 2, x,
+                                y_d, sys_d.matvec, cfg_d.rtol)
+            if rep_d.status[0] == "converged" and not (
+                    res_d["same"]["residual"] <= 10 * cfg_d.rtol):
+                raise AssertionError(
+                    f"condition {cname} rung {name}: reports converged "
+                    f"with float64 residuals {res_d}")
+            rungs[name] = {"iterations": rep_d.iterations[0],
+                           "status": rep_d.status[0],
+                           "relres_reported": rep_d.relres[0],
+                           "residual_f64": res_d, "solve_ms": ms}
+        record["icr_rung"] = rungs
+        del sys_d
+    record["card"] = card
+    del srv, post, mats64
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches, record
+
+
+def check_condition(flush, card) -> dict:
+    """Phase 6: the data-conditioned solve on the four charts; one
+    ``condition`` line per chart. Returns the launches."""
+    launches = {k: 0 for k in KERNEL_INFO}
+    for cname, (chart, kernel) in charts().items():
+        counts, rec = condition_case(cname, chart, kernel, flush, card)
+        for k, n in counts.items():
+            launches[k] += n
+        print("condition: " + json.dumps(rec), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1597,7 +1937,13 @@ def main() -> int:
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # -- 6. times ---------------------------------------------------------------
+    # -- 6. data-conditioned solves: cg_posterior and kind="condition" ------
+    for k, n in check_condition(flush, card).items():
+        launches[k] += n
+    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 7. times ---------------------------------------------------------------
     times = kernel_times(models, bandwidth, flush, gen)
     entries = []
     for kname, info in KERNEL_INFO.items():

@@ -7,19 +7,29 @@ kernels, forward and backward, or on the plain torch path; ``map_fit``
 and ``advi_fit`` train on it; ``GPFieldServer`` serves posterior fields
 and moments from a fit, each slab one replay of a CUDA graph. Tensors
 default to the ``cuda`` device; pass ``device="cpu"`` to run the
-kernels' plain versions instead.
+kernels' plain versions instead. ``cg_posterior`` conditions the prior on
+data exactly by guarded batched CG (``solvers``), each matvec one ``Sᵀ``
+and one ``S`` on the kernels; ``exact`` and ``KissGP`` are the paper's
+§5.1 and §5.2 references.
 """
 from .core import (
     ICR,
     Chart,
     Kernel,
+    KissGP,
     Posterior,
     Prior,
     StandardizedModel,
     advi_fit,
     advi_posterior,
+    cg_posterior,
+    cov_errors,
+    exact_cov,
+    exact_posterior,
+    exact_sample,
     exponential,
     galactic_dust_chart,
+    gauss_kl,
     gaussian_log_likelihood,
     log_chart,
     log_polar_chart,
@@ -67,8 +77,10 @@ def __getattr__(name):
 
 
 __all__ = [
-    "ICR", "Chart", "Kernel", "Posterior", "Prior", "StandardizedModel",
-    "advi_fit", "advi_posterior", "exponential", "galactic_dust_chart",
+    "ICR", "Chart", "Kernel", "KissGP", "Posterior", "Prior",
+    "StandardizedModel", "advi_fit", "advi_posterior", "cg_posterior",
+    "cov_errors", "exact_cov", "exact_posterior", "exact_sample",
+    "exponential", "galactic_dust_chart", "gauss_kl",
     "gaussian_log_likelihood", "log_chart", "log_polar_chart",
     "lognormal_prior", "map_fit", "map_posterior", "matern32", "matern52",
     "neg_log_joint", "normal_prior", "poisson_log_likelihood", "rbf", "regular_chart",

@@ -1,0 +1,4 @@
+"""Checkpoints of the port (one process): ``CheckpointManager``."""
+from .checkpointer import CheckpointManager, load_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "save_pytree", "load_pytree"]

@@ -1,0 +1,206 @@
+"""Crash-safe checkpoints of nested tensors, for one process.
+
+The counterpart of the JAX package's ``checkpoint/checkpointer.py``:
+
+  * **atomic publish**: a save writes ``step_N.tmp/`` and renames it to
+    ``step_N/`` only after every leaf and the manifest are fsync'd, so a
+    crash mid-save never corrupts the latest checkpoint;
+  * **async**: ``save`` snapshots the tensors to the host (waiting only on
+    that copy) and writes them in a background thread; ``wait`` joins it
+    and re-raises what it raised;
+  * **retention**: the newest ``keep`` checkpoints are kept;
+  * ``latest_step`` and ``restore`` find and load the newest one.
+
+Format: one ``.npy`` per leaf (named by its path in the tree) and a JSON
+manifest with each leaf's kind, dtype and shape. A tree is a tensor, a
+numpy array or a Python number, or a dict, list or tuple of trees.
+bfloat16 tensors are stored as float32 (numpy has no bfloat16) and cast
+back on restore. The JAX package also records each leaf's PartitionSpec;
+here every tensor lands on one device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+Tree = Any
+_STEP_RE = re.compile(r"^step_(\d+)$")
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs in a fixed order (dicts by sorted key)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _name(path) -> str:
+    return "__".join(path) or "leaf"
+
+
+def _rebuild(like, values, path=()):
+    """`like`'s structure with each leaf replaced by ``values[name]``."""
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], values, path + (str(k),))
+                for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, values, path + (str(i),))
+                          for i, v in enumerate(like))
+    return values[_name(path)]
+
+
+def _host(leaf) -> tuple:
+    """(numpy array, manifest entry) of one leaf, copied to the host."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        dtype = str(t.dtype).removeprefix("torch.")
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy(), {"kind": "tensor", "dtype": dtype}
+    if isinstance(leaf, np.ndarray):
+        return leaf.copy(), {"kind": "ndarray", "dtype": str(leaf.dtype)}
+    if isinstance(leaf, (bool, int, float)):
+        return np.asarray(leaf), {"kind": type(leaf).__name__,
+                                  "dtype": str(np.asarray(leaf).dtype)}
+    raise TypeError(f"cannot checkpoint a leaf of type {type(leaf)}")
+
+
+def _write(path: str, write):
+    with open(path, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _snapshot(tree) -> list:
+    """``[(name, array, manifest entry), ...]``: the tree on the host."""
+    return [(_name(p), *_host(leaf)) for p, leaf in _leaves(tree)]
+
+
+def save_pytree(tree: Tree, directory: str):
+    """Blocking single-shot save (the manager's thread runs the same
+    write on a snapshot)."""
+    _save_host(_snapshot(tree), directory)
+
+
+def _save_host(host: list, directory: str):
+    """Write a snapshot to `directory`, published atomically."""
+    tmp = directory + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"leaves": []}
+    for name, arr, entry in host:
+        _write(os.path.join(tmp, name + ".npy"),
+               lambda f, arr=arr: np.save(f, arr))
+        manifest["leaves"].append(
+            {"name": name, "shape": list(arr.shape), **entry})
+    _write(os.path.join(tmp, "manifest.json"),
+           lambda f: f.write(json.dumps(manifest).encode()))
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    os.rename(tmp, directory)  # atomic publish
+
+
+def load_pytree(directory: str, like: Tree, device=None) -> Tree:
+    """Restore into the structure of `like` (its values are ignored).
+    Tensors land on `device`, or on the device of `like`'s leaf."""
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    values = {}
+    like_leaves = dict((_name(p), v) for p, v in _leaves(like))
+    for meta in manifest["leaves"]:
+        arr = np.load(os.path.join(directory, meta["name"] + ".npy"))
+        kind = meta["kind"]
+        if kind == "tensor":
+            ref = like_leaves.get(meta["name"])
+            dev = device if device is not None else (
+                ref.device if isinstance(ref, torch.Tensor) else "cpu")
+            values[meta["name"]] = torch.from_numpy(arr).to(
+                device=dev, dtype=getattr(torch, meta["dtype"]))
+        elif kind == "ndarray":
+            values[meta["name"]] = arr.astype(meta["dtype"])
+        else:
+            values[meta["name"]] = {"bool": bool, "int": int,
+                                    "float": float}[kind](arr)
+    return _rebuild(like, values)
+
+
+class CheckpointManager:
+    """Async checkpoints under `root` with retention and latest-step
+    discovery."""
+
+    def __init__(self, root: str, keep: int = 3):
+        self.root = root
+        self.keep = keep
+        os.makedirs(root, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # -- write ----------------------------------------------------------------
+    def save(self, step: int, tree: Tree, blocking: bool = False):
+        self.wait()  # one save in flight at a time
+        host = _snapshot(tree)
+        target = os.path.join(self.root, f"step_{step}")
+
+        def work():
+            try:
+                _save_host(host, target)
+                self._gc()
+            except BaseException as exc:  # noqa: BLE001 — re-raised by wait
+                self._error = exc
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+        if blocking:
+            self.wait()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    # -- read -----------------------------------------------------------------
+    def steps(self) -> list:
+        out = []
+        for d in os.listdir(self.root):
+            m = _STEP_RE.match(d)
+            if m and os.path.exists(
+                    os.path.join(self.root, d, "manifest.json")):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def restore(self, like: Tree, step: Optional[int] = None,
+                device=None) -> tuple:
+        """``(step, tree)`` of checkpoint `step` (default: the latest)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.root}")
+        return step, load_pytree(os.path.join(self.root, f"step_{step}"),
+                                 like, device)
+
+    # -- retention --------------------------------------------------------------
+    def _gc(self):
+        steps = self.steps()
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.root, f"step_{s}"),
+                          ignore_errors=True)

@@ -9,7 +9,10 @@ matrix, the paper's central point. On the kernel route
 * ``advi_fit`` — mean-field Gaussian VI with the reparametrization trick.
   Its Monte Carlo draws are a leading sample axis of ξ, so through
   ``ICR.apply_sqrt_batch`` they ride inside the kernels, forward and
-  backward.
+  backward;
+* ``cg_posterior`` — the exact Gaussian-likelihood posterior mean by
+  guarded batched CG (``repro_torch.solvers``), each matvec one ``Sᵀ``
+  and one ``S`` on the kernel route.
 
 Both take any likelihood. ξ is a tensor, or a list, tuple or dict of them
 (dicts in sorted key order, as the JAX package's pytrees).
@@ -170,6 +173,71 @@ def advi_posterior(icr, params, theta=None) -> Posterior:
     mean, log_std = params
     return Posterior(icr=icr, mean=list(mean), log_std=list(log_std),
                      theta=theta)
+
+
+def cg_posterior(icr, obs, y, *, noise_std: float = 0.05, theta=None,
+                 config=None, use_precond: bool = True,
+                 dense_fallback: bool = True, mesh=None, manager=None,
+                 checkpoint_every: int = 0, _solution=None) -> tuple:
+    """Exact data-conditioned posterior via guarded batched CG.
+
+    Solves ``(W K Wᵀ + σ²I) α = y`` matrix-free (the covariance acts
+    through two ICR square-root applications per matvec), then whitens
+    the correction: ``ξ̂ = Sᵀ Wᵀ α``, so the returned delta
+    :class:`Posterior` (``mean = ξ̂``, ``log_std = None``) reproduces the
+    exact GP regression posterior mean ``K Wᵀ α`` through the ordinary
+    sampling path (``sqrt(K)(ξ̂)``).
+
+    ``obs`` is an observation spec: flat finest-grid indices (any
+    dimension), off-grid 1-D locations (a float array: KISS-GP sparse
+    interpolation rows), or a prebuilt operator from
+    ``solvers.gp_system``. The solve runs the fallback ladder
+    (ICR-whitened preconditioner → unpreconditioned → dense for small
+    systems) with per-RHS quarantine isolation; ``manager`` +
+    ``checkpoint_every`` opt into checkpointing. ``mesh`` is not ported
+    yet and raises (``build_condition_system``).
+
+    Returns ``(posterior, report)``, the report the structured
+    :class:`~repro_torch.solvers.SolveReport`. A dict passed as
+    ``_solution`` receives the solve's ``system``, ``alpha`` and ``cfg``
+    (for a caller that checks α's residual without solving again).
+    """
+    import numpy as np
+
+    from repro_torch.solvers import (CGConfig, build_condition_system,
+                                     solve_guarded)
+    from repro_torch.solvers.gp_system import obs_operator
+
+    if hasattr(obs, "apply") and hasattr(obs, "apply_t"):
+        op = obs
+    else:
+        arr = (obs.cpu().numpy() if isinstance(obs, torch.Tensor)
+               else np.asarray(obs))
+        if np.issubdtype(arr.dtype, np.integer):
+            op = obs_operator(icr, obs_idx=arr)
+        else:
+            op = obs_operator(icr, x_obs=arr)
+    y = torch.as_tensor(y, dtype=torch.float32,
+                        device=icr.device).reshape(1, -1)
+    if y.shape[1] != op.n_obs:
+        raise ValueError(f"y has {y.shape[1]} entries but the observation "
+                         f"operator expects {op.n_obs}")
+    system = build_condition_system(icr, op, float(noise_std) ** 2,
+                                    theta=theta, mesh=mesh,
+                                    use_precond=use_precond)
+    cfg = config or CGConfig(rtol=1e-7, max_iters=max(4 * op.n_obs, 200))
+    ladder = ([("icr", system.precond)] if system.precond is not None
+              else []) + [("none", None)]
+    alpha, report = solve_guarded(
+        system.matvec, y, preconds=ladder,
+        dense_solve=system.dense_solve if dense_fallback else None,
+        cfg=cfg, manager=manager, checkpoint_every=checkpoint_every,
+        tag="cg_posterior")
+    if _solution is not None:
+        _solution.update(system=system, alpha=alpha, cfg=cfg)
+    xi_hat = system.project_xi(alpha)
+    mean = [leaf[0] for leaf in xi_hat]
+    return Posterior(icr=icr, mean=mean, theta=theta), report
 
 
 def gaussian_log_likelihood(noise_std: float, obs_idx=None):

@@ -55,11 +55,19 @@ of one row share their input to the last ``mix``. Padding rows use row
 the packages; requests that bring their own ξ on a MAP posterior serve
 identical fields from both servers.
 
-Not ported yet: ``kind="condition"`` (it waits for the solvers; admission
-rejects it with the code ``condition-not-ported``), the mesh modes and
-the re-plan after a device loss (on one device a ``DeviceLossError``
-propagates, as the JAX server's does without a mesh), and
-``lowered_slab``.
+**Data-conditioned requests** (``kind="condition"``): one per step, a
+whole batched solve of the guarded CG (``repro_torch.solvers``) on the
+served θ. Column 0 solves for the posterior mean; columns 1..n are
+Matheron pathwise targets ``y − W f_j − σ ε_j`` for prior draws
+``f_j = S ξ_j``, with ξ_j and ε_j from the same counter-based (seed, row)
+stream (positions past the row's ξ give ε), so they differ from the JAX
+package's threefry draws as the slabs' do. The predictive std is taken
+over the columns that were not quarantined; the request's
+``SolveReport`` rides back on it and in ``metrics()``.
+
+Not ported yet: the mesh modes and the re-plan after a device loss (on
+one device a ``DeviceLossError`` propagates, mid-solve too, as the JAX
+server's does without a mesh), and ``lowered_slab``.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_gp [--scenario dust]
 """
@@ -159,9 +167,14 @@ class GPRequest:
     leaf shapes must match the served chart's ``xi_shapes()`` and values
     must be finite, both checked at admission. ``theta`` optionally pins
     the hyperparameters the client expects; a mismatch is an admission
-    error. The ``kind="condition"`` fields (``y``, ``obs_idx``, ``x_obs``,
-    ``noise_std``, ``report``) are kept field for field with the JAX
-    package; the port rejects that kind at admission.
+    error.
+
+    kind="condition": the exact posterior mean given observed values
+    ``y`` at exactly one of on-grid flat indices ``obs_idx`` or off-grid
+    1-D locations ``x_obs``, with observation noise ``noise_std`` (σ), in
+    ``mean``; ``std`` is the predictive std over ``n`` Matheron pathwise
+    samples (n >= 2 for a non-trivial std); ``report`` the solve's
+    ``SolveReport``.
     """
 
     kind: str
@@ -178,7 +191,7 @@ class GPRequest:
     fields: list = dataclasses.field(default_factory=list)
     mean: Optional[np.ndarray] = None
     std: Optional[np.ndarray] = None
-    report: Optional[object] = None
+    report: Optional[object] = None  # solvers.SolveReport (condition)
     # internal: rows drawn so far (the request's noise-stream index), the
     # streaming Welford state (count, running mean, running M2), and
     # whether admission already ran
@@ -248,7 +261,10 @@ class GPFieldServer:
     def __init__(self, posterior: Posterior, slab: int = 8,
                  max_cached: int = 8,
                  supervisor: Optional[ServingFaultSupervisor] = None,
-                 fault_injector: Optional[Callable] = None):
+                 fault_injector: Optional[Callable] = None,
+                 ckpt_root: Optional[str] = None,
+                 solver_checkpoint_every: int = 8,
+                 solver_config=None):
         self.slab = int(slab)
         self.supervisor = supervisor or ServingFaultSupervisor()
         # test hook: called once per slab attempt with the server; may
@@ -265,6 +281,16 @@ class GPFieldServer:
         self.slabs_attempted = 0  # execution attempts incl. retried ones
         self.rows_served = 0      # non-padding rows (posterior draws)
         self.fields_delivered = 0
+        # data-conditioned solves (kind="condition")
+        self.ckpt_root = ckpt_root
+        self.solver_checkpoint_every = int(solver_checkpoint_every)
+        self.solver_config = solver_config
+        self.condition_requests = 0
+        self.condition_rhs = 0       # real (unpadded) RHS columns solved
+        self.solve_segments = 0      # CG segment attempts
+        self.solve_reports: list = []  # the last few SolveReports
+        self._cond_cache: dict = {}
+        self._cond_seq = 0
         self.posterior = None
         self.set_posterior(posterior)
 
@@ -428,9 +454,59 @@ class GPFieldServer:
                                  "xi contains NaN/Inf values")
                     continue
             if req.kind == "condition":
-                self._reject(req, "condition-not-ported",
-                             "kind='condition' waits for the solvers, "
-                             "which the port does not have yet")
+                self._admit_condition(req)
+
+    def _admit_condition(self, req: GPRequest):
+        """Conditioning inputs are validated before any solve work runs:
+        a non-finite y or a malformed observation spec is a structured
+        rejection at the queue, while divergence or NaN *inside* the solve
+        is the solver's quarantine's job; either way no other request's
+        answer is perturbed. The codes are the JAX server's."""
+        y = None if req.y is None else _host(req.y).astype(np.float64)
+        if y is None or y.size == 0:
+            return self._reject(req, "y-missing",
+                                "kind='condition' requires observed "
+                                "values y")
+        y = y.ravel()
+        if not np.isfinite(y).all():
+            return self._reject(req, "y-nonfinite",
+                                "y contains NaN/Inf values")
+        if (req.obs_idx is None) == (req.x_obs is None):
+            return self._reject(req, "obs-spec",
+                                "pass exactly one of obs_idx (on-grid) "
+                                "or x_obs (off-grid 1-D)")
+        chart = self.posterior.icr.chart
+        n_grid = int(np.prod(chart.final_shape))
+        if req.obs_idx is not None:
+            idx = (req.obs_idx.cpu().numpy()
+                   if isinstance(req.obs_idx, torch.Tensor)
+                   else np.asarray(req.obs_idx))
+            if idx.size and not np.issubdtype(idx.dtype, np.integer):
+                return self._reject(req, "obs-dtype",
+                                    "obs_idx must be integer flat indices")
+            if idx.size == 0 or idx.min() < 0 or idx.max() >= n_grid:
+                return self._reject(req, "obs-range",
+                                    "obs_idx empty or out of range for a "
+                                    f"{n_grid}-pixel chart")
+            n_obs = idx.size
+        else:
+            x = _host(req.x_obs).astype(np.float64).ravel()
+            if chart.ndim != 1:
+                return self._reject(req, "obs-ndim",
+                                    "off-grid x_obs interpolation is 1-D "
+                                    "only; use obs_idx for N-D charts")
+            if x.size == 0 or not np.isfinite(x).all():
+                return self._reject(req, "obs-nonfinite",
+                                    "x_obs is empty or non-finite")
+            n_obs = x.size
+        if y.size != n_obs:
+            return self._reject(req, "obs-length",
+                                f"y has {y.size} entries but the "
+                                f"observation spec has {n_obs}")
+        if not (np.isfinite(req.noise_std) and float(req.noise_std) > 0):
+            return self._reject(req, "noise-invalid",
+                                f"noise_std={req.noise_std!r} must be a "
+                                "finite positive float")
 
     # -- slab execution ------------------------------------------------------
     def _slab_args(self, entry: dict, rows: list) -> tuple:
@@ -486,11 +562,148 @@ class GPFieldServer:
         self.slabs_run += 1
         return out[:len(rows)]
 
+    # -- data-conditioned solves (kind="condition") ----------------------------
+    def _condition_system(self, op, noise_var: float):
+        """LRU-cached ConditionSystem keyed like the executable cache plus
+        the observation fingerprint and σ²: a re-fit or a new observation
+        pattern is a deliberate miss."""
+        from repro_torch.solvers import build_condition_system
+
+        post = self.posterior
+        key = (self._cache_key(post), op.fingerprint(), float(noise_var))
+        sys_ = self._cond_cache.pop(key, None)
+        if sys_ is None:
+            sys_ = build_condition_system(post.icr, op, noise_var,
+                                          theta=post.theta)
+        self._cond_cache[key] = sys_
+        while len(self._cond_cache) > self.max_cached:
+            self._cond_cache.pop(next(iter(self._cond_cache)))
+        return sys_
+
+    def _solver_manager(self):
+        """Per-solve CheckpointManager under ``ckpt_root`` (lazily a
+        temporary directory): every solve gets its own directory, so a
+        resumed carry can never alias another request's checkpoints."""
+        if self.solver_checkpoint_every <= 0:
+            return None
+        import os
+        import tempfile
+
+        from repro_torch.checkpoint import CheckpointManager
+
+        if self.ckpt_root is None:
+            self.ckpt_root = tempfile.mkdtemp(prefix="gp-serve-solve-")
+        self._cond_seq += 1
+        return CheckpointManager(
+            os.path.join(self.ckpt_root, f"solve_{self._cond_seq}"))
+
+    def _matheron_draws(self, req: GPRequest, n_obs: int, mats) -> tuple:
+        """The request's prior draws: fields ``f_j = S ξ_j`` (n, N) in
+        float32 and observation noise ``ε_j`` (n, n_obs), row j of the
+        request's (seed, row) stream (ξ at the row's first positions, as
+        a sampling slab draws them, ε after them)."""
+        icr = self.posterior.icr
+        device = torch.device(icr.device)
+        shapes = [tuple(s) for s in icr.xi_shapes()]
+        sizes = [math.prod(s) for s in shapes]
+        n_xi, n = sum(sizes), int(req.n)
+        z = row_normals(
+            torch.full((n,), int(req.seed), dtype=torch.int64, device=device),
+            torch.arange(n, dtype=torch.int64, device=device),
+            noise_counters(n_xi + n_obs, device))
+        storage = icr.policy.storage_dtype
+        xi = [z[:, o:o + m].reshape((n,) + s).to(storage).contiguous()
+              for o, m, s in zip(itertools.accumulate(sizes[:-1], initial=0),
+                                 sizes, shapes)]
+        with torch.no_grad():
+            fields = icr.apply_sqrt_batch(mats, xi).float().reshape(n, -1)
+        return fields, z[:, n_xi:]
+
+    def _run_condition(self, req: GPRequest):
+        """Serve one kind="condition" request end to end.
+
+        RHS layout: column 0 solves the posterior-mean system
+        ``(W K Wᵀ + σ²I) α = y``; columns 1..n are Matheron pathwise
+        targets ``y − W f_j − σ ε_j`` (``_matheron_draws``). The solve runs
+        the guarded fallback ladder under the fault supervisor, with
+        checkpoints every ``solver_checkpoint_every`` iterations; the
+        SolveReport rides back on the request and in ``metrics()``."""
+        from repro_torch.solvers import CGConfig, solve_guarded
+        from repro_torch.solvers.gp_system import obs_operator
+
+        self.condition_requests += 1
+        icr = self.posterior.icr
+        try:
+            op = obs_operator(
+                icr, obs_idx=req.obs_idx,
+                x_obs=None if req.x_obs is None else _host(req.x_obs))
+        except ValueError as e:  # race-proofing: _admit already checks
+            return self._reject(req, "obs-invalid", str(e))
+        noise_std = float(req.noise_std)
+        system = self._condition_system(op, noise_std ** 2)
+        shape = tuple(icr.chart.final_shape)
+        k_real = 1 + int(req.n)
+        fields, eps = self._matheron_draws(req, op.n_obs, system.mats)
+        y = torch.as_tensor(_host(req.y).astype(np.float32).ravel(),
+                            device=fields.device)[None, :]
+        b = torch.cat([y, y - op.apply(fields) - noise_std * eps], dim=0)
+
+        def fault_hook(it):
+            self.solve_segments += 1
+            if self.fault_injector is not None:
+                self.fault_injector(self)
+
+        cfg = self.solver_config or CGConfig(
+            rtol=1e-7, max_iters=max(4 * op.n_obs, 200))
+        ladder = ([("icr", system.precond)]
+                  if system.precond is not None else []) + [("none", None)]
+        alpha, report = solve_guarded(
+            system.matvec, b, preconds=ladder, cfg=cfg,
+            dense_solve=system.dense_solve,
+            manager=self._solver_manager(),
+            checkpoint_every=self.solver_checkpoint_every or None,
+            fault_hook=fault_hook, executor=self.supervisor.execute,
+            n_report=k_real, tag=f"condition:{op.n_obs}obs")
+
+        req.report = report
+        self.solve_reports.append(report)
+        del self.solve_reports[:-16]
+        self.condition_rhs += k_real
+        if report.status[0] not in ("converged", "dense"):
+            req.done = True
+            req.error = RequestError(
+                "solve-failed",
+                f"posterior-mean solve ended '{report.status[0]}' "
+                f"(relres {report.relres[0]:.2e}) after rungs "
+                f"{list(report.rungs)}")
+            return
+        with torch.no_grad():
+            corr = system.correct(alpha[:k_real]).float().reshape(k_real, -1)
+        req.mean = _host(corr[0]).reshape(shape)
+        # predictive std over the *non-quarantined* Matheron samples: a
+        # diverged/NaN sample column is excluded, never averaged in
+        good = [j for j in range(1, k_real)
+                if report.status[j] in ("converged", "dense")]
+        if len(good) >= 2:
+            sel = torch.tensor(good, device=corr.device)
+            samples = fields[sel - 1] + corr[sel]
+            req.std = _host(samples.std(dim=0, correction=0)).reshape(shape)
+        else:
+            req.std = np.zeros(shape, np.float32)
+        self.fields_delivered += 2
+        req.done = True
+
     # -- serving loop --------------------------------------------------------
     def step(self, queue: List[GPRequest]) -> bool:
         """Pack one slab from the queue, execute it, scatter the results.
+        Condition requests are served one per step (a whole batched solve
+        is one unit of work); sample and moments rows pack into slabs.
         Returns False when no request had demand (queue drained)."""
         self._admit(queue)
+        for req in queue:
+            if not req.done and req.kind == "condition":
+                self._run_condition(req)
+                return True
         cap = self._entry["capacity"]
         rows = []  # (request, row index in its noise stream)
         for req in queue:
@@ -559,7 +772,7 @@ class GPFieldServer:
         return self._entry["plan"][-1]["route"]
 
     def metrics(self) -> dict:
-        """Serving and fault counters."""
+        """Serving, solver and fault counters."""
         return {
             "slabs_run": self.slabs_run,
             "slabs_attempted": self.slabs_attempted,
@@ -571,6 +784,14 @@ class GPFieldServer:
             "graph_captures": self.graph_captures,
             "mode": self.serving_mode,
             "capacity": self.capacity,
+            "condition_requests": self.condition_requests,
+            "condition_rhs": self.condition_rhs,
+            "solve_segments": self.solve_segments,
+            "solve_fallbacks": sum(len(r.fallbacks)
+                                   for r in self.solve_reports),
+            "solve_resumes": sum(len(r.resumes)
+                                 for r in self.solve_reports),
+            "solve_reports": [r.summary() for r in self.solve_reports[-4:]],
             **{f"fault_{k}": v
                for k, v in self.supervisor.metrics().items()},
         }

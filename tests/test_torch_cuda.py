@@ -666,3 +666,95 @@ def test_cuda_cache_hit_copies_the_new_q_parameters(cuda):
     assert rel(torch.from_numpy(req.mean), want.float().cpu()) < TOL[
         "float32"]
     assert float(abs(req.std).max()) <= 1e-5 * float(want.abs().max())
+
+
+# -- data-conditioned solves ------------------------------------------------------
+# small charts of the condition path: 1-D stationary (the pyramid, then
+# #1; adjoint #5) and N-D charted (#9; adjoints #7 and #6)
+CONDITION_CHARTS = ((charts.regular_chart(32, 3, boundary="reflect"), 8.0),
+                    (charts.galactic_dust_chart((6, 8, 8), 2), 0.5))
+
+
+def _to_cpu_icr(icr, mats):
+    """The same model on the CPU, where the kernels' plain versions run,
+    on the card's matrices (its ``matrices()`` returns them)."""
+    import dataclasses
+
+    mats_c = to_device(mats, "cpu")
+
+    @dataclasses.dataclass(frozen=True)
+    class OnCardMatrices(ICR):
+        def matrices(self, theta=None, **kw):
+            return mats_c
+
+    fields = {f.name: getattr(icr, f.name) for f in dataclasses.fields(ICR)}
+    return OnCardMatrices(**{**fields, "device": "cpu"}), mats_c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", [0, 1], ids=["regular", "dust"])
+def test_cuda_condition_matvec_matches_plain(cuda, case, pol):
+    """``condition_matvec`` on the kernel route (Sᵀ through the adjoint
+    kernels, S through the forward ones) against the plain versions on the
+    same matrices, k = 17 columns."""
+    from repro_torch.solvers import condition_matvec, obs_operator
+
+    chart, rho = CONDITION_CHARTS[case]
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True, dtype_policy=pol)
+    mats = icr.matrices()
+    rng = np.random.default_rng(0)
+    obs = np.sort(rng.choice(chart.size, size=chart.size // 3,
+                             replace=False))
+    op = obs_operator(icr, obs_idx=obs)
+    v = rng.standard_normal((17, obs.size)).astype(np.float32)
+    build.LAUNCHES.clear()
+    got = condition_matvec(icr, mats, op, 0.0625, torch.tensor(v, device=cuda))
+    assert sum(build.LAUNCHES.values()) > 0
+    icr_c, mats_c = _to_cpu_icr(icr, mats)
+    want = condition_matvec(icr_c, mats_c, op, 0.0625, torch.tensor(v))
+    assert rel(got.cpu(), want) < TOL["float32" if pol is None
+                                      else "bfloat16"]
+
+
+@pytest.mark.cuda
+def test_cuda_cg_posterior_matches_the_cpu(cuda):
+    """``cg_posterior`` on the card against the same solve on the CPU
+    (the JAX package's test data: y = (K truth)[obs] + 0.05 noise,
+    σ = 0.25): the same ladder and status, the mean field at 1e-5."""
+    from repro_torch import cg_posterior
+
+    chart, rho = CONDITION_CHARTS[0]
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True)
+    mats = icr.matrices_cached()
+    icr_c, mats_c = _to_cpu_icr(icr, mats)
+    rng = np.random.default_rng(1)
+    obs = np.sort(rng.choice(chart.size, size=chart.size // 2,
+                             replace=False))
+    s = icr_c.implicit_sqrt(dtype=torch.float64)
+    truth = rng.standard_normal(chart.size)
+    y = ((s @ s.T).numpy() @ truth)[obs] + 0.05 * rng.standard_normal(
+        obs.size)
+    post, rep = cg_posterior(icr, obs, y, noise_std=0.25)
+    post_c, rep_c = cg_posterior(icr_c, obs, y, noise_std=0.25)
+    assert rep.ok and rep.rungs == rep_c.rungs and rep.status == rep_c.status
+    mean = icr.apply_sqrt(mats, post.mean).cpu()
+    want = icr_c.apply_sqrt(mats_c, post_c.mean)
+    assert float((mean - want).norm() / want.norm()) < TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_kissgp_matvec_matches_the_cpu(cuda):
+    from repro_torch import KissGP
+
+    xs = np.sort(np.random.default_rng(0).uniform(0, 10, 4096))
+    kfn = kernels.matern32.with_defaults(rho=1.0)()
+    card = KissGP(x=xs, kernel_fn=kfn, jitter=1e-1)
+    cpu = KissGP(x=xs, kernel_fn=kfn, jitter=1e-1, device="cpu")
+    v = np.random.default_rng(1).standard_normal((3, 4096)).astype(
+        np.float32)
+    got = card.matvec(torch.tensor(v, device=cuda))
+    assert got.device.type == "cuda"
+    assert rel(got.cpu(), cpu.matvec(torch.tensor(v))) < TOL["float32"]

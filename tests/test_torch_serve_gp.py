@@ -279,13 +279,17 @@ def test_admission_codes_match_the_jax_server(servers, case):
     assert tsrv.slabs_run == 0 and not treq.fields
 
 
-def test_condition_is_rejected_until_ported():
+def test_condition_is_served_beside_sample_traffic():
+    """The solvers are ported: a condition request is no longer rejected
+    but solved, beside a sample request (``test_torch_serve_condition``
+    holds its answers to the JAX server's)."""
     srv = sg.GPFieldServer(_posterior(), slab=2)
     cond = sg.GPRequest(kind="condition", n=2, y=np.zeros(3),
                         obs_idx=np.arange(3))
     ok = sg.GPRequest(kind="sample", n=1)
     srv.run([cond, ok])
-    assert cond.done and cond.error.code == "condition-not-ported"
+    assert cond.done and cond.error is None and cond.report.ok
+    assert np.array_equal(cond.mean, np.zeros(CHART.final_shape))
     assert ok.error is None and len(ok.fields) == 1
 
 
