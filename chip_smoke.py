@@ -5,6 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --eager-step LABEL=SRC[:fpad] ...`` instead
+times the eager dust fit step of the package under each SRC, one process
+each, to compare two trees in one call: see ``eager_step_ab``.)
+
 Phases (any failure ends the run with a non-zero exit code):
 
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch``
@@ -46,7 +50,20 @@ Phases (any failure ends the run with a non-zero exit code):
    against the same through the plain versions (ξ <= 1e-5; on the
    learned-θ paths the matrix cotangents <= 1e-4 and dρ reported, see
    ``theta_gradient``), and ``ICR.apply_sqrt_T_batch`` on the kernels
-   against autograd of the plain apply at both policies.
+   against autograd of the plain apply at both policies. The fixed-θ
+   fits run compiled (``jit=True``: one captured CUDA graph per step,
+   replayed); the learned-θ ones with ``jit=False`` (their eigh syncs
+   with the host).
+4b. graphs — the compiled paths against the same code run op by op on
+   the card, bit for bit: ``map_fit(jit=True)`` against ``jit=False`` on
+   dust, log and log_polar (10 steps, losses and ξ̂), dust's ADVI fit
+   against its eager twin from the same generator state,
+   ``apply_sqrt_T_batch`` (a replay of its cached graph) against its chain
+   op by op on the four charts at S = 1 and 8 and both policies (and
+   against autograd of the plain apply at the tolerances above), and
+   ``map_fit(jit=True)`` on regular's learned-θ forward, which must raise
+   naming ``jit=False``; every capture holds its kernel nodes to its
+   wrappers' launches (``core/graphs.capture``). One ``graphs`` line.
 5. serve   — ``GPFieldServer(demo_posterior(...), slab=8)`` on each
    chart at both dtype policies serves ``mixed_requests(3, 16)`` cold,
    then warm, the launch counters zeroed just before and read just after
@@ -72,28 +89,42 @@ Phases (any failure ends the run with a non-zero exit code):
    zeroed just before each driven path and read just after (every kernel
    of the forward's plan and of its adjoint must have launched):
    (a) ``cg_posterior`` with 4,096 seeded on-grid observations of a prior
-   draw, σ = 0.25, under its own ``CGConfig``: rungs, iterations, status,
-   the reported relres and the solve's wall ms; matvec milliseconds by
-   CUDA events at k = 1 and 17 and the host time to enqueue one; checked:
-   status ``converged`` or ``dense``, and the residual ‖y − A α‖/‖y‖ of
-   the solve's own α (``cg_posterior``'s ``_solution``) recomputed through
+   draw, σ = 0.25, at its default config (rtol 1e-7, the bar rising to
+   the float32 matvec's rounding δ at each column's own iterate, capped
+   at ``floor_cap``; the report stating rtol, the cap and δ): rungs,
+   iterations, status, the reported relres, the preconditioner's bytes
+   and the solve's wall ms; matvec milliseconds by CUDA events at k = 1
+   and 17 and the host time to enqueue one; checked: status
+   ``converged`` or ``dense``, and the residual ‖y − A α‖/‖y‖ of the
+   solve's own α (``cg_posterior``'s ``_solution``) recomputed through
    the plain versions at float64 on the solve's own matrices
-   (``residuals64``, ``same``) within 10·max(rtol, δ), δ the rounding of
-   one float32 kernel-route matvec at α (no float32 α gets below it:
-   10·rtol alone is not reachable, ``PERF.md``); the residual on
-   matrices built at float64 is printed beside it; (b)
+   (``residuals64``, ``same``) within 10·max(rtol, min(δ, cap)) < 1, δ
+   the rounding of one float32 kernel-route matvec at α; the residual on
+   matrices built
+   at float64 is printed beside it; then the same solve at the JAX
+   package's rtol 1e-7 (``cond_tight``: the CG rungs stall, the dense
+   rung answers); both solves again with their CG segments replayed from
+   captured graphs and run op by op, equal bit for bit in status,
+   iterations and α (``graph_vs_eager``), and one CG iteration's
+   milliseconds and a segment's enqueue each way at k = 1 and 17
+   (``cg_iteration_ms``); (b)
    ``condition_matvec`` on the kernels against the plain route
    (``plain_matvec``) at k = 17, <= 1e-5 at f32 and <= 5e-2 with bf16
    storage; on dust and regular, (c) one served ``kind="condition"``
-   request (n = 16): its mean and (a)'s against each other and against
-   the float64 posterior mean of the same system (``mean64``) within
-   ``COND_MEAN_F64``, its std finite, its ``SolveReport`` in
-   ``metrics()``; (d) the ICR rung at the level-0 basis
-   (``precond_max_basis``) against the unpreconditioned rung on
-   ``charted_gp_dataset``'s pattern (30 %, σ = 0.05, 500 iterations):
-   iterations, status and the float64 residual of each; a rung that
-   reports ``converged`` above 10·rtol on its own matrices fails the
-   run.
+   request (n = 16) at rtol 1e-7: its mean and (a)'s at rtol 1e-7
+   against each other and against the float64 posterior mean of the same
+   system (``mean64``) within ``COND_MEAN_F64``, its std finite, its
+   ``SolveReport`` in ``metrics()``; (e) on ``charted_gp_dataset``'s
+   pattern (30 %, σ = 0.05: 314,572 observations) ``cg_posterior`` and a
+   served request at their default configs must answer, α's float64
+   residual within 10·max(rtol, min(δ, cap)) < 1, with the device bytes
+   of the preconditioner and of the server's cached system beside it;
+   each line ends with the bytes the card still holds once the chart's
+   systems are dropped; (d) on that pattern the ICR rung at
+   the level-0 basis (the default system's preconditioner) against the
+   unpreconditioned rung (500 iterations): iterations, status and the
+   float64 residual of each; a rung that reports ``converged`` above
+   10·rtol on its own matrices fails the run.
 7. times   — per kernel at its chart's largest level (the pyramid at
    regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
    per-level kernels it replaces beside it):
@@ -106,9 +137,10 @@ Phases (any failure ends the run with a non-zero exit code):
    route's axis-0 shape (``shape.nd_axes``); the
    byte/operation bound; whole-path milliseconds per chart with the
    pyramid on and off; per level of each chart at float32, the torch glue
-   against the kernels, forward and backward; and one training step's
-   milliseconds (forward, backward and update) per path, with its host
-   enqueue time.
+   against the kernels, forward and backward, and ``apply_sqrt_T_batch``
+   replayed and op by op with the host enqueue of each; and one training
+   step's milliseconds (forward, backward and update) per path, with its
+   host enqueue time, op by op and, at fixed θ, as one graph replay.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -119,6 +151,7 @@ and convolutions run without TF32 throughout.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import statistics
@@ -929,9 +962,11 @@ def check_train(problems, gen) -> tuple:
     for cname, p in problems.items():
         icr = p["icr"]
         build.LAUNCHES.clear()
+        # a learned-θ forward rebuilds the matrices, whose eigh syncs
+        # with the host: it cannot be captured, and runs op by op
         fit, losses = map_fit(p["ll"], p["forward"], p["params"], p["y"],
                               steps=20 if cname == "dust" else 10,
-                              lr=p["lr"])
+                              lr=p["lr"], jit=cname not in THETA_PATHS)
         entry = {"map_losses": [float(v) for v in losses]}
         if cname == "dust":
             _, elbos = advi_fit(
@@ -1003,6 +1038,138 @@ def check_train(problems, gen) -> tuple:
                 raise AssertionError(f"{cname} {pol}: apply_sqrt_T relative "
                                      f"error {err:.3g} > {tol}")
     return launches, report
+
+
+GRAPH_FITS = ("dust", "log", "log_polar")   # the fixed-θ training paths
+GRAPH_STEPS = 10
+
+
+def same_bits(a, b) -> bool:
+    """Every tensor of `a` equal to its counterpart in `b`, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.policy import tree_leaves
+
+    a, b = tree_leaves(a), tree_leaves(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_graphs(problems, models, gen) -> tuple:
+    """Phase 4b: the compiled paths as CUDA graphs, each held bit for bit
+    against the same code run op by op on the card: ``map_fit(jit=True)``
+    against ``jit=False`` on dust, log and log_polar (losses and ξ̂, 10
+    steps), the dust ADVI fit against its eager twin from the same
+    generator state, ``apply_sqrt_T_batch`` (a replay of its cached graph)
+    against its op-by-op chain on the four charts at S = 1 and 8 and both
+    dtype policies (and against autograd of the plain apply at 1e-5 /
+    5e-2), and ``map_fit(jit=True)`` on regular's learned-θ forward, which
+    must raise and name ``jit=False``. Every capture checks that its
+    kernel nodes equal its wrappers' launches; every graphed path must
+    launch the kernels its chart reaches, the counters zeroed just before
+    and read just after. Returns ``(launches, record)``."""
+    import torch
+
+    from repro_torch import ICR, advi_fit, map_fit
+    from repro_torch.core import graphs
+    from repro_torch.kernels import build
+
+    launches = {k: 0 for k in KERNEL_INFO}
+
+    def read(what, reaches):
+        torch.cuda.synchronize()
+        counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+        silent = [k for k in reaches if counts[k] == 0]
+        if silent:
+            raise AssertionError(f"graphs {what}: kernels never launched: "
+                                 f"{silent}")
+        for k, n in counts.items():
+            launches[k] += n
+        return counts
+
+    record = {"fits": {}, "apply_sqrt_T": {}}
+    for cname in GRAPH_FITS:
+        p = problems[cname]
+        args = (p["ll"], p["forward"], p["params"], p["y"])
+        build.LAUNCHES.clear()
+        fit_g, loss_g = map_fit(*args, steps=GRAPH_STEPS, lr=p["lr"])
+        counts = read(f"{cname} map_fit", TRAIN_REACHES[cname])
+        fit_e, loss_e = map_fit(*args, steps=GRAPH_STEPS, lr=p["lr"],
+                                jit=False)
+        entry = {"losses_equal": same_bits(loss_g, loss_e),
+                 "xi_equal": same_bits(fit_g, fit_e),
+                 "launches": counts}
+        if cname == "dust":
+            icr, m = p["icr"], p["mats"]
+
+            def fwd(xi, icr=icr, m=m):
+                return icr.apply_sqrt_batch(m, xi)
+
+            gen.manual_seed(41)
+            build.LAUNCHES.clear()
+            q_g, elbo_g = advi_fit(gen, p["ll"], fwd, icr.zero_xi(), p["y"],
+                                   steps=GRAPH_STEPS)
+            read("dust advi_fit", TRAIN_REACHES[cname])
+            gen.manual_seed(41)
+            with graphs.eager():
+                q_e, elbo_e = advi_fit(gen, p["ll"], fwd, icr.zero_xi(),
+                                       p["y"], steps=GRAPH_STEPS)
+            entry.update(advi_elbos_equal=same_bits(elbo_g, elbo_e),
+                         advi_params_equal=same_bits(q_g, q_e))
+        record["fits"][cname] = entry
+        if not all(v for k, v in entry.items() if k != "launches"):
+            raise AssertionError(f"graphs {cname}: the graphed fit differs "
+                                 f"from the eager one: {entry}")
+
+    for cname, (icr0, _, _) in models.items():
+        for pol in (None, "bf16"):
+            icr = ICR(icr0.chart, icr0.kernel, use_pallas=True,
+                      dtype_policy=pol)
+            m = icr.matrices()
+            dt = icr.policy.storage_dtype
+            tol = TOL["float32" if pol is None else "bfloat16"]
+            for n_s in (1, S):
+                gen.manual_seed(43)
+                v = torch.randn((n_s,) + icr.out_shape, generator=gen,
+                                device="cuda").to(dt)
+                build.LAUNCHES.clear()
+                first = icr.apply_sqrt_T_batch(m, v)    # captures
+                again = icr.apply_sqrt_T_batch(m, v)    # replays
+                read(f"{cname} apply_sqrt_T", ())
+                want = icr.apply_sqrt_T_batch(m, v, cached=False)
+                zero = [torch.zeros((n_s,) + s, dtype=dt, device="cuda",
+                                    requires_grad=True)
+                        for s in icr.xi_shapes()]
+                plain = torch.autograd.grad(plain_apply(icr, m, zero), zero,
+                                            v)
+                entry = {"equal": same_bits(first, want)
+                         and same_bits(again, want),
+                         "graphs": len(icr._sqrt_T_graphs),
+                         "plain_max_rel_err": max_rel(first, plain)}
+                record["apply_sqrt_T"][f"{cname}-{pol or 'fp32'}-S{n_s}"] = \
+                    entry
+                if not (entry["equal"]
+                        and entry["plain_max_rel_err"] <= tol):
+                    raise AssertionError(f"graphs {cname} {pol} S={n_s}: "
+                                         f"apply_sqrt_T {entry}")
+            del icr, m
+
+    # a learned-θ forward syncs with the host (eigh): the capture raises
+    p = problems["regular"]
+    try:
+        map_fit(p["ll"], p["forward"], p["params"], p["y"], steps=2,
+                lr=p["lr"])
+    except RuntimeError as exc:
+        record["learned_theta_raises"] = str(exc)[:240]
+        if "jit=False" not in str(exc) or "ROADMAP" not in str(exc):
+            raise AssertionError(f"graphs: the learned-θ capture raised "
+                                 f"without naming jit=False: {exc}")
+    else:
+        raise AssertionError("graphs: map_fit(jit=True) on a learned-θ "
+                             "forward did not raise")
+    torch.cuda.synchronize()
+    record["launches"] = launches
+    return launches, record
 
 
 def per_level_chain(field, geoms, levels) -> list:
@@ -1351,38 +1518,57 @@ def level_split(models, flush, gen) -> dict:
 
 
 def train_step_times(problems, flush) -> dict:
-    """One float32 training step per chart (loss, backward through the
-    kernels, AdamW update): CUDA-event milliseconds and host enqueue, and
+    """One float32 fit step per chart (``core/vi._fit_step``: the loss,
+    the backward through the kernels, AdamW in place, the loss into its
+    buffer), op by op: CUDA-event milliseconds and host enqueue, and
     where they go: the loss alone (forward, recording the graph), the
-    update alone, and the backward as the rest."""
+    update alone, and the backward as the rest; and on the fixed-θ paths
+    the same step as one replay of its captured CUDA graph (``graph_*``;
+    null where θ is learned: that step cannot be captured)."""
     import torch
 
     from repro_torch import neg_log_joint
+    from repro_torch.core import graphs, vi
     from repro_torch.kernels.policy import tree_leaves
     from repro_torch.optim import adamw, linear_warmup_cosine
 
     out = {}
     for cname, p in problems.items():
-        params = _trainable(p["params"])
+        loss_fn = neg_log_joint(p["ll"], p["forward"])
+
+        def fit_step(loss_fn=loss_fn, y=p["y"]):
+            params = _trainable(p["params"])
+            # far more steps than any timing runs: the loss buffer's index
+            # stays in range
+            step, _ = vi._fit_step(lambda q: loss_fn(q, y), params, 10_000,
+                                   p["lr"])
+            return params, step
+
+        params, step = fit_step()
         leaves = tree_leaves(params)
         opt = adamw(linear_warmup_cosine(p["lr"], 2, 20))
-        loss_fn = neg_log_joint(p["ll"], p["forward"])
 
         def loss(params=params, loss_fn=loss_fn, y=p["y"]):
             return loss_fn(params, y)
 
-        def step(leaves=leaves, opt=opt, loss=loss):
-            opt.update(torch.autograd.grad(loss(), leaves), leaves)
-
         grads = torch.autograd.grad(loss(), leaves)
         step_ms, loss_ms = time_ms(step, flush), time_ms(loss, flush)
         update_ms = time_ms(lambda: opt.update(grads, leaves), flush)
-        out[cname] = {"train_step_ms": step_ms,
-                      "train_step_enqueue_ms": enqueue_ms(step),
-                      "loss_ms": loss_ms, "update_ms": update_ms,
-                      "backward_ms": step_ms - loss_ms - update_ms,
-                      "points": p["icr"].chart.size,
-                      "learns_theta": cname in THETA_PATHS}
+        entry = {"train_step_ms": step_ms,
+                 "train_step_enqueue_ms": enqueue_ms(step),
+                 "loss_ms": loss_ms, "update_ms": update_ms,
+                 "backward_ms": step_ms - loss_ms - update_ms,
+                 "graph_step_ms": None, "graph_step_enqueue_ms": None,
+                 "points": p["icr"].chart.size,
+                 "learns_theta": cname in THETA_PATHS}
+        if cname not in THETA_PATHS:
+            _, gstep = fit_step()
+            replay = graphs.capture(gstep, device="cuda")
+            entry.update(graph_step_ms=time_ms(replay, flush),
+                         graph_step_enqueue_ms=enqueue_ms(replay),
+                         graph_kernel_nodes=sum(replay.launches.values()))
+            del replay
+        out[cname] = entry
     return out
 
 
@@ -1559,8 +1745,10 @@ COND_SERVED = ("dust", "regular")
 # against the float64 posterior mean of the same system (``mean64``):
 # 10x the largest reading of a sound run, 1.8e-5 (dust; both solves end
 # on the dense rung; NVIDIA H100 80GB HBM3 at 700 W, PERF.md §5).
-# The float32 mean field amplifies α's rounding some 250x, so two float32
-# means of one system at different widths do not meet 1e-5 there
+# The float32 correction K Wᵀ α sums Sᵀ over Wᵀα's cancelling entries in
+# float32: from the exact α it sits 2.8e-6 (dust) and 7.9e-6 (regular)
+# from the float64 mean, and α's own float32 floor adds to that, so two
+# float32 means of one system do not meet 1e-5 on dust
 COND_MEAN_F64 = 2e-4
 
 
@@ -1590,11 +1778,14 @@ def plain_matvec(icr, mats, op, noise_var, v):
 
 
 def residuals64(icr, mats, mats64, op, noise_var, x, y, matvec,
-                rtol) -> dict:
+                rtol, cap: float = 0.0) -> dict:
     """The residual ‖y − A64 x‖/‖y‖ of a float32 solution `x` (1, n_obs),
     A64 applied through the plain versions at float64, beside δ =
     ‖A32 x − A64 x‖/‖y‖, the float32 kernel-route operator's (`matvec`)
-    own distance from A64 at x, and 10·max(rtol, δ). A64 is built two
+    own distance from A64 at x, and the bound 10·max(rtol, δ), δ capped
+    at `cap` where the solve's ``CGConfig.floor_cap`` is above 0 (so the
+    bound is at most 10·cap and x = 0, whose residual is 1, fails it).
+    A64 is built two
     ways: from the solve's own float32 matrices at float64 (``same``, the
     checked one: δ is then the rounding of one float32 matvec at x, the
     floor under which no float32 solution holds its residual) and, for
@@ -1615,8 +1806,9 @@ def residuals64(icr, mats, mats64, op, noise_var, x, y, matvec,
         with torch.no_grad():
             a64 = plain_matvec(icr, m, op, noise_var, x.double())
         delta = float(torch.linalg.vector_norm(a32 - a64)) / ny
+        held = min(delta, cap) if cap > 0 else delta
         out[key] = {"residual": float(torch.linalg.vector_norm(a64 - yd))
-                    / ny, "delta": delta, "bound": 10 * max(rtol, delta)}
+                    / ny, "delta": delta, "bound": 10 * max(rtol, held)}
     return out
 
 
@@ -1659,23 +1851,25 @@ def condition_reaches(chart, samples) -> set:
 def condition_case(cname, chart, kernel, flush, card,
                    device="cuda") -> tuple:
     """Phase 6 on one chart, float32: (a) ``cg_posterior`` on 4,096
-    seeded on-grid observations of a prior draw at σ = 0.25, its residual
-    recomputed at float64 through the plain versions; (b) the kernel
-    route's matvec against the plain route at k = 17, f32 and bf16; on
-    dust and regular (c) one served ``kind="condition"`` request (n = 16)
-    whose mean is held to (a)'s and to the float64 posterior mean, and
-    (d) the ICR rung at the level-0 basis
-    against the unpreconditioned rung on the training data's pattern.
-    Returns ``(launches, record)``."""
+    seeded on-grid observations of a prior draw at σ = 0.25 at its
+    default config, its residual recomputed at float64 through the plain
+    versions, then at the JAX package's rtol 1e-7 (the dense rung's α);
+    both solves again with their CG segments replayed and op by op, bit
+    for bit, and one CG iteration's ms each way; (b) the kernel route's
+    matvec against the plain route at k = 17, f32 and bf16; on dust and
+    regular (c) one served ``kind="condition"`` request (n = 16) at rtol
+    1e-7 whose mean is held to (a)'s and to the float64 posterior mean,
+    (e) ``cg_posterior`` and a served request at their default configs on
+    the training data's pattern (314,572 observations), and (d) the ICR
+    rung at the level-0 basis against the unpreconditioned rung on that
+    pattern. Returns ``(launches, record)``."""
     import numpy as np
     import torch
 
     from repro_torch import ICR, cg_posterior, charted_gp_dataset
     from repro_torch.kernels import build
     from repro_torch.launch import serve_gp as sg
-    from repro_torch.solvers import (CGConfig, build_condition_system,
-                                     condition_matvec, obs_operator,
-                                     solve_guarded)
+    from repro_torch.solvers import CGConfig, condition_matvec, solve_guarded
 
     sync = (torch.cuda.synchronize if device == "cuda" else lambda: None)
     post = sg.demo_posterior(chart, kernel.default_theta["rho"],
@@ -1706,35 +1900,61 @@ def condition_case(cname, chart, kernel, flush, card,
         for k, n in counts.items():
             launches[k] += n
 
-    # (a) the entry point, the launch counters zeroed just before; the
-    # residual of its own α, recomputed at float64 through the plain
-    # versions on the solve's own matrices
+    # (a) the entry point at its default config (rtol from the matvec's
+    # rounding), the launch counters zeroed just before; the residual of
+    # its own α, recomputed at float64 through the plain versions on the
+    # solve's own matrices
     sync()
     build.LAUNCHES.clear()
     t0 = time.perf_counter()
     solution = {}
-    post_a, rep = cg_posterior(icr, obs_np, y, noise_std=COND_NOISE,
-                               _solution=solution)
+    _, rep = cg_posterior(icr, obs_np, y, noise_std=COND_NOISE,
+                          _solution=solution)
     sync()
     solve_ms = (time.perf_counter() - t0) * 1e3
     reached("cg_posterior", 1)
     if rep.status[0] not in ("converged", "dense"):
         raise AssertionError(f"condition {cname}: cg_posterior ended "
                              f"{rep.summary()}")
-    system, alpha, rtol = (solution["system"], solution["alpha"],
-                           solution["cfg"].rtol)
+    system, alpha = solution["system"], solution["alpha"]
     op = system.obs
-    with torch.no_grad():
-        mean_a = icr.apply_sqrt(mats, post_a.mean).reshape(-1)
     residuals = residuals64(icr, mats, mats64, op, noise_var, alpha, y,
-                            system.matvec, rtol)
-    if not residuals["same"]["residual"] <= residuals["same"]["bound"]:
+                            system.matvec, rep.rtol, rep.floor_cap)
+    if not (residuals["same"]["residual"] <= residuals["same"]["bound"]
+            < 1.0 and rep.floor_cap > 0 and rep.delta is not None):
         raise AssertionError(f"condition {cname}: float64 residual "
-                             f"{residuals}")
+                             f"{residuals}, report {rep.summary()}")
+
+    # the same solve at the JAX package's rtol 1e-7, under float32's floor:
+    # the CG rungs stall and the dense rung answers at float64; the mean
+    # fields are held with this α
+    tight = cond_tight(n_obs)
+    sol_t = {}
+    post_t, rep_t = cg_posterior(icr, obs_np, y, noise_std=COND_NOISE,
+                                 config=tight, _solution=sol_t)
+    residuals_t = residuals64(icr, mats, mats64, op, noise_var,
+                              sol_t["alpha"], y, system.matvec, tight.rtol)
+    if (rep_t.status[0] not in ("converged", "dense")
+            or not (residuals_t["same"]["residual"]
+                    <= residuals_t["same"]["bound"])):
+        raise AssertionError(f"condition {cname}: cg_posterior at rtol "
+                             f"1e-7 ended {rep_t.summary()}, float64 "
+                             f"residual {residuals_t}")
+    with torch.no_grad():
+        mean_a = icr.apply_sqrt(mats, post_t.mean).reshape(-1)
+
+    # graphed CG segments against eager ones: both solves again, bit for
+    # bit; one CG iteration's ms and a segment's enqueue at k = 1 and 17
+    yb = y.reshape(1, -1)
+    graphed = {"default": graph_vs_eager(system, yb, solution["cfg"],
+                                         cname, sync),
+               "rtol_1e-7": graph_vs_eager(system, yb, tight, cname, sync)}
+    vk = torch.randn((COND_K, n_obs), generator=gen, device=device)
+    for b in (yb, vk):
+        graphed[f"k{b.shape[0]}"] = cg_iteration_ms(system, b, flush)
 
     # matvec times by CUDA events, k = 1 and 17, and one matvec's enqueue
     v1 = torch.randn((1, n_obs), generator=gen, device=device)
-    vk = torch.randn((COND_K, n_obs), generator=gen, device=device)
     times = {"matvec_k1_ms": time_ms(lambda: system.matvec(v1), flush),
              f"matvec_k{COND_K}_ms": time_ms(lambda: system.matvec(vk),
                                              flush),
@@ -1755,15 +1975,20 @@ def condition_case(cname, chart, kernel, flush, card,
                                  f"the plain route {parity[key]:.3g} > {tol}")
     del icr_bf
     record = {"chart": cname, "n_obs": n_obs, "noise_std": COND_NOISE,
-              "rtol": rtol, "report": rep.summary(),
-              "relres_reported": rep.relres[0], "solve_ms": solve_ms,
-              "residual_f64": residuals, **times,
-              "matvec_vs_plain_rel": parity}
+              "rtol": rep.rtol, "floor_cap": rep.floor_cap,
+              "delta": rep.delta,
+              "precond_bytes": getattr(system.precond, "nbytes", 0),
+              "report": rep.summary(), "relres_reported": rep.relres[0],
+              "solve_ms": solve_ms, "residual_f64": residuals,
+              "report_rtol_1e-7": rep_t.summary(),
+              "residual_f64_rtol_1e-7": residuals_t, "graphs": graphed,
+              **times, "matvec_vs_plain_rel": parity}
 
     if srv is not None:
-        # (c) one served request on (a)'s system (column 0 y, 16 Matheron
-        # columns): its mean against (a)'s, and both against the float64
-        # posterior mean of the same system and matrices
+        # (c) one served request on (a)'s system at rtol 1e-7 (column 0 y,
+        # 16 Matheron columns): its mean against (a)'s, and both against
+        # the float64 posterior mean of the same system and matrices
+        srv.solver_config = tight
         req = sg.GPRequest(kind="condition", n=COND_K - 1, seed=5,
                            y=y.cpu().numpy(), obs_idx=obs_np,
                            noise_std=COND_NOISE)
@@ -1784,7 +2009,7 @@ def condition_case(cname, chart, kernel, flush, card,
             return float(torch.linalg.vector_norm(got - want)
                          / torch.linalg.vector_norm(want))
 
-        want, res64, alpha64 = mean64(system, mats, alpha, y)
+        want, res64, alpha64 = mean64(system, mats, sol_t["alpha"], y)
         with torch.no_grad():
             # the float32 correction alone, from the float64 α
             corr = system.correct(alpha64.float()).reshape(-1)
@@ -1807,25 +2032,77 @@ def condition_case(cname, chart, kernel, flush, card,
                                  f"{bool(np.isfinite(req.std).all())}, "
                                  f"reports {len(reports)}")
         record["served"] = served
+        srv.solver_config = None
 
-        # (d) the ICR rung at the level-0 basis on the training pattern
+        # (e) on the training data's pattern (30 %, σ = 0.05: 314,572
+        # observations), past the dense rung's reach: cg_posterior and a
+        # served request at their default configs must answer, α's float64
+        # residual within 10·max(rtol, δ), the report stating both
         gen.manual_seed(21)
         _, obs_d, y_d = charted_gp_dataset(icr, gen, obs_frac=OBS_FRAC,
                                            noise_std=NOISE)
-        op_d = obs_operator(icr, obs_idx=obs_d.cpu().numpy())
-        level0 = icr.xi_shapes()[0][0]
-        t0 = time.perf_counter()
-        sys_d = build_condition_system(icr, op_d, NOISE ** 2,
-                                       precond_max_basis=level0)
+        obs_d_np = obs_d.cpu().numpy()
         sync()
-        rungs = {"n_obs": op_d.n_obs, "basis": level0,
-                 "precond_build_ms": (time.perf_counter() - t0) * 1e3}
+        t0 = time.perf_counter()
+        sol_e = {}
+        _, rep_e = cg_posterior(icr, obs_d_np, y_d, noise_std=NOISE,
+                                _solution=sol_e)
+        sync()
+        ms_e = (time.perf_counter() - t0) * 1e3
+        sys_d = sol_e["system"]
+        op_d = sys_d.obs
+        res_e = residuals64(icr, mats, mats64, op_d, NOISE ** 2,
+                            sol_e["alpha"], y_d, sys_d.matvec, rep_e.rtol,
+                            rep_e.floor_cap)
+        held0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+        req_e = sg.GPRequest(kind="condition", n=COND_K - 1, seed=7,
+                             y=y_d.cpu().numpy(), obs_idx=obs_d_np,
+                             noise_std=NOISE)
+        sync()
+        t0 = time.perf_counter()
+        srv.run([req_e])
+        sync()
+        served_sys = list(srv._cond_cache.values())
+        default = {"n_obs": op_d.n_obs, "solve_ms": ms_e,
+                   "report": rep_e.summary(), "residual_f64": res_e,
+                   "served_ms": (time.perf_counter() - t0) * 1e3,
+                   # device memory: the entry point's system (U and the
+                   # factor of its preconditioner), and what the served
+                   # request's cached system added on the card
+                   "precond_bytes": getattr(sys_d.precond, "nbytes", 0),
+                   "served_systems": len(served_sys),
+                   "served_precond_bytes": sum(
+                       getattr(q.precond, "nbytes", 0) for q in served_sys),
+                   "served_added_bytes": (
+                       torch.cuda.memory_allocated() - held0
+                       if device == "cuda" else 0),
+                   "served_segment_graphs": sum(
+                       len(q.graphs) for q in served_sys),
+                   "served_error": (None if req_e.error is None
+                                    else req_e.error.code),
+                   "served_report": (req_e.report.summary()
+                                     if req_e.report is not None else None)}
+        record["default_314k"] = default
+        if (rep_e.status[0] not in ("converged", "dense")
+                or not (res_e["same"]["residual"]
+                        <= res_e["same"]["bound"] < 1.0)
+                or rep_e.floor_cap <= 0 or rep_e.delta is None
+                or not req_e.done or req_e.error is not None
+                or req_e.report.delta is None):
+            raise AssertionError(f"condition {cname}: the default solve "
+                                 f"on {op_d.n_obs} observations: {default}")
+
+        # (d) the ICR rung at the level-0 basis (the default system's
+        # preconditioner) against the unpreconditioned rung on that pattern
+        level0 = icr.xi_shapes()[0][0]
+        rungs = {"n_obs": op_d.n_obs, "basis": level0}
         cfg_d = CGConfig(max_iters=500)
         for name, pc in (("icr", sys_d.precond), ("none", None)):
             t0 = time.perf_counter()
             x, rep_d = solve_guarded(sys_d.matvec, y_d[None],
                                      preconds=[(name, pc)], cfg=cfg_d,
-                                     tag=f"rung:{name}")
+                                     tag=f"rung:{name}",
+                                     segment_graphs=sys_d.graphs)
             sync()
             ms = (time.perf_counter() - t0) * 1e3
             res_d = residuals64(icr, mats, mats64, op_d, NOISE ** 2, x,
@@ -1840,22 +2117,97 @@ def condition_case(cname, chart, kernel, flush, card,
                            "relres_reported": rep_d.relres[0],
                            "residual_f64": res_d, "solve_ms": ms}
         record["icr_rung"] = rungs
-        del sys_d
+        del sys_d, sol_e
     record["card"] = card
-    del srv, post, mats64
+    del srv, post, mats64, system, solution, sol_t
     if device == "cuda":
         torch.cuda.empty_cache()
     return launches, record
 
 
+def cond_tight(n_obs: int):
+    """The JAX package's default ``CGConfig`` (rtol 1e-7): under float32's
+    floor at full width, so every CG rung stalls and, up to ``dense_max``
+    observations, the dense rung answers at float64."""
+    from repro_torch.solvers import CGConfig
+
+    return CGConfig(rtol=1e-7, max_iters=max(4 * n_obs, 200))
+
+
+def graph_vs_eager(system, b, cfg, tag, sync) -> dict:
+    """One solve of `b` on `system` down its ladder at `cfg`, its CG
+    segments replayed from the system's captured graphs and then run op by
+    op: the wall ms of each, and status, iterations and x, which must
+    agree bit for bit (the on-grid matvec is deterministic)."""
+    from repro_torch.core import graphs
+    from repro_torch.solvers import solve_guarded
+
+    ladder = ([("icr", system.precond)] if system.precond is not None
+              else []) + [("none", None)]
+    out, runs = {}, {}
+    for name, mode in (("graph", contextlib.nullcontext),
+                       ("eager", graphs.eager)):
+        sync()
+        t0 = time.perf_counter()
+        with mode():
+            runs[name] = solve_guarded(
+                system.matvec, b, preconds=ladder, cfg=cfg,
+                dense_solve=system.dense_solve, tag=tag,
+                segment_graphs=system.graphs)
+        sync()
+        out[f"solve_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    (xg, rg), (xe, re_) = runs["graph"], runs["eager"]
+    out.update(rungs=list(rg.rungs), status=list(rg.status),
+               iterations=list(rg.iterations),
+               graph_equals_eager=(rg.status == re_.status
+                                   and rg.iterations == re_.iterations
+                                   and same_bits(xg, xe)))
+    if not out["graph_equals_eager"]:
+        raise AssertionError(f"condition {tag}: the graphed solve differs "
+                             f"from the eager one: {rg.summary()} against "
+                             f"{re_.summary()}")
+    return out
+
+
+def cg_iteration_ms(system, b, flush) -> dict:
+    """Milliseconds of one CG iteration on the system's first rung at
+    ``b.shape[0]`` columns (CUDA events over a segment of ``pcg.SEGMENT``
+    iterations, divided), replayed from its captured graph and op by op,
+    with the host time to enqueue a segment each way."""
+    from repro_torch.core import graphs
+    from repro_torch.solvers import CGConfig, pcg
+
+    cfg = CGConfig(rtol=1e-7, max_iters=10**9)
+    carry = pcg._pcg_init(system.matvec, b, system.precond, cfg)
+    out = {"rung": "none" if system.precond is None else "icr"}
+    for name, mode in (("graph", contextlib.nullcontext),
+                       ("eager", graphs.eager)):
+        runner = pcg._iterations(system.matvec, system.precond, cfg, carry,
+                                 {})
+
+        def segment(runner=runner, mode=mode):
+            with mode():
+                runner.advance(pcg.SEGMENT)
+
+        out[f"iteration_{name}_ms"] = time_ms(segment, flush) / pcg.SEGMENT
+        out[f"segment_{name}_enqueue_ms"] = enqueue_ms(segment)
+    return out
+
+
 def check_condition(flush, card) -> dict:
     """Phase 6: the data-conditioned solve on the four charts; one
     ``condition`` line per chart. Returns the launches."""
+    import torch
+
     launches = {k: 0 for k in KERNEL_INFO}
     for cname, (chart, kernel) in charts().items():
         counts, rec = condition_case(cname, chart, kernel, flush, card)
         for k, n in counts.items():
             launches[k] += n
+        # what the card still holds once the chart's systems, server and
+        # graphs are dropped
+        rec["allocated_after_bytes"] = torch.cuda.memory_allocated()
+        rec["reserved_after_bytes"] = torch.cuda.memory_reserved()
         print("condition: " + json.dumps(rec), flush=True)
     return launches
 
@@ -1928,6 +2280,14 @@ def main() -> int:
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # -- 4b. the compiled paths as CUDA graphs, against eager ---------------
+    graph_launches, graph_record = check_graphs(problems, models, gen)
+    for k, n in graph_launches.items():
+        launches[k] += n
+    print("graphs: " + json.dumps(graph_record), flush=True)
+    print(f"phase 4b done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     # -- 5. serving: one CUDA graph per slab ------------------------------------
     flush = torch.empty(512 * 2**20, dtype=torch.float32, device="cuda")
     serve_launches, serve = check_serve(flush, bandwidth, card)
@@ -1971,7 +2331,22 @@ def main() -> int:
                             dtype_policy=pol, use_pyramid=False)
             gen.manual_seed(11)
             xi = icr.init_xi(gen, batch=S)
+            v = torch.randn((S,) + icr.out_shape, generator=gen,
+                            device="cuda").to(icr.policy.storage_dtype)
+
+            def sqrt_t(icr=icr, m=m, v=v):
+                return icr.apply_sqrt_T_batch(m, v)
+
+            def sqrt_t_eager(icr=icr, m=m, v=v):
+                return icr.apply_sqrt_T_batch(m, v, cached=False)
+
             whole[f"{cname}-{pol or 'fp32'}"] = {
+                # the transpose: a replay of its cached graph (input copy
+                # and output copies included) against the chain op by op
+                "apply_sqrt_T_graph_ms": time_ms(sqrt_t, flush),
+                "apply_sqrt_T_eager_ms": time_ms(sqrt_t_eager, flush),
+                "apply_sqrt_T_graph_enqueue_ms": enqueue_ms(sqrt_t),
+                "apply_sqrt_T_eager_enqueue_ms": enqueue_ms(sqrt_t_eager),
                 "apply_ms": time_ms(lambda: icr.apply_sqrt_batch(m, xi),
                                     flush),
                 "apply_per_level_ms": time_ms(
@@ -2002,5 +2377,98 @@ def main() -> int:
     return 0
 
 
+# fit steps per timed call of the eager-step comparison
+EAGER_STEPS = 20
+
+
+def eager_step_one(src: str, variant: str) -> dict:
+    """The eager dust fixed-θ fit (``map_fit``, op by op) of the package
+    under `src`: ms per step by CUDA events and its host enqueue, and the
+    loss alone and the loss with its gradient, each way. ``fpad`` swaps
+    ``reflect_pad`` for F.pad alone (``core.refine._pad``) in every module
+    that calls it."""
+    import importlib
+    import inspect
+
+    import torch
+
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import (ICR, charted_gp_dataset,
+                             gaussian_log_likelihood, map_fit, neg_log_joint)
+    from repro_torch.kernels import build
+
+    build.build()
+    for lib in build.SIGNATURES:
+        build.library(lib)
+    if variant == "fpad":
+        from repro_torch.core import refine
+
+        for name in ("core.refine", "kernels.dispatch", "kernels.pyramid",
+                     "kernels.nd", "kernels.nd_fused"):
+            importlib.import_module("repro_torch." + name).reflect_pad = (
+                refine._pad)
+    chart, kernel = charts()["dust"]
+    icr = ICR(chart, kernel, use_pallas=True)
+    mats = icr.matrices()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    _, obs_idx, y = charted_gp_dataset(icr, gen, obs_frac=OBS_FRAC,
+                                       noise_std=NOISE)
+    ll = gaussian_log_likelihood(NOISE, obs_idx)
+
+    def fwd(xi):
+        return icr.apply_sqrt(mats, xi)
+
+    loss_fn = neg_log_joint(ll, fwd)
+    xi = [x.clone().requires_grad_(True) for x in icr.zero_xi()]
+    kw = ({"jit": False} if "jit" in inspect.signature(map_fit).parameters
+          else {})
+
+    def loss():
+        return loss_fn(xi, y)
+
+    def grad():
+        return torch.autograd.grad(loss_fn(xi, y), xi)
+
+    def fit():
+        return map_fit(ll, fwd, icr.zero_xi(), y, steps=EAGER_STEPS,
+                       lr=3e-2, **kw)
+
+    flush = torch.empty(512 * 2**20, dtype=torch.float32, device="cuda")
+    return {"variant": variant, "loss_ms": time_ms(loss, flush),
+            "loss_enqueue_ms": enqueue_ms(loss),
+            "loss_grad_ms": time_ms(grad, flush),
+            "loss_grad_enqueue_ms": enqueue_ms(grad),
+            "step_ms": time_ms(fit, flush) / EAGER_STEPS,
+            "step_enqueue_ms": enqueue_ms(fit) / EAGER_STEPS}
+
+
+def eager_step_ab(specs) -> int:
+    """``--eager-step LABEL=SRC[:fpad] ...``: the eager dust fit step of
+    each package in turn (list them as parent, change, change, parent to
+    see the drift), one process each; prints one ``eager_step`` line per
+    run and the card."""
+    for spec in specs:
+        label, _, rest = spec.partition("=")
+        src, _, variant = rest.partition(":")
+        run = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--eager-step-one", src, variant or "as-is"],
+            capture_output=True, text=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            return 1
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+        print("eager_step: " + json.dumps({"label": label, **rec}),
+              flush=True)
+    print(card_line())
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--eager-step"]:
+        sys.exit(eager_step_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--eager-step-one"]:
+        print(json.dumps(eager_step_one(*sys.argv[2:4])))
+        sys.exit(0)
     sys.exit(main())

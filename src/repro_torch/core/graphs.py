@@ -20,7 +20,12 @@ The captured region must not sync with the host (no ``.item()``,
 that changes: build everything else (matrices, tables) before capture.
 On a CUDA device a failed capture raises; there is no eager fallback. On
 a CPU device (only when the caller asks for it) ``replay`` calls ``fn``
-eagerly on the buffers.
+eagerly on the buffers, and so it does on the card inside ``with
+eager():``, the one switch that runs every captured path of the port op
+by op (to hold graph against eager, bit for bit).
+
+``lru`` is the bounded cache the captured paths (and the server's
+caches) keep their entries in.
 
 Launch counts (``kernels.build.LAUNCHES``): capturing records launches
 without running them, so the counts the wrappers add during capture are
@@ -33,13 +38,48 @@ each node once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import re
 from typing import Callable
 
 import torch
 
-__all__ = ["capture", "graph_kernel_nodes", "wrapper_of_kernel"]
+__all__ = ["capture", "eager", "eager_mode", "graph_kernel_nodes", "lru",
+           "wrapper_of_kernel"]
+
+_EAGER = False   # True inside ``eager()``
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block ``capture`` returns the eager callable on every
+    device, as on the CPU, and the caches of captured paths are bypassed:
+    the captured paths' op-by-op twins, for comparisons."""
+    global _EAGER
+    before, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = before
+
+
+def eager_mode() -> bool:
+    """Whether ``eager()`` is in force."""
+    return _EAGER
+
+
+def lru(cache: dict, key, make: Callable, size: int):
+    """``cache[key]``, made by ``make()`` if it is missing, as the most
+    recently used entry; the least recently used beyond `size` are
+    dropped (a dict keeps insertion order)."""
+    value = cache.pop(key, None)
+    if value is None:
+        value = make()
+    cache[key] = value
+    while len(cache) > size:
+        cache.pop(next(iter(cache)))
+    return value
 
 # the kernels' symbols (csrc/*.cu) and the wrapper names they count under;
 # the 1-D kernels' second template argument is NOISE (false: ``_nn``)
@@ -132,13 +172,13 @@ def capture(fn: Callable, *buffers, device) -> Callable:
         for buf, value in zip(buffers, new):
             buf.copy_(value)
 
-    if device.type != "cuda":
-        def eager(*new):
+    if device.type != "cuda" or _EAGER:
+        def run(*new):
             copy_in(new)
             return fn(*buffers)
 
-        eager.graph, eager.launches = None, collections.Counter()
-        return eager
+        run.graph, run.launches = None, collections.Counter()
+        return run
 
     from repro_torch.kernels import build
 
@@ -152,12 +192,14 @@ def capture(fn: Callable, *buffers, device) -> Callable:
 
     graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes are read
     before = collections.Counter(build.LAUNCHES)
-    with torch.cuda.device(device), torch.cuda.graph(graph):
-        out = fn(*buffers)
-    captured = collections.Counter(build.LAUNCHES)
-    captured.subtract(before)
-    captured = +captured
-    build.LAUNCHES.subtract(captured)  # recorded, not launched
+    try:
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            out = fn(*buffers)
+    finally:  # recorded, not launched, whether or not the capture held
+        captured = collections.Counter(build.LAUNCHES)
+        captured.subtract(before)
+        captured = +captured
+        build.LAUNCHES.subtract(captured)
     graph.instantiate()
     launches = graph_kernel_nodes(graph)
     if launches != captured:

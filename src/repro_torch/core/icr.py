@@ -46,6 +46,10 @@ from .refine import (
     refinement_matrices_level,
 )
 
+# captured transposes an instance keeps (each graph holds its own memory
+# pool, about one chain's intermediates)
+SQRT_T_GRAPHS = 4
+
 
 @dataclasses.dataclass(frozen=True)
 class ICR:
@@ -242,8 +246,8 @@ class ICR:
         v (*final_shape) -> ξ-shaped list (see ``xi_shapes``)."""
         return [x[0] for x in self.apply_sqrt_T_batch(mats, v[None])]
 
-    def apply_sqrt_T_batch(self, mats: dict,
-                           v: torch.Tensor) -> List[torch.Tensor]:
+    def apply_sqrt_T_batch(self, mats: dict, v: torch.Tensor, *,
+                           cached: bool = True) -> List[torch.Tensor]:
         """The transpose on a batch, v (S, *final_shape) -> ξ-shaped list
         with a leading S. ``apply_sqrt`` is linear in ξ at fixed matrices,
         so this is its VJP; on the kernel route it runs the adjoint
@@ -252,16 +256,66 @@ class ICR:
         that chain is the pyramid's transpose: its backward at fixed
         matrices runs the same adjoint kernels. That route is a transpose
         at fixed matrices: its inputs must not require grad (differentiate
-        ``apply_sqrt`` instead)."""
-        n_s = v.shape[0]
-        g = v.to(mats["sqrt0"].dtype)
-        xi = [None] * (self.chart.n_levels + 1)
+        ``apply_sqrt`` instead).
+
+        On the kernel route with CUDA tensors the chain is one captured
+        CUDA graph, cached per instance as the JAX package caches its
+        jitted transpose: keyed on v's shape, the storage dtype and the
+        identity and version of every matrix tensor (the entry holds the
+        tensors, so new or modified matrices never replay stale
+        addresses), at most ``SQRT_T_GRAPHS`` graphs, least recently used
+        first out. A call copies v into the graph's input, replays, and
+        returns copies of its outputs. Inside another capture (a CG
+        segment) the chain is recorded into that graph instead, and
+        ``cached=False`` (a one-off call, for which a graph would keep a
+        memory pool for nothing: the conditioning system's matvecs
+        outside a segment, its dense matrix, its projections) or
+        ``graphs.eager()`` runs it op by op."""
+        from . import graphs
+
         if self.use_pallas:
             if torch.is_grad_enabled() and any(
                     t.requires_grad for t in [v, *tree_leaves(mats)]):
                 raise NotImplementedError(
                     "apply_sqrt_T on the kernel route is not "
                     "differentiable; differentiate apply_sqrt instead")
+            if (cached and v.is_cuda and not graphs.eager_mode()
+                    and not torch.cuda.is_current_stream_capturing()):
+                return self._apply_sqrt_T_graph(mats, v)
+        return self._apply_sqrt_T_chain(mats, v)
+
+    def _apply_sqrt_T_graph(self, mats: dict,
+                            v: torch.Tensor) -> List[torch.Tensor]:
+        """``_apply_sqrt_T_chain`` as a replay of its cached graph."""
+        from . import graphs
+
+        leaves = tree_leaves(mats)
+        dtype = mats["sqrt0"].dtype
+        key = (tuple(v.shape), dtype, str(v.device),
+               tuple((id(t), t._version) for t in leaves))
+        cache = self.__dict__.get("_sqrt_T_graphs")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_sqrt_T_graphs", cache)
+
+        def make():
+            buf = torch.empty(v.shape, dtype=dtype, device=v.device)
+            buf.copy_(v)
+            return (graphs.capture(
+                lambda b: self._apply_sqrt_T_chain(mats, b), buf,
+                device=v.device), leaves)
+
+        with torch.no_grad():
+            replay, _ = graphs.lru(cache, key, make, SQRT_T_GRAPHS)
+            return [x.clone() for x in replay(v)]
+
+    def _apply_sqrt_T_chain(self, mats: dict,
+                            v: torch.Tensor) -> List[torch.Tensor]:
+        """The transpose, op by op (see ``apply_sqrt_T_batch``)."""
+        n_s = v.shape[0]
+        g = v.to(mats["sqrt0"].dtype)
+        xi = [None] * (self.chart.n_levels + 1)
+        if self.use_pallas:
             from repro_torch.kernels import dispatch
 
             pol = self.policy if self.dtype_policy is not None else None

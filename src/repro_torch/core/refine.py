@@ -268,13 +268,44 @@ class LevelGeom:
                    b=chart.b, boundary=chart.boundary)
 
 
-def reflect_pad(x: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
-    """Reflect-pad the last `ndim` axes of `x` by `b` on each side
-    (numpy's ``"reflect"``: the edge is not repeated)."""
+def _pad(x: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
     lead = x.shape[:-ndim]
     y = F.pad(x.reshape((1, -1) + x.shape[-ndim:]), (b, b) * ndim,
               mode="reflect")
     return y.reshape(lead + y.shape[2:])
+
+
+class _ReflectPad(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` with ``reflect_pad_T`` as its backward.
+    On CUDA, F.pad's own backward adds the reflected cotangents with
+    atomics; on two or more axes up to 2^ndim of them meet at a corner, in
+    an order that changes from run to run. Folding them back axis by axis
+    is the same sum in a fixed order, so a step's gradient, and a captured
+    step's, is the same in every run."""
+
+    @staticmethod
+    def forward(ctx, x, b, ndim):
+        ctx.b, ctx.ndim = b, ndim
+        return _pad(x, b, ndim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reflect_pad_T(g, ctx.b, ctx.ndim), None, None
+
+
+def reflect_pad(x: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
+    """Reflect-pad the last `ndim` axes of `x` by `b` on each side
+    (numpy's ``"reflect"``: the edge is not repeated); differentiable.
+    Where F.pad's backward would add three or more cotangents into one
+    entry (two or more axes, or an axis of at most 2b + 1 entries), the
+    backward is the fixed-order ``reflect_pad_T`` (``_ReflectPad``); one
+    axis adds at most two, and a sum of two is the same in either
+    order, so that case, and every call that records no gradient, takes
+    F.pad alone."""
+    if (torch.is_grad_enabled() and x.requires_grad
+            and (ndim > 1 or x.shape[-1] <= 2 * b + 1)):
+        return _ReflectPad.apply(x, b, ndim)
+    return _pad(x, b, ndim)
 
 
 def reflect_pad_T(y: torch.Tensor, b: int, ndim: int) -> torch.Tensor:

@@ -60,29 +60,79 @@ def neg_log_joint(log_likelihood: Callable, forward: Callable):
     return loss
 
 
-def _fit(loss_fn, params, steps: int, lr: float) -> list:
-    """``steps`` AdamW steps on the tree `params` in place; the losses
-    before each step, as device scalars."""
+def _fit_step(loss_fn, params, steps: int, lr: float) -> tuple:
+    """``(step, losses)``: one fit step over the tree `params` (the loss,
+    its gradient, AdamW in place, the loss written into ``losses`` at the
+    next index) and the (steps,) float32 buffer it writes."""
     leaves = tree_leaves(params)
+    device = leaves[0].device
     opt = adamw(linear_warmup_cosine(lr, steps // 10 + 1, steps),
                 weight_decay=0.0)
-    losses = []
-    for _ in range(steps):
+    losses = torch.zeros(steps, dtype=torch.float32, device=device)
+    at = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def step():
         loss = loss_fn(params)
         opt.update(torch.autograd.grad(loss, leaves), leaves)
-        losses.append(loss.detach())
+        losses.index_copy_(0, at, loss.detach().float().reshape(1))
+        at.add_(1)
+
+    return step, losses
+
+
+def _fit(loss_fn, params, steps: int, lr: float, *, jit: bool = True,
+         draw: Callable[[], None] | None = None) -> torch.Tensor:
+    """``steps`` AdamW steps on the tree `params` in place; the losses
+    before each step, a float32 device tensor (steps,).
+
+    One step is the loss, ``torch.autograd.grad`` through it (on the kernel
+    route the adjoint kernels) and AdamW in place; it writes its loss into
+    a preallocated buffer at a device index, so no step reads the host.
+    `draw`, if given, runs before each step, outside it (ADVI's ε into
+    static buffers). With ``jit`` on a CUDA device the step is captured
+    once as a CUDA graph (``core/graphs.capture``) and replayed: the
+    capture's eager warm-up is the real step 0, and replays 1 to
+    ``steps - 1`` follow. A capture that fails raises; it never falls back
+    to eager steps. CPU tensors run the same step eagerly."""
+    from repro_torch.core import graphs
+
+    step, losses = _fit_step(loss_fn, params, steps, lr)
+    device = losses.device
+    run = step
+    for i in range(steps):
+        if draw is not None:
+            draw()
+        if i == 0 and jit:
+            try:
+                run = graphs.capture(step, device=device)
+            except RuntimeError as exc:
+                raise RuntimeError(
+                    "map_fit/advi_fit(jit=True): the step could not be "
+                    "captured as one CUDA graph. A forward that rebuilds "
+                    "the matrices from a learned θ syncs with the host "
+                    "(torch.linalg's eigh); pass jit=False for it (ROADMAP "
+                    "queue 1, item 2: the learned-θ build on the card). "
+                    f"The capture said: {exc}") from exc
+            if run.graph is not None:
+                continue  # the capture's warm-up was step 0
+        run()
     return losses
 
 
 def map_fit(log_likelihood, forward, xi0: Tree, y, steps: int = 300,
-            lr: float = 3e-2):
+            lr: float = 3e-2, jit: bool = True):
     """MAP estimate of ξ (deterministic). Returns ``(xi_hat, losses)``,
-    losses (steps,) taken before each update. The JAX package's ``jit``
-    scan is a Python loop here."""
+    losses (steps,) taken before each update.
+
+    ``jit=True`` is the JAX package's compiled scan: on a CUDA device one
+    step is captured as a CUDA graph and replayed (``_fit``); the forward
+    must then not sync with the host, so a forward that learns θ
+    (rebuilding the matrices, whose eigh syncs) raises and takes
+    ``jit=False``, which runs the same step op by op."""
     loss_fn = neg_log_joint(log_likelihood, forward)
     xi = _trainable(xi0)
-    losses = _fit(lambda p: loss_fn(p, y), xi, steps, lr)
-    return _detached(xi), torch.stack(losses)
+    losses = _fit(lambda p: loss_fn(p, y), xi, steps, lr, jit=jit)
+    return _detached(xi), losses
 
 
 def advi_fit(gen: torch.Generator, log_likelihood, forward, xi0: Tree, y,
@@ -93,17 +143,26 @@ def advi_fit(gen: torch.Generator, log_likelihood, forward, xi0: Tree, y,
     to ``n_mc`` fields (``lambda xi: icr.apply_sqrt_batch(mats, xi)``);
     the draws come from `gen`. Returns ``((mean, log_std), elbos)``; a
     sample is ``mean + exp(log_std) * eps``.
+
+    Compiled on a CUDA device as the JAX package's scan is (``_fit``): ε
+    is drawn from `gen` into static buffers before each replay, leaf by
+    leaf, so the fit equals the eager one (inside ``graphs.eager()``)
+    bit for bit from the same generator state.
     """
     mean = _trainable(xi0)
     log_std = _tree_map(
         lambda x: torch.full_like(x, -2.0).requires_grad_(True), xi0)
+    eps = _tree_map(lambda m: torch.empty((n_mc,) + m.shape,
+                                          device=m.device,
+                                          dtype=torch.float32), xi0)
+
+    def draw():
+        _tree_map(lambda e: e.normal_(generator=gen), eps)
 
     def loss_fn(params):
         mean, log_std = params
-        xi = _tree_map(
-            lambda m, ls: m + torch.exp(ls) * torch.randn(
-                (n_mc,) + m.shape, generator=gen, device=m.device,
-                dtype=torch.float32).to(m.dtype), mean, log_std)
+        xi = _tree_map(lambda m, ls, e: m + torch.exp(ls) * e.to(m.dtype),
+                       mean, log_std, eps)
         fields = forward(xi)
         ll = torch.stack([log_likelihood(y, f) for f in fields]).mean()
         kl = sum(torch.sum(0.5 * (torch.exp(2 * ls.float())
@@ -112,8 +171,8 @@ def advi_fit(gen: torch.Generator, log_likelihood, forward, xi0: Tree, y,
                  for m, ls in zip(tree_leaves(mean), tree_leaves(log_std)))
         return -(ll - kl)
 
-    losses = _fit(loss_fn, (mean, log_std), steps, lr)
-    return (_detached(mean), _detached(log_std)), -torch.stack(losses)
+    losses = _fit(loss_fn, (mean, log_std), steps, lr, draw=draw)
+    return (_detached(mean), _detached(log_std)), -losses
 
 
 # -- posterior export ------------------------------------------------------------
@@ -191,7 +250,14 @@ def cg_posterior(icr, obs, y, *, noise_std: float = 0.05, theta=None,
     ``obs`` is an observation spec: flat finest-grid indices (any
     dimension), off-grid 1-D locations (a float array: KISS-GP sparse
     interpolation rows), or a prebuilt operator from
-    ``solvers.gp_system``. The solve runs the fallback ladder
+    ``solvers.gp_system``. Without a ``config`` the solve runs at
+    ``ConditionSystem.default_config``: the JAX package's rtol 1e-7, and
+    on float32 matrices a tolerance that rises to the matvec's rounding
+    at each column's own iterate (``CGConfig.floor_cap``; 1e-7 lies under
+    float32's floor on large systems); the report records rtol, the cap
+    and δ. The
+    iterations replay captured CUDA graphs on the card
+    (``solvers/pcg.py``). The solve runs the fallback ladder
     (ICR-whitened preconditioner → unpreconditioned → dense for small
     systems) with per-RHS quarantine isolation; ``manager`` +
     ``checkpoint_every`` opt into checkpointing. ``mesh`` is not ported
@@ -204,8 +270,7 @@ def cg_posterior(icr, obs, y, *, noise_std: float = 0.05, theta=None,
     """
     import numpy as np
 
-    from repro_torch.solvers import (CGConfig, build_condition_system,
-                                     solve_guarded)
+    from repro_torch.solvers import build_condition_system, solve_guarded
     from repro_torch.solvers.gp_system import obs_operator
 
     if hasattr(obs, "apply") and hasattr(obs, "apply_t"):
@@ -225,14 +290,14 @@ def cg_posterior(icr, obs, y, *, noise_std: float = 0.05, theta=None,
     system = build_condition_system(icr, op, float(noise_std) ** 2,
                                     theta=theta, mesh=mesh,
                                     use_precond=use_precond)
-    cfg = config or CGConfig(rtol=1e-7, max_iters=max(4 * op.n_obs, 200))
+    cfg = system.default_config() if config is None else config
     ladder = ([("icr", system.precond)] if system.precond is not None
               else []) + [("none", None)]
     alpha, report = solve_guarded(
         system.matvec, y, preconds=ladder,
         dense_solve=system.dense_solve if dense_fallback else None,
         cfg=cfg, manager=manager, checkpoint_every=checkpoint_every,
-        tag="cg_posterior")
+        tag="cg_posterior", segment_graphs=system.graphs)
     if _solution is not None:
         _solution.update(system=system, alpha=alpha, cfg=cfg)
     xi_hat = system.project_xi(alpha)

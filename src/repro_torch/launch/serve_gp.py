@@ -337,15 +337,12 @@ class GPFieldServer:
         addresses); anything else is a miss and builds a fresh entry."""
         self._validate_posterior(post)
         key = self._cache_key(post)
-        entry = self._exec.pop(key, None)  # re-insert below: LRU order
-        if entry is not None:
+        if key in self._exec:
             self.cache_hits += 1
         else:
             self.cache_misses += 1
-            entry = self._build(post)
-        self._exec[key] = entry
-        while len(self._exec) > self.max_cached:
-            self._exec.pop(next(iter(self._exec)))  # evict least recent
+        entry = graphs.lru(self._exec, key, lambda: self._build(post),
+                           self.max_cached)
         bufs = entry["bufs"]
         for off, n, m, s in zip(entry["offsets"], entry["sizes"], post.mean,
                                 post.std()):
@@ -571,14 +568,11 @@ class GPFieldServer:
 
         post = self.posterior
         key = (self._cache_key(post), op.fingerprint(), float(noise_var))
-        sys_ = self._cond_cache.pop(key, None)
-        if sys_ is None:
-            sys_ = build_condition_system(post.icr, op, noise_var,
-                                          theta=post.theta)
-        self._cond_cache[key] = sys_
-        while len(self._cond_cache) > self.max_cached:
-            self._cond_cache.pop(next(iter(self._cond_cache)))
-        return sys_
+        return graphs.lru(
+            self._cond_cache, key,
+            lambda: build_condition_system(post.icr, op, noise_var,
+                                           theta=post.theta),
+            self.max_cached)
 
     def _solver_manager(self):
         """Per-solve CheckpointManager under ``ckpt_root`` (lazily a
@@ -628,7 +622,7 @@ class GPFieldServer:
         the guarded fallback ladder under the fault supervisor, with
         checkpoints every ``solver_checkpoint_every`` iterations; the
         SolveReport rides back on the request and in ``metrics()``."""
-        from repro_torch.solvers import CGConfig, solve_guarded
+        from repro_torch.solvers import solve_guarded
         from repro_torch.solvers.gp_system import obs_operator
 
         self.condition_requests += 1
@@ -653,8 +647,7 @@ class GPFieldServer:
             if self.fault_injector is not None:
                 self.fault_injector(self)
 
-        cfg = self.solver_config or CGConfig(
-            rtol=1e-7, max_iters=max(4 * op.n_obs, 200))
+        cfg = self.solver_config or system.default_config()
         ladder = ([("icr", system.precond)]
                   if system.precond is not None else []) + [("none", None)]
         alpha, report = solve_guarded(
@@ -663,7 +656,8 @@ class GPFieldServer:
             manager=self._solver_manager(),
             checkpoint_every=self.solver_checkpoint_every or None,
             fault_hook=fault_hook, executor=self.supervisor.execute,
-            n_report=k_real, tag=f"condition:{op.n_obs}obs")
+            n_report=k_real, tag=f"condition:{op.n_obs}obs",
+            segment_graphs=system.graphs)
 
         req.report = report
         self.solve_reports.append(report)

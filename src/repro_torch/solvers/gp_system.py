@@ -42,6 +42,16 @@ import torch
 # ``icr_whitening_precond`` (elements of one field batch: 2**26 is 256 MB
 # at float32, whatever the chart)
 _CHUNK_ELEMENTS = 2**26
+# the default solve's cap on the rounding its tolerance may rise to,
+# relative to ‖y‖ (``ConditionSystem.default_config``): about 3x the
+# largest float32 rounding at the solution read on a sound full-width
+# system (3.0e-3: the 1M-point regular chart at 314,572 observations,
+# σ = 0.05, H100), so no answer with a residual above 10x it (0.1) is
+# ever called converged
+DEFAULT_FLOOR_CAP = 1e-2
+# the largest U (n_obs × basis, float64) the ICR-whitened preconditioner
+# holds when level 0 alone exceeds its ``max_basis``
+PRECOND_MAX_BYTES = 2**33
 
 
 def _cached(op, device, name: str, make):
@@ -181,10 +191,30 @@ class ConditionSystem:
     mats: dict
     matvec: Callable[[torch.Tensor], torch.Tensor]   # (k, O) -> (k, O)
     precond: Optional[Callable]          # ICR-whitened M⁻¹, or None
+    # the solver's captured CG segments on this system (``pcg``'s
+    # ``segment_graphs``): the ladder's rungs and repeated requests re-use
+    graphs: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n_obs(self) -> int:
         return self.obs.n_obs
+
+    def default_config(self):
+        """The ``CGConfig`` of a solve whose caller passes none: the JAX
+        package's rtol 1e-7 and ``max_iters = max(4·n_obs, 200)``, and on
+        float32 or bfloat16 matrices ``floor_cap = DEFAULT_FLOOR_CAP``.
+        1e-7 lies under float32's floor on large systems (every CG rung
+        then ends stalled); with the cap a column's bar rises to the
+        rounding of one float32 matvec at its own iterate, so a column
+        the solver calls converged has a true residual plus rounding
+        within 10·max(rtol, min(δ, cap)) of ‖y‖ (``pcg._settle``), the
+        bar ``chip_smoke.py`` holds α's float64 residual to."""
+        from .pcg import CGConfig
+
+        cap = (0.0 if self.mats["sqrt0"].dtype == torch.float64
+               else DEFAULT_FLOOR_CAP)
+        return CGConfig(rtol=1e-7, max_iters=max(4 * self.n_obs, 200),
+                        floor_cap=cap)
 
     def dense_solve(self, b: torch.Tensor) -> torch.Tensor:
         """Form A by batched matvecs on identity rows and solve directly:
@@ -238,9 +268,11 @@ class ConditionSystem:
 def _sqrt_t_batch(icr, mats, u: torch.Tensor) -> list:
     """Batched Sᵀ: ``icr.apply_sqrt_T_batch``, on the kernel route the
     adjoint kernels level by level with no forward pass (the JAX package
-    takes the VJP of ``apply_sqrt_batch`` at zero ξ)."""
+    takes the VJP of ``apply_sqrt_batch`` at zero ξ). Uncached: inside a
+    captured CG segment the chain is recorded into the segment's graph,
+    and every other call here is a one-off."""
     with torch.no_grad():
-        return icr.apply_sqrt_T_batch(mats, u)
+        return icr.apply_sqrt_T_batch(mats, u, cached=False)
 
 
 def condition_matvec(icr, mats, obs, noise_var, v: torch.Tensor
@@ -262,23 +294,31 @@ def icr_whitening_precond(icr, mats, obs, noise_var: float, *,
     """The ICR-whitened (coarse-subspace Woodbury) preconditioner.
 
     Take the coarse prefix of ξ levels whose total size fits
-    ``max_basis`` (always at least level 0): their span carries the
-    top of the kernel spectrum, the slowly-converging CG directions.
-    With ``U = W S_c`` (obs × m, the sqrt applied to the m basis
-    excitations, in chunks of rows) precondition with
+    ``max_basis``: their span carries the top of the kernel spectrum, the
+    slowly-converging CG directions. With ``U = W S_c`` (obs × m, the
+    sqrt applied to the m basis excitations, in chunks of rows)
+    precondition with
 
         M = σ² I + U Uᵀ,
         M⁻¹ r = (r − U C⁻¹ Uᵀ r) / σ²,   C = σ² I_m + Uᵀ U  (Cholesky).
 
-    Exact on the coarse subspace, identity/σ² on its complement. Returns
-    None when even level 0 exceeds ``max_basis`` (the ladder then starts
-    at the unpreconditioned rung). U (the float32 fields, held at
-    float64), C and the correction run at float64, where the JAX package
-    works at float32: at full width σ²I + UᵀU loses its positive
-    definiteness in float32 once ‖U‖²/σ² nears 1/ε₃₂, and
-    ``r − U C⁻¹ Uᵀ r`` cancels to below its rounding before the division
-    by σ² (the dust and regular charts at 314,572 observations,
-    σ = 0.05, on the H100). A failed factorisation raises.
+    Exact on the coarse subspace, identity/σ² on its complement. Where
+    level 0 alone exceeds ``max_basis`` the JAX package returns None and
+    its ladder starts at the unpreconditioned rung; on full-width charts
+    (2,048 basis columns on dust, 1,024 on regular) that rung does not
+    come near float32's floor at 314,572 observations (``PERF.md``), so
+    the port takes level 0 alone while U's bytes (n_obs · m · 8) stay
+    within ``PRECOND_MAX_BYTES`` (8 GiB: 5.2 GB on dust at 314,572
+    observations), and returns None above it. The factor is applied by two triangular
+    solves, which never read the host, so a captured CG segment holds the
+    application. U (the float32 fields, held at float64), C and the
+    correction run at float64, where the JAX package works at float32: at
+    full width σ²I + UᵀU loses its positive definiteness in float32 once
+    ‖U‖²/σ² nears 1/ε₃₂, and ``r − U C⁻¹ Uᵀ r`` cancels to below its
+    rounding before the division by σ² (the dust and regular charts at
+    314,572 observations, σ = 0.05, on the H100). A failed factorisation
+    raises. The returned function's ``nbytes`` is what U and the factor
+    hold on the device.
     """
     shapes = [tuple(s) for s in icr.xi_shapes()]
     sizes = [int(np.prod(s)) for s in shapes]
@@ -289,7 +329,7 @@ def icr_whitening_precond(icr, mats, obs, noise_var: float, *,
             break
         take += 1
         total += s
-    if total > max_basis:
+    if total > max_basis and obs.n_obs * total * 8 > PRECOND_MAX_BYTES:
         return None
     m = total
     device = mats["sqrt0"].device
@@ -316,9 +356,11 @@ def icr_whitening_precond(icr, mats, obs, noise_var: float, *,
 
     def precond(r: torch.Tensor) -> torch.Tensor:
         r64 = r.double()
-        s = torch.cholesky_solve((r64 @ u).T, chol).T   # (k, m)
+        w = torch.linalg.solve_triangular(chol, (r64 @ u).T, upper=False)
+        s = torch.linalg.solve_triangular(chol.T, w, upper=True).T  # (k, m)
         return ((r64 - s @ u.T) / noise_var).to(r.dtype)
 
+    precond.nbytes = (u.numel() + chol.numel()) * 8
     return precond
 
 

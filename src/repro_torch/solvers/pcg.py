@@ -26,17 +26,27 @@ a sample batch does. The contract is the JAX package's:
     continues.
 
 **Where the loop runs, and what the host waits on.** The JAX package runs
-the loop on the device (``lax.while_loop``). Here the carry lives on
-``b``'s device and the host enqueues one iteration after another without
-waiting. It waits on the device only to read two numbers, the iteration
-count and whether any column is still active (``_poll``: one copy of two
-integers), once every ``segment`` iterations, and at the end of each
-checkpoint segment, where the carry is copied to the host and saved. An
-iteration in which no column is active changes nothing (every column is
-frozen, and the count ``it`` only advances when some column is active),
-so a segment may run past convergence and the result is the same for any
-``segment``: ``segment=1`` is the JAX package's loop, iteration for
-iteration.
+the loop on the device (``lax.while_loop``). Here the carry lives in
+static buffers on ``b``'s device, and a segment of ``segment`` masked
+iterations is one replay of a captured CUDA graph that writes the new
+carry back into them (``_Iterations``; a remainder shorter than a
+segment replays a one-iteration graph, so no iteration past the limit
+runs). The graphs are cached per (matvec, preconditioner, config, RHS
+width) in the caller's ``segment_graphs`` dict (``ConditionSystem.graphs``:
+the ladder's rungs and repeated requests re-use them), or per solve. CPU
+tensors run the same iterations eagerly, and so does the card inside
+``core.graphs.eager()`` (to compare). The host waits on the device only to
+read two numbers, the iteration count and whether any column is still
+active (``_poll``: one copy of two integers), once every segment, and at
+the end of each checkpoint segment, where the carry is copied to the host
+and saved. An iteration in which no column is active changes nothing
+(every column is frozen, and the count ``it`` only advances when some
+column is active), so a segment may run past convergence and the result
+is the same for any ``segment``: ``segment=1`` is the JAX package's
+loop, iteration for iteration. For the same reason a replayed segment
+equals the same iterations run eagerly, bit for bit, wherever the matvec
+itself is deterministic (the off-grid interpolation's ``index_add_``
+adds colliding indices in an order the card does not fix).
 
 **Convergence is checked against the true residual.** The JAX package
 calls a column ``converged`` when its *recursive* residual meets the
@@ -52,7 +62,9 @@ residual, while each restart at least halves it, and a column that
 stops improving, or whose matvec is rounded above that bar, sits at its
 working-precision floor and ends ``stalled`` (retryable: the ladder
 moves on). ``relres`` reports the true residual of every column that is
-not quarantined.
+not quarantined. A tolerance under that floor can never be met: with
+``CGConfig.floor_cap`` the bar rises to each column's own rounding
+(capped), so CG runs down to the floor and ends there ``converged``.
 """
 from __future__ import annotations
 
@@ -82,7 +94,15 @@ _RESTART_GAIN = 0.5
 
 @dataclasses.dataclass(frozen=True)
 class CGConfig:
-    """Solver policy knobs (the JAX package's, field for field)."""
+    """Solver policy knobs: the JAX package's, field for field, and the
+    port's ``floor_cap``. At 0 a column converges at ``rtol`` as in the
+    JAX package. Above 0, ``_settle`` raises a column's tolerance to the
+    rounding of the float32 matvec at the column's own iterate, at most
+    ``floor_cap``·‖b‖: a column CG has brought to its working-precision
+    floor (stalled there, or converged on its recursive residual) ends
+    ``converged`` when its true residual is within that bar, and an
+    iterate far from the solution (x = 0 has no rounding at all) never
+    is."""
 
     rtol: float = 1e-6
     atol: float = 0.0
@@ -92,6 +112,7 @@ class CGConfig:
     stall_drop: float = 1e-3         # "improvement" = best shrinks by this
     checkpoint_every: int = 0        # iters between carry checkpoints (0: off)
     dense_max: int = 4096            # largest n the dense rung will factor
+    floor_cap: float = 0.0           # tolerance up to the matvec's rounding
 
 
 # -- the masked iteration ----------------------------------------------------------
@@ -137,9 +158,10 @@ def _pcg_init(matvec, b: torch.Tensor, precond, cfg: CGConfig,
         "bnorm": bnorm, "tol": tol, "rnorm": rnorm,
         "best": rnorm, "since": zeros, "status": status, "iters": zeros,
         "it": torch.zeros((), dtype=torch.int64, device=b.device),
-        # the right-hand side and the true residual at the last restart,
-        # for _settle
+        # the right-hand side, the true residual at the last restart and
+        # the matvec's rounding at the iterate, for _settle
         "b": b0, "true": torch.full_like(bnorm, torch.inf),
+        "floor": torch.zeros_like(bnorm),
     }
 
 
@@ -203,7 +225,7 @@ def _pcg_body(matvec, precond, cfg: CGConfig) -> Callable[[dict], dict]:
             "x": x, "r": r, "p": p,
             "rz": torch.where(still, rz_new, c["rz"]),
             "bnorm": c["bnorm"], "tol": c["tol"], "b": c["b"],
-            "true": c["true"],
+            "true": c["true"], "floor": c["floor"],
             "rnorm": torch.where(step, rnorm, c["rnorm"]),
             "best": best, "since": since, "status": status,
             "iters": torch.where(active, c["iters"] + 1,
@@ -223,43 +245,137 @@ def _poll(c: dict) -> Tuple[int, bool]:
     return int(it), bool(live)
 
 
-def _run(body, carry: dict, limit: int, segment: int) -> tuple:
+def _advance(body, static: dict, n: int) -> Callable[[], None]:
+    """n masked iterations on the carry `static`, written back into it."""
+
+    def run():
+        c = static
+        for _ in range(n):
+            c = body(c)
+        for key, buf in static.items():
+            buf.copy_(c[key])
+
+    return run
+
+
+# captured segments a cache (``segment_graphs``) keeps: each holds its
+# static carry and a graph of up to two lengths with its memory pool
+_SEGMENT_ENTRIES = 8
+
+
+class _Iterations:
+    """The masked iterations of one (matvec, preconditioner, config, RHS
+    width) over a static carry: ``segment`` of them one replay of a
+    captured CUDA graph, a shorter remainder replays of a one-iteration
+    graph (see the module docstring). A CPU carry, or ``graphs.eager()``,
+    runs the same iterations op by op."""
+
+    def __init__(self, body, carry: dict):
+        self.body = body
+        self.static = {k: v.detach().clone() for k, v in carry.items()}
+        self.device = carry["x"].device
+        self.replays: dict = {}
+
+    def load(self, carry: dict) -> dict:
+        """Copy `carry` into the static buffers (a key that is already the
+        buffer copies nothing) and return them."""
+        for key, buf in self.static.items():
+            if carry[key] is not buf:
+                buf.copy_(carry[key])
+        return self.static
+
+    def advance(self, n: int) -> None:
+        from repro_torch.core import graphs
+
+        if self.device.type != "cuda" or graphs.eager_mode():
+            _advance(self.body, self.static, n)()
+            return
+        replay = self.replays.get(n)
+        if replay is None:
+            replay = self.replays[n] = graphs.capture(
+                _advance(self.body, self.static, n), device=self.device)
+            if replay.graph is not None:
+                return  # the capture's warm-up ran these n iterations
+        replay()
+
+
+def _iterations(matvec, precond, cfg: CGConfig, carry: dict,
+                cache: dict) -> _Iterations:
+    """The ``_Iterations`` of this operator and width in `cache`, least
+    recently used first out."""
+    from repro_torch.core import graphs
+
+    x = carry["x"]
+    key = (matvec, precond, cfg, tuple(x.shape), x.dtype, str(x.device))
+    return graphs.lru(
+        cache, key,
+        lambda: _Iterations(_pcg_body(matvec, precond, cfg), carry),
+        _SEGMENT_ENTRIES)
+
+
+def _run(runner: _Iterations, carry: dict, limit: int,
+         segment: int) -> tuple:
     """Iterate until no column is active or ``it`` reaches `limit`,
     reading the statuses every `segment` iterations. Returns
-    ``(carry, (it, any active))``."""
+    ``(carry, (it, any active))``, the carry being the runner's static
+    buffers."""
+    carry = runner.load(carry)
     while True:
         state = _poll(carry)
         it, live = state
         if not live or it >= limit:
             return carry, state
-        for _ in range(min(int(segment), limit - it)):
-            carry = body(carry)
+        n = min(int(segment), limit - it)
+        if n == segment:
+            runner.advance(n)
+        else:
+            for _ in range(n):
+                runner.advance(1)
 
 
-def _settle(matvec, precond, c: dict, restart: bool) -> tuple:
-    """Hold every finished column to its true residual ``t = ‖b − A x‖``.
-
-    ``A x`` is itself rounded: ``f = ‖A(x + e) − A(e) − A(x)‖`` (``e`` a
-    seeded vector of ``x``'s norm; A is linear, so what is left is the
-    three applications' rounding) estimates how far a computed ``A x``
-    lies from the exact one. A ``converged`` column stays so if
-    ``t + f <= _TRUE_SLACK · tol``. Otherwise it restarts from its
-    iterate (r = b − A x, p = M⁻¹r) if iterations are left (`restart`),
-    ``t`` is above ``f`` and the restart is its first or its last one
-    halved ``t``; if not, it ends ``stalled`` at its floor, or
-    ``breakdown`` where M⁻¹r is not a descent direction. Columns that are
-    not quarantined report ``t``. Three matvecs of the batch; returns
-    ``(carry, whether any column restarted)``."""
-    status, x = c["status"], c["x"]
-    ax = matvec(x)
+def matvec_rounding(matvec, x: torch.Tensor,
+                    ax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per row, how far a computed ``A x`` lies from the exact one:
+    ``‖A(x + e) − A(e) − A(x)‖``, ``e`` a seeded vector of ``x``'s norm
+    (A is linear, so what is left is the three applications' rounding).
+    `ax` is ``A x`` where the caller has it."""
+    ax = matvec(x) if ax is None else ax
     gen = torch.Generator(device=x.device).manual_seed(0)
     e = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
     e = e * (torch.sqrt(_rowdot(x, x) / _rowdot(e, e)))[:, None]
     noise = matvec(x + e) - matvec(e) - ax
-    floor = torch.sqrt(_rowdot(noise, noise))
+    return torch.sqrt(_rowdot(noise, noise))
+
+
+def _settle(matvec, precond, c: dict, restart: bool,
+            cap: float = 0.0) -> tuple:
+    """Hold every finished column to its true residual ``t = ‖b − A x‖``.
+
+    ``A x`` is itself rounded: ``f`` (``matvec_rounding``) estimates how
+    far a computed ``A x`` lies from the exact one. A ``converged`` column
+    stays so if ``t + f <= _TRUE_SLACK · tol``. With a `cap`
+    (``CGConfig.floor_cap``) ``tol`` rises to ``min(f, cap·‖b‖)``, and a
+    ``stalled`` column within that bar is ``converged`` too. Otherwise a
+    converged column restarts from its
+    iterate (r = b − A x, p = M⁻¹r) if iterations are left (`restart`),
+    ``t`` is above ``f`` and the restart is its first or its last one
+    halved ``t``; if not, it ends ``stalled`` at its floor, or
+    ``breakdown`` where M⁻¹r is not a descent direction. Columns that are
+    not quarantined report ``t``, and the carry keeps ``f`` (``floor``).
+    Three matvecs of the batch; returns ``(carry, whether any column
+    restarted)``."""
+    status, x = c["status"], c["x"]
+    ax = matvec(x)
+    floor = matvec_rounding(matvec, x, ax)
     r = c["b"] - ax
     tn = torch.sqrt(_rowdot(r, r))
-    short = (status == CONVERGED) & ~(tn + floor <= _TRUE_SLACK * c["tol"])
+    tol = c["tol"]
+    if cap > 0:
+        tol = torch.maximum(tol, torch.minimum(floor, cap * c["bnorm"]))
+    held = tn + floor <= _TRUE_SLACK * tol
+    if cap > 0:
+        status = torch.where((status == STALLED) & held, CONVERGED, status)
+    short = (status == CONVERGED) & ~held
     again = (short & (tn > floor) & (tn < _RESTART_GAIN * c["true"])
              & restart)
     z = precond(r) if precond is not None else r
@@ -277,12 +393,14 @@ def _settle(matvec, precond, c: dict, restart: bool) -> tuple:
         rnorm=torch.where(live, tn, c["rnorm"]),
         best=torch.where(go, tn, c["best"]),
         since=torch.where(go, 0, c["since"]).to(torch.int32),
-        true=torch.where(again, tn, c["true"]), status=status)
+        true=torch.where(again, tn, c["true"]), floor=floor,
+        status=status)
     return c, bool(go.any())
 
 
 def _finalize(c: dict) -> dict:
-    c = dict(c)
+    """The carry's final state, copied out of any static buffers."""
+    c = {k: v.clone() for k, v in c.items()}
     c["status"] = torch.where(c["status"] == ACTIVE, MAXITER,
                               c["status"]).to(torch.int32)
     return c
@@ -294,7 +412,8 @@ def _stats(c: dict) -> dict:
     quarantined = (status == NONFINITE) | (status == DIVERGED)
     relres = torch.where(quarantined, torch.inf, relres)
     return {"status": status, "iters": c["iters"], "relres": relres,
-            "it": c["it"]}
+            "it": c["it"],
+            "delta": c["floor"] / torch.clamp_min(c["bnorm"], _TINY)}
 
 
 def pcg_iterate(matvec: Callable[[torch.Tensor], torch.Tensor],
@@ -304,25 +423,29 @@ def pcg_iterate(matvec: Callable[[torch.Tensor], torch.Tensor],
                 x0: Optional[torch.Tensor] = None,
                 carry: Optional[dict] = None,
                 finalize: bool = True,
-                segment: int = SEGMENT) -> tuple:
+                segment: int = SEGMENT,
+                segment_graphs=None) -> tuple:
     """The solve: init (unless ``carry`` resumes one), then iterations
     until no column is active or ``cfg.max_iters``. Returns
     ``(x, stats, carry)``, ``stats`` holding per-RHS ``status``/``iters``/
     ``relres`` tensors and the iteration count ``it``, all on ``b``'s
-    device.
+    device. ``segment_graphs`` caches the captured segments (a dict, or
+    None for this solve alone; see the module docstring).
 
     This is what ``KissGP.solve`` and other direct callers use; the
     checkpoint and fallback loops below wrap it with host-side control.
     """
     if carry is None:
         carry = _pcg_init(matvec, b, precond, cfg, x0=x0)
-    body = _pcg_body(matvec, precond, cfg)
+    graphs = {} if segment_graphs is None else segment_graphs
     again = True
     while again:
-        carry, (it, _) = _run(body, carry, cfg.max_iters, segment)
-        carry, again = _settle(matvec, precond, carry, it < cfg.max_iters)
-    if finalize:
-        carry = _finalize(carry)
+        runner = _iterations(matvec, precond, cfg, carry, graphs)
+        carry, (it, _) = _run(runner, carry, cfg.max_iters, segment)
+        carry, again = _settle(matvec, precond, carry, it < cfg.max_iters,
+                               cfg.floor_cap)
+    carry = (_finalize(carry) if finalize
+             else {k: v.clone() for k, v in carry.items()})
     return carry["x"], _stats(carry), carry
 
 
@@ -365,7 +488,8 @@ def pcg_solve(matvec, b: torch.Tensor, *,
               fault_hook: Optional[Callable[[int], None]] = None,
               on_device_loss: Optional[Callable] = None,
               executor: Optional[Callable] = None,
-              segment: int = SEGMENT) -> tuple:
+              segment: int = SEGMENT,
+              segment_graphs=None) -> tuple:
     """Host loop: :func:`pcg_iterate` in checkpoint segments, with
     resume.
 
@@ -381,13 +505,15 @@ def pcg_solve(matvec, b: torch.Tensor, *,
     ``ServingFaultSupervisor.execute`` for transient retries and
     straggler accounting).
 
+    ``segment_graphs`` is :func:`pcg_iterate`'s.
+
     Returns ``(x, stats, resumes, n_checkpoints)``.
     """
     executor = executor or (lambda fn: fn())
     seg = cfg.checkpoint_every if checkpoint_every is None \
         else checkpoint_every
     device = b.device
-    body = _pcg_body(matvec, precond, cfg)
+    graphs = {} if segment_graphs is None else segment_graphs
     carry = _pcg_init(matvec, b, precond, cfg, x0=x0)
     k_cur = int(b.shape[0])
     resumes: list = []
@@ -405,10 +531,12 @@ def pcg_solve(matvec, b: torch.Tensor, *,
             it = state[0]
             limit = cfg.max_iters if not seg else min(it + seg, cfg.max_iters)
 
-            def attempt(carry=carry, it=it, body=body, limit=limit):
+            def attempt(carry=carry, it=it, limit=limit, matvec=matvec,
+                        precond=precond):
                 if fault_hook is not None:
                     fault_hook(it)
-                return _run(body, carry, limit, segment)
+                runner = _iterations(matvec, precond, cfg, carry, graphs)
+                return _run(runner, carry, limit, segment)
 
             try:
                 carry, state = executor(attempt)
@@ -428,7 +556,6 @@ def pcg_solve(matvec, b: torch.Tensor, *,
                 if k_pad is not None:
                     k_cur = int(k_pad)
                 carry = _repad_carry(carry, k_cur, cfg)
-                body = _pcg_body(matvec, precond, cfg)
                 state = _poll(carry)
                 continue
             if manager is not None and seg:
@@ -436,7 +563,7 @@ def pcg_solve(matvec, b: torch.Tensor, *,
                 n_ckpt += 1
                 host = _to(carry, "cpu")
         carry, again = _settle(matvec, precond, carry,
-                               state[0] < cfg.max_iters)
+                               state[0] < cfg.max_iters, cfg.floor_cap)
         state = _poll(carry)
     carry = _finalize(carry)
     return carry["x"], _stats(carry), resumes, n_ckpt
@@ -466,7 +593,8 @@ def solve_guarded(matvec, b: torch.Tensor, *,
                   executor: Optional[Callable] = None,
                   n_report: Optional[int] = None,
                   tag: str = "pcg",
-                  segment: int = SEGMENT) -> tuple:
+                  segment: int = SEGMENT,
+                  segment_graphs=None) -> tuple:
     """Run the fallback ladder over a batched solve; returns
     ``(x, SolveReport)``, ``x`` on ``b``'s device.
 
@@ -486,7 +614,14 @@ def solve_guarded(matvec, b: torch.Tensor, *,
     a loss on one rung re-plans every later rung too, and the returned
     ``k_pad`` (which must stay >= the original width) widens all later
     rungs and the dense residual check.
+
+    ``segment_graphs`` caches the rungs' captured segments (a dict, such
+    as ``ConditionSystem.graphs``; None: for this solve alone). The
+    report records ``cfg.rtol``, ``cfg.floor_cap`` and δ,
+    the largest column's matvec rounding at its last CG iterate relative
+    to its right-hand side.
     """
+    graphs = {} if segment_graphs is None else segment_graphs
     t0 = time.perf_counter()
     k, n = b.shape
     device = b.device
@@ -497,6 +632,7 @@ def solve_guarded(matvec, b: torch.Tensor, *,
     iters_full = np.zeros(k, np.int64)
     relres_full = np.full(k, np.inf)
     relres_full[finite] = 0.0
+    delta_full = np.full(k, np.nan)
 
     rung_names = [name for name, _ in preconds]
     remaining = np.where(finite)[0]
@@ -556,16 +692,18 @@ def solve_guarded(matvec, b: torch.Tensor, *,
             cur["mv"], b_r, precond=cur["pcs"].get(name), cfg=cfg,
             manager=mgr, checkpoint_every=checkpoint_every,
             fault_hook=fault_hook, on_device_loss=_wrap_odl(name),
-            executor=executor, segment=segment)
+            executor=executor, segment=segment, segment_graphs=graphs)
         resumes.extend(res)
         n_ckpt += ck
         st = stats["status"][:k].cpu().numpy()
         it = stats["iters"][:k].cpu().numpy()
         rr = stats["relres"][:k].double().cpu().numpy()
+        dl = stats["delta"][:k].double().cpu().numpy()
         x_full = torch.where(_on_device(mask), x_r[:k], x_full)
         status_full[mask] = st[mask]
         iters_full[mask] += it[mask]
         relres_full[mask] = rr[mask]
+        delta_full[mask] = dl[mask]
         total_it += int(stats["it"])
         retry = np.array([i for i in remaining if st[i] in RETRYABLE],
                          np.int64)
@@ -621,5 +759,8 @@ def solve_guarded(matvec, b: torch.Tensor, *,
         resumes=tuple(resumes),
         checkpoints=n_ckpt,
         wall_s=time.perf_counter() - t0,
+        rtol=cfg.rtol, floor_cap=cfg.floor_cap,
+        delta=(float(np.nanmax(delta_full[:m]))
+               if np.isfinite(delta_full[:m]).any() else None),
     )
     return x_full, report

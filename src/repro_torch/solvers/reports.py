@@ -13,7 +13,7 @@ JAX package's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 # per-RHS terminal status codes (int32 in the solver's carry)
 ACTIVE = 0      # still iterating (never terminal after finalize)
@@ -86,6 +86,12 @@ class SolveReport:
     ``quarantined`` are the column indices whose iterates were zeroed
     (NaN/divergence isolation); ``fallbacks``/``resumes`` are the event
     streams. ``ok`` is True iff every column ended converged or dense.
+    ``rtol`` and ``floor_cap`` are the solve's ``CGConfig``'s and
+    ``delta`` the largest column's float32 matvec rounding at its last CG
+    iterate relative to its right-hand side: with ``floor_cap`` above 0 a
+    converged column's true residual plus that rounding is within
+    10·max(rtol, min(δ, floor_cap)) (``solvers/pcg.py``). The JAX
+    package's report has none of the three.
     """
 
     tag: str
@@ -100,6 +106,9 @@ class SolveReport:
     resumes: Tuple[ResumeEvent, ...] = ()
     checkpoints: int = 0
     wall_s: float = 0.0
+    rtol: Optional[float] = None
+    floor_cap: float = 0.0
+    delta: Optional[float] = None
 
     @property
     def ok(self) -> bool:
@@ -128,4 +137,7 @@ class SolveReport:
             "resumes": [r.summary() for r in self.resumes],
             "checkpoints": self.checkpoints,
             "wall_s": self.wall_s,
+            "rtol": self.rtol,
+            "floor_cap": self.floor_cap,
+            "delta": self.delta,
         }

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch import ICR
-from repro_torch.core import charts, kernels
+from repro_torch.core import charts, graphs, kernels
 from repro_torch.core import icr as icr_core
 from repro_torch.core import refine as trefine
 from repro_torch.kernels import (build, dispatch, icr_refine, nd_fused,
@@ -758,3 +758,168 @@ def test_cuda_kissgp_matvec_matches_the_cpu(cuda):
     got = card.matvec(torch.tensor(v, device=cuda))
     assert got.device.type == "cuda"
     assert rel(got.cpu(), cpu.matvec(torch.tensor(v))) < TOL["float32"]
+
+
+# -- the compiled paths as CUDA graphs -------------------------------------------
+GRAPH_CHARTS = CONDITION_CHARTS + (
+    (charts.log_polar_chart((16, 16), 2), 2.0),)
+
+
+def _same_bits(a, b) -> bool:
+    a, b = tree_leaves(a), tree_leaves(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _fit_problem(case, device):
+    from repro_torch import charted_gp_dataset, gaussian_log_likelihood
+
+    chart, rho = GRAPH_CHARTS[case]
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True, device=device)
+    mats = icr.matrices()
+    _, obs, y = charted_gp_dataset(
+        icr, torch.Generator(device=device).manual_seed(3), obs_frac=0.3,
+        noise_std=0.05)
+    return icr, mats, gaussian_log_likelihood(0.05, obs), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1, 2],
+                         ids=["regular", "dust", "log_polar"])
+def test_cuda_fits_as_graphs_equal_eager(cuda, case):
+    """``map_fit(jit=True)`` (one captured step, replayed) against
+    ``jit=False`` and the graphed ADVI fit against its eager twin from
+    the same generator state: losses and parameters bit for bit, the
+    replays' launches counted from the graph's kernel nodes."""
+    from repro_torch import advi_fit, map_fit
+
+    icr, mats, ll, y = _fit_problem(case, cuda)
+    build.LAUNCHES.clear()
+    fit_g, loss_g = map_fit(ll, lambda x: icr.apply_sqrt(mats, x),
+                            icr.zero_xi(), y, steps=6)
+    assert build.LAUNCHES["refine_charted_adjoint"] + build.LAUNCHES[
+        "refine_stationary_adjoint"] >= 6
+    fit_e, loss_e = map_fit(ll, lambda x: icr.apply_sqrt(mats, x),
+                            icr.zero_xi(), y, steps=6, jit=False)
+    assert _same_bits(loss_g, loss_e) and _same_bits(fit_g, fit_e)
+    assert float(loss_g[-1]) < float(loss_g[0])
+    def advi():
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        return advi_fit(gen, ll, lambda x: icr.apply_sqrt_batch(mats, x),
+                        icr.zero_xi(), y, steps=4)
+
+    graphed = advi()
+    with graphs.eager():
+        assert _same_bits(graphed, advi())
+
+
+@pytest.mark.cuda
+def test_cuda_learned_theta_fit_refuses_a_graph(cuda):
+    """A forward that rebuilds the matrices from θ syncs with the host
+    (eigh): ``map_fit(jit=True)`` raises and names ``jit=False``; the
+    card stays usable."""
+    from repro_torch import StandardizedModel, lognormal_prior, map_fit
+
+    icr, _, ll, y = _fit_problem(0, cuda)
+    priors = StandardizedModel({"rho": lognormal_prior(8.0, 4.0)})
+
+    def fwd(latent):
+        theta = dict(priors(latent[1]))
+        theta["sigma"] = 1.0
+        return icr(latent[0], theta)
+
+    latent0 = (icr.zero_xi(), priors.zero_xi(device=cuda))
+    with pytest.raises(RuntimeError, match="jit=False"):
+        map_fit(ll, fwd, latent0, y, steps=3)
+    _, losses = map_fit(ll, fwd, latent0, y, steps=3, jit=False)
+    assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", [0, 1, 2],
+                         ids=["regular", "dust", "log_polar"])
+def test_cuda_apply_sqrt_T_graph_equals_eager(cuda, case, pol):
+    """The cached, graphed transpose against its chain op by op, bit for
+    bit, at S = 1 and 3; a new matrix tensor or an in-place change of one
+    captures anew instead of replaying stale addresses."""
+    chart, rho = GRAPH_CHARTS[case]
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True, dtype_policy=pol)
+    mats = icr.matrices()
+    dt = icr.policy.storage_dtype
+    for n_s in (1, 3):
+        v = torch.randn((n_s,) + icr.out_shape, device=cuda).to(dt)
+        for _ in range(2):
+            assert _same_bits(icr.apply_sqrt_T_batch(mats, v),
+                              icr.apply_sqrt_T_batch(mats, v, cached=False))
+    assert len(icr._sqrt_T_graphs) == 2
+    mats["sqrt0"].mul_(2.0)
+    got = icr.apply_sqrt_T_batch(mats, v)
+    assert _same_bits(got, icr.apply_sqrt_T_batch(mats, v, cached=False))
+    assert len(icr._sqrt_T_graphs) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1], ids=["regular", "dust"])
+def test_cuda_cg_segments_graph_equal_eager(cuda, case):
+    """On-grid observations (the matvec's ``index_add_`` sees distinct
+    indices, so it is deterministic): the ladder's solve with its CG
+    segments replayed from the system's graphs equals the eager one in
+    status, iterations and x, bit for bit, at the default config and at
+    rtol 1e-7 (both CG rungs to their floor, then the dense rung)."""
+    from repro_torch.solvers import (CGConfig, build_condition_system,
+                                     obs_operator, solve_guarded)
+
+    chart, rho = CONDITION_CHARTS[case]
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True)
+    rng = np.random.default_rng(4)
+    obs = np.sort(rng.choice(chart.size, size=chart.size // 3,
+                             replace=False))
+    system = build_condition_system(icr, obs_operator(icr, obs_idx=obs),
+                                    0.0625)
+    y = torch.tensor(rng.standard_normal((1, obs.size)), dtype=torch.float32,
+                     device=cuda)
+    ladder = [("icr", system.precond), ("none", None)]
+    for cfg in (system.default_config(),
+                CGConfig(rtol=1e-7, max_iters=4 * obs.size)):
+        def solve():
+            return solve_guarded(system.matvec, y, preconds=ladder, cfg=cfg,
+                                 dense_solve=system.dense_solve,
+                                 segment_graphs=system.graphs)
+
+        xg, rg = solve()
+        with graphs.eager():
+            xe, re_ = solve()
+        assert rg.status == re_.status and rg.iterations == re_.iterations
+        assert _same_bits(xg, xe)
+    assert system.graphs
+
+
+@pytest.mark.cuda
+def test_cuda_kissgp_segments_graph_against_eager(cuda):
+    """Off-grid KISS-GP: ``index_add_`` adds colliding indices in no fixed
+    order, so graph and eager iterates differ in their last bits. Both
+    solves must converge with their true residual within 10·rtol (the
+    solver's own bar), in iteration counts within 10 % of each other."""
+    from repro_torch import KissGP
+    from repro_torch.solvers import CGConfig, pcg_iterate
+
+    xs = np.sort(np.random.default_rng(0).uniform(0, 10, 4096))
+    kg = KissGP(x=xs, kernel_fn=kernels.matern32.with_defaults(rho=1.0)(),
+                jitter=1e-1)
+    p = kg.spectrum()
+    y = torch.tensor(np.sin(xs), dtype=torch.float32, device=cuda)[None]
+    cfg = CGConfig(rtol=1e-5, max_iters=400)
+    out = [pcg_iterate(lambda v: kg.matvec(v, p), y, cfg=cfg)[:2]]
+    with graphs.eager():
+        out.append(pcg_iterate(lambda v: kg.matvec(v, p), y, cfg=cfg)[:2])
+    for x, stats in out:
+        assert int(stats["status"][0]) == 1   # converged
+        res = float((y - kg.matvec(x, p)).norm() / y.norm())
+        assert res <= 10 * cfg.rtol
+    (_, sg), (_, se) = out
+    assert abs(int(sg["iters"][0]) - int(se["iters"][0])) <= max(
+        2, int(se["iters"][0]) // 10)

@@ -24,7 +24,9 @@ def _run(args, timeout=300):
      ["covariance errors vs exact GP", "1,024-point sample"]),
     ("examples/torch_gp_regression_cg.py", ["--samples", "8"],
      ["cg_posterior:", "conditioned posterior served OK"]),
-], ids=["quickstart", "gp_regression_cg"])
+    ("examples/torch_gp_regression_vi.py", ["--quick"],
+     ["MAP: 40 steps", "ADVI: 20 steps", "posterior fitted and served OK"]),
+], ids=["quickstart", "gp_regression_cg", "gp_regression_vi"])
 def test_torch_example_runs_on_the_cpu(script, args, expect):
     out = _run([script, "--device", "cpu", *args])
     for line in expect:
