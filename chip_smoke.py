@@ -125,7 +125,27 @@ Phases (any failure ends the run with a non-zero exit code):
    unpreconditioned rung (500 iterations): iterations, status and the
    float64 residual of each; a rung that reports ``converged`` above
    10·rtol on its own matrices fails the run.
-7. times   — per kernel at its chart's largest level (the pyramid at
+7. distributed — a mesh of 8 slots over the visible cards (one card
+   repeated: a virtual mesh; the line gives the distinct devices):
+   ``DistributedICR.apply_sqrt_batch`` at S = 8, f32 and bf16, on dust
+   (shard axis 1), regular, log_polar and a reflect twin of the log chart
+   (``log_chart(1024, 8, n_csz=5, n_fsz=4, delta0=0.0197/16,
+   boundary="reflect")``, 262,144 points; the script's log chart is
+   "shrink", which DistributedICR refuses), each against the unsharded
+   kernel route (<= 1e-5 at f32, <= 5e-2 with bf16; bits equal or not),
+   its launches (each sharded level's kernel once per slot, a replicated
+   level once per device, and no plain version called), device ms
+   sharded and unsharded (CUDA events after the flush), enqueue ms, and
+   the halo bytes per sharded level; ``mixed_requests(3, 16)`` served on
+   dust and regular in samples mode (slab 2 a slot, one graph per slot)
+   bit for bit against the unsharded server, in chart mode within 1e-5,
+   and in samples mode with a ``KillDevice`` at the second slab attempt
+   (one re-plan, one cache miss, the replay bit for bit); and
+   ``cg_posterior(mesh=)`` on dust at 4,096 observations, σ = 0.25: α
+   against the unsharded solve's within 10·max(rtol, δ), the mean within
+   ``COND_MEAN_F64`` of the float64 posterior mean. One ``distributed``
+   line.
+8. times   — per kernel at its chart's largest level (the pyramid at
    regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
    per-level kernels it replaces beside it):
    CUDA-event medians of the kernel, its plain version and, where one
@@ -2212,6 +2232,330 @@ def check_condition(flush, card) -> dict:
     return launches
 
 
+# -- phase 7: distributed ICR, the mesh modes and the RHS-sharded solve ------
+DIST_SLOTS = 8
+# chart -> shard axis of the sharded apply; the log chart's reflect twin
+# stands in for the script's log chart, whose "shrink" boundary
+# DistributedICR refuses (it runs #3 sharded, per-family matrices sliced)
+DIST_AXES = {"dust": 1, "regular": 0, "log_polar": 0, "log_reflect": 0}
+DIST_SERVED = ("dust", "regular")
+
+
+def dist_mesh(axis: str, device="cuda"):
+    """``DIST_SLOTS`` slots over the visible cards, repeated where there
+    are fewer (a virtual mesh on one card); `device` "cpu" (a rehearsal
+    on the CPU) repeats the CPU."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    cards = ([torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())]
+             if device == "cuda" else [torch.device(device)])
+    return make_mesh((DIST_SLOTS,), (axis,),
+                     devices=[cards[i % len(cards)]
+                              for i in range(DIST_SLOTS)])
+
+
+@contextlib.contextmanager
+def plain_guard(window: str, device="cuda"):
+    """Within the block every plain version of the forward kernels counts
+    its calls (they must stay at 0 on the card: a CUDA tensor launches
+    the kernel; on the CPU they are what runs)."""
+    from repro_torch.kernels import icr_refine, nd_fused
+
+    names = [(icr_refine, n) for n in (
+        "refine_stationary_plain", "refine_charted_plain",
+        "refine_stationary_nn_plain", "refine_charted_nn_plain")]
+    names.append((nd_fused, "refine_nd_fused_plain"))
+    calls = collections.Counter()
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+
+    def counting(n, fn):
+        def run(*a, **k):
+            calls[n] += 1
+            return fn(*a, **k)
+        return run
+
+    for mod, n, fn in saved:
+        setattr(mod, n, counting(n, fn))
+    try:
+        yield calls
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+    if calls and device == "cuda":
+        raise AssertionError(f"distributed {window}: plain versions ran "
+                             f"{dict(calls)}")
+
+
+def _sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_apply_case(cname, chart, kernel, mats32, flush, gen,
+                    device="cuda") -> tuple:
+    """The sharded apply on one chart at S = 8, f32 and bf16: against the
+    unsharded kernel route (``ICR.apply_sqrt_batch``), launches per
+    kernel, device and enqueue ms each way, halo bytes per level. Returns
+    ``(launches, record)``."""
+    import torch
+
+    from repro_torch import ICR
+    from repro_torch.core.distributed import DistributedICR
+    from repro_torch.core.refine import LevelGeom
+    from repro_torch.kernels import build, dispatch
+
+    axis = DIST_AXES[cname]
+    launches = collections.Counter()
+    record = {"shard_axis": axis}
+    for pol in (None, "bf16"):
+        dname = "float32" if pol is None else "bfloat16"
+        icr = ICR(chart, kernel, use_pallas=True, dtype_policy=pol,
+                  device=device)
+        mats = (mats32 if pol is None and mats32 is not None
+                else icr.matrices())
+        dist = DistributedICR(icr, dist_mesh("space", device),
+                              shard_axis=axis)
+        k = dist.first_sharded_level()
+        placed = dist.place(mats)
+        xi = icr.init_xi(gen.manual_seed(11), batch=S)
+        _sync(device)
+        build.LAUNCHES.clear()
+        with plain_guard(f"{cname} {dname}", device):
+            blocks = dist.apply_sqrt_batch(placed, xi)
+            _sync(device)
+        counts = +collections.Counter(build.LAUNCHES)
+        launches.update(counts)
+        devices = len({s.device for s in dist.ring()})
+        want = collections.Counter()
+        for lvl in range(chart.n_levels):
+            geom = LevelGeom.for_level(chart, lvl)
+            kname = dispatch.KERNEL_OF_ROUTE[dispatch.route_for(
+                geom, have_axis_mats=chart.ndim > 1)]
+            want[kname] += devices if lvl < k else DIST_SLOTS
+        if device == "cuda" and counts != want:
+            raise AssertionError(f"distributed {cname} {dname}: launches "
+                                 f"{dict(counts)}, want {dict(want)}")
+        got = dist.gather(blocks)
+        ref = icr.apply_sqrt_batch(mats, xi)
+        _, rel = rel_err(got, ref)
+        if not rel <= TOL[dname]:
+            raise AssertionError(f"distributed {cname} {dname}: sharded "
+                                 f"against unsharded {rel:.3g} > "
+                                 f"{TOL[dname]}")
+        itemsize = torch.finfo(icr.policy.storage_dtype).bits // 8
+        record[dname] = {
+            "first_sharded_level": k, "max_rel_err": rel,
+            "bits_equal": bool(torch.equal(got, ref)),
+            "launches": dict(counts),
+            "sharded_ms": time_ms(
+                lambda: dist.apply_sqrt_batch(placed, xi), flush),
+            "unsharded_ms": time_ms(
+                lambda: icr.apply_sqrt_batch(mats, xi), flush),
+            "sharded_enqueue_ms": enqueue_ms(
+                lambda: dist.apply_sqrt_batch(placed, xi)),
+            "unsharded_enqueue_ms": enqueue_ms(
+                lambda: icr.apply_sqrt_batch(mats, xi)),
+            "halo_bytes": [dist.halo_bytes(lvl, S, itemsize)
+                           for lvl in range(k, chart.n_levels)]}
+        del blocks, got, ref, placed, xi
+    return launches, record
+
+
+def dist_serve_case(cname, chart, kernel, card, device="cuda") -> tuple:
+    """``mixed_requests(3, 16)`` served on 8 slots: samples mode (slab 2 a
+    slot) bit for bit against the unsharded server at slab 2; chart mode
+    (slab 8) within 1e-5 of the unsharded server at slab 8; samples mode
+    with a ``KillDevice`` at the second slab attempt: one re-plan, one
+    cache miss, the replayed rows bit for bit the unfaulted run's. The
+    launch counters cover the three sharded servers. Returns
+    ``(launches, record)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import chaos
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve_gp as sg
+
+    post = sg.demo_posterior(chart, kernel.default_theta["rho"],
+                             device=device)
+
+    def served(srv):
+        reqs = sg.mixed_requests(3, 16)
+        _sync(device)
+        t0 = time.perf_counter()
+        srv.run(reqs)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        out = []
+        for r in reqs:
+            if not r.done or r.error is not None:
+                raise AssertionError(f"distributed serve {cname}: request "
+                                     f"failed: {r.error}")
+            out.extend(r.fields if r.kind == "sample" else [r.mean, r.std])
+        return out, ms
+
+    base2, _ = served(sg.GPFieldServer(post, slab=2))
+    base8, _ = served(sg.GPFieldServer(post, slab=8))
+    _sync(device)
+    build.LAUNCHES.clear()
+    with plain_guard(f"serve {cname}", device):
+        samples = sg.GPFieldServer(post, slab=2,
+                                   mesh=dist_mesh("data", device))
+        got_s, ms_s = served(samples)
+        chart_srv = sg.GPFieldServer(post, slab=8,
+                                     mesh=dist_mesh("space", device),
+                                     shard="chart")
+        got_c, ms_c = served(chart_srv)
+        inj = chaos.ChaosInjector([chaos.KillDevice(at_slab=1,
+                                                    device_indices=(3,))])
+        killed = sg.GPFieldServer(post, slab=2,
+                                  mesh=dist_mesh("data", device),
+                                  fault_injector=inj)
+        got_k, ms_k = served(killed)
+    launches = +collections.Counter(build.LAUNCHES)
+    bits_s = all(np.array_equal(a, b) for a, b in zip(got_s, base2))
+    bits_k = all(np.array_equal(a, b) for a, b in zip(got_k, got_s))
+    chart_rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                    for a, b in zip(got_c, base8))
+    mk = killed.metrics()
+    ms = samples.metrics()
+    record = {
+        "samples_mode": ms["mode"], "chart_mode": chart_srv.serving_mode,
+        "samples_bits_equal": bits_s, "chart_max_rel_err": chart_rel,
+        "kill_bits_equal": bits_k, "kill_replans": mk["replans"],
+        "kill_cache_misses": mk["cache_misses"],
+        "kill_replayed_slabs": mk["replayed_slabs"],
+        "kill_mesh": mk["mesh"], "kill_recovery_s": mk["last_recovery_s"],
+        "graph_captures_samples": ms["graph_captures"],
+        "samples_cold_ms": ms_s, "chart_cold_ms": ms_c, "kill_ms": ms_k,
+        "launches": dict(launches), "card": card}
+    if not (bits_s and bits_k and chart_rel <= TOL["float32"] and inj.fired
+            and mk["replans"] == 1 and mk["cache_misses"] == 2
+            and mk["replayed_slabs"] >= 1
+            and killed.mesh.size == DIST_SLOTS - 1
+            and ms["mode"] == f"sharded-samples:{device}-"
+            f"{'graph' if device == 'cuda' else 'eager'}"
+            and ms["graph_captures"] == (DIST_SLOTS if device == "cuda"
+                                         else 0)):
+        raise AssertionError(f"distributed serve {cname}: {record}")
+    del samples, chart_srv, killed, post
+    return launches, record
+
+
+def dist_condition(chart, kernel, card, device="cuda") -> tuple:
+    """``cg_posterior(mesh=)`` on 8 slots at 4,096 observations (σ =
+    0.25) of a prior draw, default config: α against the unsharded solve's
+    within 10·max(rtol, δ) (δ capped at the report's ``floor_cap``), and
+    the mean field within ``COND_MEAN_F64`` of the float64 posterior mean
+    of the same system. Returns ``(launches, record)``."""
+    import torch
+
+    from repro_torch import cg_posterior
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve_gp as sg
+
+    post = sg.demo_posterior(chart, kernel.default_theta["rho"],
+                             device=device)
+    icr = post.icr
+    mats = icr.matrices_cached()
+    gen = torch.Generator(device=device).manual_seed(31)
+    truth = icr.sample(gen).reshape(-1)
+    n_obs = min(COND_OBS, truth.numel() // 2)
+    obs = torch.sort(torch.randperm(truth.numel(), generator=gen,
+                                    device=device)[:n_obs]).values
+    y = truth[obs].float() + COND_NOISE * torch.randn(
+        n_obs, generator=gen, device=device)
+    obs_np = obs.cpu().numpy()
+    sol0 = {}
+    cg_posterior(icr, obs_np, y, noise_std=COND_NOISE, _solution=sol0)
+    _sync(device)
+    build.LAUNCHES.clear()
+    sol = {}
+    t0 = time.perf_counter()
+    with plain_guard("cg_posterior", device):
+        post_s, rep = cg_posterior(icr, obs_np, y, noise_std=COND_NOISE,
+                                   mesh=dist_mesh("data", device),
+                                   _solution=sol)
+        _sync(device)
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    launches = +collections.Counter(build.LAUNCHES)
+    a, a0 = sol["alpha"].double(), sol0["alpha"].double()
+    alpha_rel = float(torch.linalg.vector_norm(a - a0)
+                      / torch.linalg.vector_norm(a0))
+    delta = rep.delta if rep.delta is not None else 0.0
+    held = min(delta, rep.floor_cap) if rep.floor_cap > 0 else delta
+    bound = 10 * max(rep.rtol, held)
+    want, res64, _ = mean64(sol0["system"], mats, sol0["alpha"], y)
+    with torch.no_grad():
+        mean = icr.apply_sqrt(mats, post_s.mean).reshape(-1).double()
+    mean_rel = float(torch.linalg.vector_norm(mean - want)
+                     / torch.linalg.vector_norm(want))
+    record = {"n_obs": n_obs, "noise_std": COND_NOISE,
+              "report": rep.summary(), "solve_ms": solve_ms,
+              "alpha_rel_vs_unsharded": alpha_rel, "alpha_bound": bound,
+              "alpha_bits_equal": bool(torch.equal(sol["alpha"],
+                                                   sol0["alpha"])),
+              "mean_vs_f64": mean_rel, "f64_residual": res64,
+              "launches": dict(launches), "card": card}
+    if not (rep.status[0] in ("converged", "dense") and alpha_rel <= bound
+            and mean_rel <= COND_MEAN_F64
+            and (launches or device != "cuda")):
+        raise AssertionError(f"distributed cg_posterior: {record}")
+    del sol, sol0, post_s, post
+    return launches, record
+
+
+def check_distributed(models, flush, gen, card, device="cuda",
+                      charts7=None) -> dict:
+    """Phase 7: the sharded apply on four charts, the two mesh modes and a
+    killed slot on dust and regular, and ``cg_posterior(mesh=)`` on dust;
+    one ``distributed`` line. Returns the launches. (`device` and
+    `charts7`, {name: (chart, kernel, f32 matrices or None)}, let a
+    rehearsal run it on the CPU at small charts.)"""
+    import torch
+
+    from repro_torch import log_chart, matern32
+
+    t0 = time.perf_counter()
+    mesh = dist_mesh("space", device)
+    record = {"slots": DIST_SLOTS,
+              "devices": len(mesh.distinct_devices()), "samples": S,
+              "card": card, "apply": {}, "serve": {}}
+    if charts7 is None:
+        charts7 = {c: (models[c][0].chart, models[c][0].kernel,
+                       models[c][1])
+                   for c in ("dust", "regular", "log_polar")}
+        charts7["log_reflect"] = (
+            log_chart(1024, 8, n_csz=5, n_fsz=4, delta0=0.0197 / 16,
+                      boundary="reflect"), matern32.with_defaults(rho=1.0),
+            None)
+    launches = collections.Counter()
+    for cname, (chart, kernel, mats) in charts7.items():
+        counts, rec = dist_apply_case(cname, chart, kernel, mats, flush, gen,
+                                      device)
+        launches.update(counts)
+        record["apply"][cname] = {"points": chart.size, **rec}
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for cname in DIST_SERVED:
+        chart, kernel, _ = charts7[cname]
+        counts, rec = dist_serve_case(cname, chart, kernel, card, device)
+        launches.update(counts)
+        record["serve"][cname] = rec
+    chart, kernel, _ = charts7["dust"]
+    counts, record["cg_posterior"] = dist_condition(chart, kernel, card,
+                                                    device)
+    launches.update(counts)
+    record["seconds"] = time.perf_counter() - t0
+    print("distributed: " + json.dumps(record), flush=True)
+    return {k: launches[k] for k in KERNEL_INFO}
+
+
 def main() -> int:
     import torch
 
@@ -2303,7 +2647,13 @@ def main() -> int:
     print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # -- 7. times ---------------------------------------------------------------
+    # -- 7. distributed: a mesh of 8 slots over the visible cards -----------
+    for k, n in check_distributed(models, flush, gen, card).items():
+        launches[k] += n
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 8. times ---------------------------------------------------------------
     times = kernel_times(models, bandwidth, flush, gen)
     entries = []
     for kname, info in KERNEL_INFO.items():

@@ -260,8 +260,10 @@ def cg_posterior(icr, obs, y, *, noise_std: float = 0.05, theta=None,
     (``solvers/pcg.py``). The solve runs the fallback ladder
     (ICR-whitened preconditioner → unpreconditioned → dense for small
     systems) with per-RHS quarantine isolation; ``manager`` +
-    ``checkpoint_every`` opt into checkpointing. ``mesh`` is not ported
-    yet and raises (``build_condition_system``).
+    ``checkpoint_every`` opt into checkpointing. ``mesh`` (a
+    ``launch.mesh.Mesh``) splits the matvec's right-hand sides over its
+    slots (``build_condition_system``); where the slots span several
+    devices the CG segments run op by op.
 
     Returns ``(posterior, report)``, the report the structured
     :class:`~repro_torch.solvers.SolveReport`. A dict passed as
@@ -293,11 +295,12 @@ def cg_posterior(icr, obs, y, *, noise_std: float = 0.05, theta=None,
     cfg = system.default_config() if config is None else config
     ladder = ([("icr", system.precond)] if system.precond is not None
               else []) + [("none", None)]
-    alpha, report = solve_guarded(
-        system.matvec, y, preconds=ladder,
-        dense_solve=system.dense_solve if dense_fallback else None,
-        cfg=cfg, manager=manager, checkpoint_every=checkpoint_every,
-        tag="cg_posterior", segment_graphs=system.graphs)
+    with system.solve_context():
+        alpha, report = solve_guarded(
+            system.matvec, y, preconds=ladder,
+            dense_solve=system.dense_solve if dense_fallback else None,
+            cfg=cfg, manager=manager, checkpoint_every=checkpoint_every,
+            tag="cg_posterior", segment_graphs=system.graphs)
     if _solution is not None:
         _solution.update(system=system, alpha=alpha, cfg=cfg)
     xi_hat = system.project_xi(alpha)

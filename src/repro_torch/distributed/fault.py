@@ -6,9 +6,12 @@ The serving policy (``launch/serve_gp.py``): every slab attempt runs
 under ``ServingFaultSupervisor.execute``. A transient error retries the
 same attempt with backoff (on the card: the same captured graph, replayed
 again; no retry falls back to an eager path or to the plain versions);
-``DeviceLossError`` is never retried in place and propagates (on one
-device there is nothing to re-plan onto). Every attempt's wall time
-feeds the ``StragglerMonitor`` (median + MAD).
+``DeviceLossError`` is never retried in place: it propagates to the
+server's re-plan onto the surviving slots of its mesh (without a mesh
+there is nothing to re-plan onto, and it propagates to the caller).
+Every attempt's wall time feeds the ``StragglerMonitor`` (median + MAD),
+which the chaos suite (``chaos.check_straggler_detection``) holds to
+flag a delayed slab.
 
 ``FaultSupervisor`` is the training driver's restore-and-retry policy,
 kept with the rest of the module for the fits' driver to come.

@@ -226,9 +226,10 @@ def plan(chart, *, pyramid: bool = False, samples: int = 1,
 
 
 # plan() walks every level's geometry and traffic model: repeat traffic
-# against the same (chart, sample count, dtype, pyramid, device type) asks
-# for the same answer, so the server's warm path reads it from here. The
-# JAX package keys the backend; the port's backend is the device type.
+# against the same (chart, sample count, dtype, pyramid, device type,
+# mesh) asks for the same answer, so the server's warm path reads it from
+# here. The JAX package keys the backend; the port's backend is the
+# device type.
 _PLAN_CACHE: dict = {}
 plan_cache_stats = {"hits": 0, "misses": 0}
 
@@ -242,13 +243,15 @@ def _frozen(x):
 
 
 def plan_cached(chart, *, samples: int = 1, dtype=None, pyramid: bool = True,
-                device="cuda") -> tuple:
+                device="cuda", mesh_key=None) -> tuple:
     """Memoized ``plan()`` (LRU, 32 entries) behind a key of the chart,
-    ``samples``, the storage dtype, ``pyramid`` and the device type. The
-    result is shared by every caller, so it is read-only: a tuple of
+    ``samples``, the storage dtype, ``pyramid``, the device type and the
+    serving mesh's fingerprint ``mesh_key`` (a re-mesh re-plans, as in
+    the JAX package: the per-slot plan is the same, never a stale entry).
+    The result is shared by every caller, so it is read-only: a tuple of
     read-only mappings, equal entry for entry to ``plan()``'s."""
     key = (chart, int(samples), storage_width(dtype)[1], bool(pyramid),
-           torch.device(device).type)
+           torch.device(device).type, mesh_key)
     hit = _PLAN_CACHE.pop(key, None)
     if hit is not None:
         plan_cache_stats["hits"] += 1

@@ -1,3 +1,5 @@
 """Entry points of the port: ``serve_gp``, the GP field server on one
-device (``python -m repro_torch.launch.serve_gp``). Nothing is imported
-here, so that ``-m`` runs the module once."""
+device or a mesh of slots (``python -m repro_torch.launch.serve_gp``);
+``mesh``, the mesh of slots; ``_dist_icr_check``, the sharded square
+root against the unsharded one. Nothing is imported here, so that ``-m``
+runs a module once."""

@@ -1,10 +1,9 @@
-"""Batched GP posterior field server, on one device.
+"""Batched GP posterior field server, on one device or a mesh of slots.
 
-The counterpart of the JAX package's ``launch/serve_gp.py`` (its
-single-device half). Clients submit posterior-sample and
-predictive-moment requests against a fitted ICR posterior
-(``core.vi.Posterior``: a MAP ξ̂ or a mean-field ``(mean, log_std)``),
-and the server
+The counterpart of the JAX package's ``launch/serve_gp.py``. Clients
+submit posterior-sample and predictive-moment requests against a fitted
+ICR posterior (``core.vi.Posterior``: a MAP ξ̂ or a mean-field ``(mean,
+log_std)``), and the server
 
   * packs heterogeneous requests into fixed-size **sample slabs**, each
     one ``ICR.apply_sqrt_batch`` on the kernel route;
@@ -12,7 +11,7 @@ and the server
     over slabs (Chan's parallel merge per slab, in numpy);
   * never rebuilds structure for repeat traffic: the executable cache is
     keyed on (chart, kernel, jitter, θ, dtype policy, routing flags,
-    device, slab) and each entry holds the matrices
+    device, slab, mesh) and each entry holds the matrices
     (``ICR.matrices_cached``), the plan (``dispatch.plan_cached``) and the
     slab executable.
 
@@ -65,11 +64,49 @@ package's threefry draws as the slabs' do. The predictive std is taken
 over the columns that were not quarantined; the request's
 ``SolveReport`` rides back on it and in ``metrics()``.
 
-Not ported yet: the mesh modes and the re-plan after a device loss (on
-one device a ``DeviceLossError`` propagates, mid-solve too, as the JAX
-server's does without a mesh), and ``lowered_slab``.
+**Mesh serving** (``mesh=``, a ``launch.mesh.Mesh`` of slots; the JAX
+server's ``shard_map`` modes, driven from one process):
+
+  * ``shard="samples"``: one slab graph per slot, captured on the slot's
+    device; each slot draws and refines its own rows through the same
+    counter-based stream, on the matrices and q-parameters its device
+    holds once for all its slots. A slot runs ``local_rows`` rows, pinned
+    at construction to the slab height, so the capacity of a step is
+    ``slab`` rows per slot and contracts with the mesh after a loss while
+    no slot's shapes change. Each slot's graph is then the unsharded
+    server's slab graph on the rows the unsharded server packs into one
+    slab, and the moments merge slot by slot: fields and moments equal the
+    unsharded server's bit for bit (the JAX server splits one slab over
+    its devices, ``ceil(slab / n)`` rows each; the per-row sums of a
+    batched matmul and of the kernels' plain versions depend on the
+    batch height, as measured on the CPU, so such a split cannot match
+    the unsharded server's bits).
+  * ``shard="chart"``: rows stay whole and each slab runs through
+    ``DistributedICR``'s halo-exchange body over every mesh axis
+    (``_feasible_chart_mesh`` shrinks the ring to what the family counts
+    divide); the rows' ξ are drawn once on the ring's first device and
+    each slot takes its block. A ring on one device is one captured graph;
+    across devices the body runs op by op (``serving_mode`` says which).
+  * The mesh fingerprint (``_mesh_key``: shard mode, axis names, shape and
+    slot ids) is part of the cache key and of ``dispatch.plan_cached``'s,
+    so a re-mesh is a deliberate miss.
+  * **Device loss:** a ``DeviceLossError`` (slot ids) from a slab attempt
+    runs detect → shrink (``elastic.shrink_mesh``; chart mode the largest
+    feasible ring) → re-plan (a fresh entry, its graphs captured in the
+    foreground, where the JAX server compiles in a background thread) →
+    replay of the in-flight rows, which the (seed, row) stream makes bit
+    for bit the unfaulted ones in samples mode. One surviving slot drops
+    to the single-device path, recorded as a ``Degradation``. Without a
+    mesh the error propagates.
+  * ``kind="condition"`` in samples mode solves on the RHS-sharded system
+    (``build_condition_system(mesh=)``, columns split over the slots) and
+    re-plans mid-solve through ``pcg_solve``'s checkpoint/resume; chart
+    mode solves unsharded.
+
+Not ported: ``lowered_slab``.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_gp [--scenario dust]
+          [--mesh N]
 """
 from __future__ import annotations
 
@@ -86,7 +123,9 @@ import torch
 
 from repro_torch.core import graphs
 from repro_torch.core.vi import Posterior
-from repro_torch.distributed.fault import ServingFaultSupervisor
+from repro_torch.distributed import elastic
+from repro_torch.distributed.fault import (DeviceLossError,
+                                           ServingFaultSupervisor)
 from repro_torch.kernels import dispatch
 
 _PAD_ROW = 2**30  # padding rows index past every request's noise stream
@@ -249,23 +288,34 @@ def _all_finite(x) -> bool:
 
 class GPFieldServer:
     """Continuous-batching server over one (swappable) fitted Posterior,
-    on the posterior's device.
+    on the posterior's device, or over a ``mesh`` of slots.
 
     ``slab`` is the fixed slab height: every step runs one fixed-shape
     batch of rows through the entry's slab executable (on the card, one
-    replay of its CUDA graph). Rows go to queued requests greedily in
-    queue order; a short slab pads with rows whose noise index lies past
-    every request's stream.
+    replay of its CUDA graph; in samples mode one per slot, each a whole
+    slab). Rows go to queued requests greedily in queue order; a short
+    slab pads with rows whose noise index lies past every request's
+    stream. ``mesh`` and ``shard`` select the mesh modes (module
+    docstring).
     """
 
     def __init__(self, posterior: Posterior, slab: int = 8,
-                 max_cached: int = 8,
+                 max_cached: int = 8, mesh=None, shard: str = "samples",
                  supervisor: Optional[ServingFaultSupervisor] = None,
                  fault_injector: Optional[Callable] = None,
                  ckpt_root: Optional[str] = None,
                  solver_checkpoint_every: int = 8,
                  solver_config=None):
+        if shard not in ("samples", "chart"):
+            raise ValueError(f"shard={shard!r}: expected 'samples' or "
+                             "'chart'")
         self.slab = int(slab)
+        self.mesh = mesh
+        self.shard = shard
+        # rows per slot, pinned here and kept across re-meshes: a replayed
+        # slab runs the same shapes on the shrunk mesh (the capacity
+        # contracts with the mesh instead)
+        self._local_rows = self.slab
         self.supervisor = supervisor or ServingFaultSupervisor()
         # test hook: called once per slab attempt with the server; may
         # raise (a transient error, or DeviceLossError), sleep, or no-op
@@ -281,6 +331,11 @@ class GPFieldServer:
         self.slabs_attempted = 0  # execution attempts incl. retried ones
         self.rows_served = 0      # non-padding rows (posterior draws)
         self.fields_delivered = 0
+        self.replans = 0           # device-loss re-mesh events
+        self.replayed_slabs = 0    # in-flight slabs re-executed after loss
+        self.dead_devices: set = set()
+        self.degradations: list = []  # elastic.Degradation records
+        self.last_recovery_s: Optional[float] = None  # fault -> first slab
         # data-conditioned solves (kind="condition")
         self.ckpt_root = ckpt_root
         self.solver_checkpoint_every = int(solver_checkpoint_every)
@@ -294,15 +349,44 @@ class GPFieldServer:
         self.posterior = None
         self.set_posterior(posterior)
 
+    # -- mesh geometry -------------------------------------------------------
+    def _n_shards(self) -> int:
+        """Sample-axis parallelism: the slots in samples mode, else 1."""
+        if self.mesh is None or self.shard != "samples":
+            return 1
+        return self.mesh.size
+
     @property
     def capacity(self) -> int:
-        """Rows per executed slab: the slab height (one device)."""
-        return self.slab
+        """Rows per executed slab: the slab height without a mesh and in
+        chart mode; in samples mode ``local_rows`` per slot, with
+        ``local_rows`` pinned at construction, so the capacity contracts
+        with the mesh after a loss while each slot's shapes stay."""
+        n = self._n_shards()
+        return self.slab if n == 1 else self._local_rows * n
+
+    def _mesh_key(self):
+        """Hashable mesh fingerprint for the cache key: shard mode, axis
+        names, mesh shape and the slots (id, device), so a re-mesh (even
+        to an equal-size mesh on other slots) is a deliberate miss."""
+        if self.mesh is None:
+            return None
+        return (self.shard, tuple(self.mesh.axis_names),
+                tuple(int(n) for n in self.mesh.devices.shape),
+                tuple((s.id, str(s.device)) for s in self.mesh.slots))
+
+    def _mesh_desc(self) -> str:
+        """Printable mesh dimension for fingerprints and metrics."""
+        if self.mesh is None:
+            return "unsharded"
+        shape = "x".join(str(int(n)) for n in self.mesh.devices.shape)
+        return f"{self.shard}:{shape}:{','.join(self.mesh.axis_names)}"
 
     @property
     def serving_mode(self) -> str:
-        """``single:`` and how the active entry's slab runs:
-        ``cuda-graph`` or ``cpu-eager``."""
+        """The tier (``single``, ``sharded-samples``, ``sharded-chart``)
+        and how the active entry's slab runs: ``cuda-graph`` or
+        ``cpu-eager`` (or ``cuda-eager``: a chart ring across cards)."""
         return self._entry["mode"]
 
     # -- executable cache ----------------------------------------------------
@@ -317,7 +401,7 @@ class GPFieldServer:
                              for k, v in kern.default_theta.items())))
         return (icr.chart, kkey, icr.jitter, icr._theta_key(post.theta),
                 icr.policy, icr.use_pallas, icr.use_pyramid,
-                str(torch.device(icr.device)), self.slab)
+                str(torch.device(icr.device)), self.slab, self._mesh_key())
 
     def _validate_posterior(self, post: Posterior):
         """A poisoned fit is never installed: non-finite θ or q-parameters
@@ -332,9 +416,11 @@ class GPFieldServer:
 
     def set_posterior(self, post: Posterior):
         """Point the server at a (new) fit. An equal key is a cache hit:
-        the matrices, plan and graph are reused and only the q-parameters
-        are copied into the entry's buffers (the graph holds their
-        addresses); anything else is a miss and builds a fresh entry."""
+        the matrices, plan and graphs are reused and only the q-parameters
+        are copied into the entry's buffers (the graphs hold their
+        addresses; each device's buffers once); anything else is a miss
+        and builds a fresh entry, its graphs captured as it is built (the
+        re-plan after a device loss too, in the foreground)."""
         self._validate_posterior(post)
         key = self._cache_key(post)
         if key in self._exec:
@@ -343,34 +429,29 @@ class GPFieldServer:
             self.cache_misses += 1
         entry = graphs.lru(self._exec, key, lambda: self._build(post),
                            self.max_cached)
-        bufs = entry["bufs"]
-        for off, n, m, s in zip(entry["offsets"], entry["sizes"], post.mean,
-                                post.std()):
-            bufs["mean"][off:off + n].copy_(m.reshape(-1))
-            bufs["std"][off:off + n].copy_(s.reshape(-1))
+        for bufs in entry["qbufs"]:
+            for off, n, m, s in zip(entry["offsets"], entry["sizes"],
+                                    post.mean, post.std()):
+                bufs["mean"][off:off + n].copy_(m.reshape(-1))
+                bufs["std"][off:off + n].copy_(s.reshape(-1))
         self.posterior = post
         self._entry = entry
         return entry
 
-    def _build(self, post: Posterior) -> dict:
-        icr = post.icr
-        device = torch.device(icr.device)
+    def _slab_parts(self, icr, device, cap: int, qbufs: dict) -> tuple:
+        """The buffers and the draw of a slab of `cap` rows on `device`
+        (the q-parameter buffers `qbufs`, ``mean`` and ``std``, are the
+        device's, shared by its slots): ``(bufs, draw)``."""
         shapes = [tuple(s) for s in icr.xi_shapes()]
         sizes = [math.prod(s) for s in shapes]
         offsets = list(itertools.accumulate(sizes[:-1], initial=0))
-        n_xi, cap = sum(sizes), self.capacity
         storage = icr.policy.storage_dtype
-        plan = dispatch.plan_cached(
-            icr.chart, samples=cap, dtype=storage,
-            pyramid=icr.use_pallas and icr.use_pyramid, device=device)
-        mats = icr.matrices_cached(post.theta)
-        counters = noise_counters(n_xi, device)
+        counters = noise_counters(sum(sizes), device)
         meta = torch.zeros((3, cap), dtype=torch.int64, device=device)
         meta[1] = _PAD_ROW
         bufs = {"meta": meta,  # seeds, rows, ξ flags
-                "client": torch.zeros((cap, n_xi), device=device),
-                "mean": torch.zeros(n_xi, device=device),
-                "std": torch.zeros(n_xi, device=device)}
+                "client": torch.zeros((cap, sum(sizes)), device=device),
+                **qbufs}
 
         def draw(meta, client, mean, std):
             """Each row's excitation: (seed, row)-keyed noise around the
@@ -382,20 +463,129 @@ class GPFieldServer:
                     .contiguous()
                     for o, n, s in zip(offsets, sizes, shapes)]
 
-        def slab_fn(meta, client, mean, std):
-            # clients get f32 fields whatever the storage dtype
-            xi = draw(meta, client, mean, std)
-            return icr.apply_sqrt_batch(mats, xi).float()
+        return bufs, draw
 
+    def _qbufs(self, icr, device) -> dict:
+        n_xi = icr.xi_size()
+        return {"mean": torch.zeros(n_xi, device=device),
+                "std": torch.zeros(n_xi, device=device)}
+
+    def _capture(self, slab_fn, bufs, device, *, eager: bool = False):
         args = (bufs["meta"], bufs["client"], bufs["mean"], bufs["std"])
-        fn = graphs.capture(slab_fn, *args, device=device)
+        if eager:
+            with graphs.eager():
+                fn = graphs.capture(slab_fn, *args, device=device)
+        else:
+            fn = graphs.capture(slab_fn, *args, device=device)
         if fn.graph is not None:
             self.graph_captures += 1
-        mode = f"single:{device.type}-{'eager' if fn.graph is None else 'graph'}"
-        return {"mats": mats, "plan": plan, "fn": fn, "slab_fn": slab_fn,
-                "draw": draw, "args": args, "bufs": bufs,
-                "capacity": cap, "shapes": shapes, "sizes": sizes,
-                "offsets": offsets, "mode": mode}
+        return fn, args
+
+    def _build(self, post: Posterior) -> dict:
+        icr = post.icr
+        device = torch.device(icr.device)
+        shapes = [tuple(s) for s in icr.xi_shapes()]
+        sizes = [math.prod(s) for s in shapes]
+        storage = icr.policy.storage_dtype
+        local_rows = self.capacity // self._n_shards()
+        plan = dispatch.plan_cached(
+            icr.chart, samples=local_rows, dtype=storage,
+            pyramid=(icr.use_pallas and icr.use_pyramid
+                     and not (self.mesh is not None
+                              and self.shard == "chart")),
+            device=device, mesh_key=self._mesh_key())
+        if self.mesh is not None and self.shard == "chart":
+            entry = self._build_chart_sharded(post)
+        elif self.mesh is not None:
+            entry = self._build_sample_sharded(post, local_rows)
+        else:
+            mats = icr.matrices_cached(post.theta)
+            qbufs = self._qbufs(icr, device)
+            bufs, draw = self._slab_parts(icr, device, local_rows, qbufs)
+
+            def slab_fn(meta, client, mean, std):
+                # clients get f32 fields whatever the storage dtype
+                xi = draw(meta, client, mean, std)
+                return icr.apply_sqrt_batch(mats, xi).float()
+
+            fn, args = self._capture(slab_fn, bufs, device)
+            entry = {"mats": mats, "fn": fn, "slab_fn": slab_fn,
+                     "draw": draw, "args": args, "bufs": bufs,
+                     "qbufs": [qbufs],
+                     "mode": f"single:{device.type}-"
+                             f"{'eager' if fn.graph is None else 'graph'}"}
+        entry.update(plan=plan, capacity=self.capacity,
+                     local_rows=local_rows, shapes=shapes, sizes=sizes,
+                     offsets=list(itertools.accumulate(sizes[:-1],
+                                                       initial=0)))
+        return entry
+
+    def _build_sample_sharded(self, post: Posterior, local_rows: int) -> dict:
+        """Data-parallel over the rows: one slab graph per slot on its
+        device, ``local_rows`` rows each; the matrices are placed
+        replicated (``elastic.remesh_report``: one copy per device, shared
+        by its slots, and any degradation reported) and the q-parameter
+        buffers are the device's."""
+        icr = post.icr
+        mats = icr.matrices_cached(post.theta)
+        placed, report = elastic.remesh_report(mats, self.mesh,
+                                               elastic.replicated(mats))
+        self.degradations.extend(report)
+        per_device: dict = {}
+        slots = []
+        for i, slot in enumerate(self.mesh.slots):
+            qbufs = per_device.get(slot.device)
+            if qbufs is None:
+                qbufs = per_device[slot.device] = self._qbufs(icr,
+                                                              slot.device)
+            m = elastic.slot_view(placed, i)
+            bufs, draw = self._slab_parts(icr, slot.device, local_rows,
+                                          qbufs)
+
+            def slab_fn(meta, client, mean, std, m=m, draw=draw):
+                xi = draw(meta, client, mean, std)
+                return icr.apply_sqrt_batch(m, xi).float()
+
+            fn, args = self._capture(slab_fn, bufs, slot.device)
+            slots.append({"fn": fn, "slab_fn": slab_fn, "draw": draw,
+                          "args": args, "bufs": bufs, "mats": m,
+                          "device": slot.device, "id": slot.id})
+        kind = slots[0]["device"].type
+        how = "graph" if slots[0]["fn"].graph is not None else "eager"
+        return {"slots": slots, "qbufs": list(per_device.values()),
+                "mode": f"sharded-samples:{kind}-{how}"}
+
+    def _build_chart_sharded(self, post: Posterior) -> dict:
+        """Spatial decomposition through ``DistributedICR``'s halo body:
+        every slot of the ring owns a block along the shard axis. The rows'
+        ξ are drawn once, on the ring's first device, and each slot keeps
+        its block of the sharded levels; the matrices are placed by
+        ``DistributedICR.mat_specs`` (degradations reported). A ring on one
+        device captures the slab as one graph; across devices it runs op
+        by op."""
+        from repro_torch.core.distributed import DistributedICR
+
+        icr = post.icr
+        dist = DistributedICR(icr, self.mesh,
+                              axis_names=tuple(self.mesh.axis_names))
+        placed = dist.place(icr.matrices_cached(post.theta),
+                            self.degradations)
+        ring = dist.ring()
+        device = ring[0].device
+        qbufs = self._qbufs(icr, device)
+        bufs, draw = self._slab_parts(icr, device, self.slab, qbufs)
+
+        def slab_fn(meta, client, mean, std):
+            xi = draw(meta, client, mean, std)
+            blocks = dist.apply_sqrt_batch(placed, xi)
+            return dist.gather(blocks, device).float()
+
+        one_device = len({s.device for s in ring}) == 1
+        fn, args = self._capture(slab_fn, bufs, device, eager=not one_device)
+        how = "graph" if fn.graph is not None else "eager"
+        return {"mats": placed, "fn": fn, "slab_fn": slab_fn, "draw": draw,
+                "args": args, "bufs": bufs, "qbufs": [qbufs], "dist": dist,
+                "mode": f"sharded-chart:{device.type}-{how}"}
 
     # -- admission -----------------------------------------------------------
     def _reject(self, req: GPRequest, code: str, message: str):
@@ -506,12 +696,13 @@ class GPFieldServer:
                                 "finite positive float")
 
     # -- slab execution ------------------------------------------------------
-    def _slab_args(self, entry: dict, rows: list) -> tuple:
-        """One slab's inputs: each request's own ξ is written into its rows
-        of the entry's buffer here; the seeds, rows and flags are returned
-        as one host tensor, which the slab executable copies into its
-        buffer. Rows past the packed prefix are padding."""
-        cap = entry["capacity"]
+    @staticmethod
+    def _pack(bufs: dict, rows: list, cap: int) -> torch.Tensor:
+        """One slab's rows into a slab's buffers: each request's own ξ is
+        written into its rows of ``bufs["client"]`` here; the seeds, rows
+        and flags come back as one (3, cap) host tensor, which the slab
+        executable copies into ``bufs["meta"]``. Rows past `rows` are
+        padding."""
         meta = np.zeros((3, cap), np.int64)
         meta[1] = _PAD_ROW
         i = 0
@@ -525,45 +716,152 @@ class GPFieldServer:
                 meta[2, i:j] = 1
                 flat = np.concatenate([_host(leaf).astype(np.float32).ravel()
                                        for leaf in req.xi])
-                entry["bufs"]["client"][i:j].copy_(
+                bufs["client"][i:j].copy_(
                     torch.from_numpy(flat).expand(j - i, -1))
             i = j
-        return (torch.from_numpy(meta),)
+        return torch.from_numpy(meta)
+
+    def _slab_args(self, entry: dict, rows: list) -> tuple:
+        """One slab's inputs (``_pack``): the host meta tensor, or in
+        samples mode one per slot, slot k taking rows ``[k·local_rows,
+        (k+1)·local_rows)``."""
+        if "slots" not in entry:
+            return (self._pack(entry["bufs"], rows, entry["capacity"]),)
+        n = entry["local_rows"]
+        return tuple(self._pack(slot["bufs"], rows[k * n:(k + 1) * n], n)
+                     for k, slot in enumerate(entry["slots"]))
+
+    @staticmethod
+    def _to_host(outs: list) -> np.ndarray:
+        """The slab outputs (one per slot, or one) as one float32 numpy
+        array, through pinned memory from the card."""
+        if outs[0].device.type != "cuda":
+            return np.concatenate([o.numpy() for o in outs])
+        host = torch.empty((sum(o.shape[0] for o in outs),)
+                           + tuple(outs[0].shape[1:]),
+                           dtype=outs[0].dtype, pin_memory=True)
+        i = 0
+        for o in outs:
+            host[i:i + o.shape[0]].copy_(o, non_blocking=True)
+            i += o.shape[0]
+        for dev in dict.fromkeys(o.device for o in outs):
+            torch.cuda.current_stream(dev).synchronize()
+        return host.numpy()
 
     def _execute_once(self, entry: dict, args: tuple) -> np.ndarray:
         """One slab attempt under the fault supervisor: a transient error
-        retries (the same graph, replayed again), ``DeviceLossError``
-        propagates, wall time feeds the straggler monitor. The fields come
-        back as float32 numpy (through pinned memory on the card)."""
+        retries (the same graphs, replayed again), ``DeviceLossError``
+        propagates to the re-plan, wall time feeds the straggler monitor.
+        The fields come back as float32 numpy."""
 
         def attempt():
             self.slabs_attempted += 1
             if self.fault_injector is not None:
                 self.fault_injector(self)
-            out = entry["fn"](*args)
-            if out.device.type != "cuda":
-                return out.numpy()
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            torch.cuda.current_stream(out.device).synchronize()
-            return host.numpy()
+            if "slots" in entry:
+                outs = [slot["fn"](meta)
+                        for slot, meta in zip(entry["slots"], args)]
+            else:
+                outs = [entry["fn"](*args)]
+            return self._to_host(outs)
 
         return self.supervisor.execute(attempt)
 
+    def _on_device_loss(self, exc: DeviceLossError):
+        """detect → shrink → re-plan: the mesh shrinks to the surviving
+        slots (chart mode: the largest feasible ring), the cache key
+        changes with it (a deliberate miss) and a fresh entry is built on
+        the new mesh; the caller then replays the in-flight rows. Without
+        a mesh there is nothing to shrink onto: the error propagates."""
+        if self.mesh is None:
+            raise exc
+        self.dead_devices.update(exc.device_ids)
+        new_mesh = elastic.shrink_mesh(self.mesh, self.dead_devices)
+        if new_mesh is not None and self.shard == "chart":
+            new_mesh = self._feasible_chart_mesh(new_mesh)
+        if new_mesh is None:
+            self.degradations.append(elastic.Degradation(
+                path="<mesh>", requested=self._mesh_desc(),
+                applied="unsharded",
+                reason=f"lost device(s) {sorted(self.dead_devices)}; "
+                       "degrading to the single-device path"))
+        self.mesh = new_mesh
+        self.replans += 1
+        self.set_posterior(self.posterior)
+
+    def _feasible_chart_mesh(self, mesh):
+        """Chart sharding needs the family counts divisible by the ring:
+        the largest feasible ring of the first survivors (a degradation
+        when slots must idle), or None when no ring >= 2 is feasible."""
+        from repro_torch.core.distributed import DistributedICR
+        from repro_torch.launch.mesh import Mesh
+
+        slots = mesh.slots
+        for n in range(len(slots), 1, -1):
+            devs = np.empty(n, dtype=object)
+            devs[:] = [s.device for s in slots[:n]]
+            cand = Mesh(devs, mesh.axis_names[:1],
+                        ids=np.asarray([s.id for s in slots[:n]]))
+            try:
+                DistributedICR(self.posterior.icr, cand,
+                               axis_names=tuple(cand.axis_names)
+                               ).first_sharded_level()
+            except ValueError:
+                continue
+            if n < len(slots):
+                self.degradations.append(elastic.Degradation(
+                    path="<mesh>", requested=f"{self.shard}:{len(slots)}",
+                    applied=f"{self.shard}:{n}",
+                    reason=f"no refinement level shardable over "
+                           f"{len(slots)} survivors; largest feasible ring "
+                           f"is {n}"))
+            return cand
+        self.degradations.append(elastic.Degradation(
+            path="<mesh>", requested=f"{self.shard}:{len(slots)}",
+            applied="unsharded",
+            reason="no feasible chart ring over the survivors"))
+        return None
+
     def _run_rows(self, rows: list) -> np.ndarray:
-        """Execute one slab of packed rows (at most ``capacity``). On one
-        device a ``DeviceLossError`` has nothing to re-plan onto and
-        propagates."""
-        entry = self._entry
-        out = self._execute_once(entry, self._slab_args(entry, rows))
-        self.slabs_run += 1
-        return out[:len(rows)]
+        """Execute packed rows, in chunks of the active entry's capacity.
+        A ``DeviceLossError`` mid-chunk re-plans onto the surviving slots
+        and replays that chunk; the (seed, row) noise makes the replay
+        reproduce the unfaulted rows."""
+        outs = []
+        i = 0
+        recovery_t0 = None
+        while i < len(rows):
+            entry = self._entry
+            chunk = rows[i:i + entry["capacity"]]
+            args = self._slab_args(entry, chunk)
+            try:
+                out = self._execute_once(entry, args)
+            except DeviceLossError as exc:
+                if recovery_t0 is None:
+                    recovery_t0 = time.perf_counter()
+                self._on_device_loss(exc)
+                self.replayed_slabs += 1
+                continue  # replay the same chunk on the new entry
+            if recovery_t0 is not None:
+                self.last_recovery_s = time.perf_counter() - recovery_t0
+                recovery_t0 = None
+            outs.append(out[:len(chunk)])
+            self.slabs_run += 1
+            i += len(chunk)
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
     # -- data-conditioned solves (kind="condition") ----------------------------
+    def _cond_mesh(self):
+        """The RHS-sharding mesh of the conditioning matvec: the serving
+        mesh in samples mode (the RHS batch is a sample batch, split the
+        same way); chart mode solves unsharded (the conditioning batch is
+        small and the halo body has no RHS axis to split)."""
+        return self.mesh if self.shard == "samples" else None
+
     def _condition_system(self, op, noise_var: float):
         """LRU-cached ConditionSystem keyed like the executable cache plus
-        the observation fingerprint and σ²: a re-fit or a new observation
-        pattern is a deliberate miss."""
+        the observation fingerprint and σ²: a re-fit, a re-mesh or a new
+        observation pattern is a deliberate miss."""
         from repro_torch.solvers import build_condition_system
 
         post = self.posterior
@@ -571,7 +869,8 @@ class GPFieldServer:
         return graphs.lru(
             self._cond_cache, key,
             lambda: build_condition_system(post.icr, op, noise_var,
-                                           theta=post.theta),
+                                           theta=post.theta,
+                                           mesh=self._cond_mesh()),
             self.max_cached)
 
     def _solver_manager(self):
@@ -621,7 +920,13 @@ class GPFieldServer:
         targets ``y − W f_j − σ ε_j`` (``_matheron_draws``). The solve runs
         the guarded fallback ladder under the fault supervisor, with
         checkpoints every ``solver_checkpoint_every`` iterations; the
-        SolveReport rides back on the request and in ``metrics()``."""
+        SolveReport rides back on the request and in ``metrics()``.
+
+        In samples mode the batch is padded with zero columns (converged
+        at iteration 0) to a multiple of the slots, and a device loss
+        mid-solve shrinks the mesh, re-plans the sampling entry and the
+        system on the survivors, pads the width up to their multiple and
+        resumes from the latest checkpoint."""
         from repro_torch.solvers import solve_guarded
         from repro_torch.solvers.gp_system import obs_operator
 
@@ -634,30 +939,54 @@ class GPFieldServer:
         except ValueError as e:  # race-proofing: _admit already checks
             return self._reject(req, "obs-invalid", str(e))
         noise_std = float(req.noise_std)
-        system = self._condition_system(op, noise_std ** 2)
+        noise_var = noise_std ** 2
+        state = {"system": self._condition_system(op, noise_var)}
         shape = tuple(icr.chart.final_shape)
         k_real = 1 + int(req.n)
-        fields, eps = self._matheron_draws(req, op.n_obs, system.mats)
+        fields, eps = self._matheron_draws(req, op.n_obs,
+                                           state["system"].mats)
         y = torch.as_tensor(_host(req.y).astype(np.float32).ravel(),
                             device=fields.device)[None, :]
         b = torch.cat([y, y - op.apply(fields) - noise_std * eps], dim=0)
+
+        def shards_of(system):
+            return 1 if system.mesh is None else system.mesh.size
+
+        n_sh = shards_of(state["system"])
+        k_pad = -(-k_real // n_sh) * n_sh
+        if k_pad > k_real:
+            b = torch.cat([b, b.new_zeros((k_pad - k_real, op.n_obs))])
 
         def fault_hook(it):
             self.solve_segments += 1
             if self.fault_injector is not None:
                 self.fault_injector(self)
 
+        def on_device_loss(exc):
+            # shrink the mesh and re-plan the sampling entry, then the
+            # system on the survivors; the width pads *up* to their
+            # multiple, so the running ladder never narrows below its batch
+            self._on_device_loss(exc)
+            system = state["system"] = self._condition_system(op, noise_var)
+            n = shards_of(system)
+            k_new = -(-max(k_real, k_pad) // n) * n
+            return system.matvec, {"icr": system.precond, "none": None}, k_new
+
+        system = state["system"]
         cfg = self.solver_config or system.default_config()
         ladder = ([("icr", system.precond)]
                   if system.precond is not None else []) + [("none", None)]
-        alpha, report = solve_guarded(
-            system.matvec, b, preconds=ladder, cfg=cfg,
-            dense_solve=system.dense_solve,
-            manager=self._solver_manager(),
-            checkpoint_every=self.solver_checkpoint_every or None,
-            fault_hook=fault_hook, executor=self.supervisor.execute,
-            n_report=k_real, tag=f"condition:{op.n_obs}obs",
-            segment_graphs=system.graphs)
+        with system.solve_context():
+            alpha, report = solve_guarded(
+                system.matvec, b, preconds=ladder, cfg=cfg,
+                dense_solve=lambda bb: state["system"].dense_solve(bb),
+                manager=self._solver_manager(),
+                checkpoint_every=self.solver_checkpoint_every or None,
+                fault_hook=fault_hook, on_device_loss=on_device_loss,
+                executor=self.supervisor.execute,
+                n_report=k_real, tag=f"condition:{op.n_obs}obs",
+                segment_graphs=system.graphs)
+        system = state["system"]
 
         req.report = report
         self.solve_reports.append(report)
@@ -712,10 +1041,15 @@ class GPFieldServer:
             return False
         out = self._run_rows(rows)
         self.rows_served += len(rows)
+        # merge per slab block of ``local_rows`` rows (without a mesh and in
+        # chart mode the whole step): in samples mode each slot's rows are
+        # the rows one unsharded slab takes, so the moments merge as there
+        block = self._local_rows
         i = 0
         while i < len(rows):
             req, j = rows[i][0], i
-            while j < len(rows) and rows[j][0] is req:
+            end = min(len(rows), (i // block + 1) * block)
+            while j < end and rows[j][0] is req:
                 j += 1
             chunk = out[i:j]
             if req.kind == "sample":
@@ -724,6 +1058,8 @@ class GPFieldServer:
             else:
                 req._wcount, req._wmean, req._wm2 = _welford_merge(
                     req._wcount, req._wmean, req._wm2, chunk)
+            i = j
+        for req in {id(r): r for r, _ in rows}.values():
             if req._next_row >= req.n:
                 if req.kind == "moments":
                     req.mean = req._wmean
@@ -732,7 +1068,6 @@ class GPFieldServer:
                 else:
                     self.fields_delivered += len(req.fields)
                 req.done = True
-            i = j
         return True
 
     def run(self, requests: List[GPRequest], max_iters: int = 1_000_000):
@@ -778,6 +1113,12 @@ class GPFieldServer:
             "graph_captures": self.graph_captures,
             "mode": self.serving_mode,
             "capacity": self.capacity,
+            "mesh": self._mesh_desc(),
+            "replans": self.replans,
+            "replayed_slabs": self.replayed_slabs,
+            "dead_devices": sorted(self.dead_devices),
+            "last_recovery_s": self.last_recovery_s,
+            "degradations": [str(d) for d in self.degradations],
             "condition_requests": self.condition_requests,
             "condition_rhs": self.condition_rhs,
             "solve_segments": self.solve_segments,
@@ -803,6 +1144,7 @@ class GPFieldServer:
             "device": torch.device(icr.device).type,
             "storage_dtype": str(icr.policy.storage_dtype).removeprefix(
                 "torch."),
+            "mesh": self._mesh_desc(),
         }
 
 
@@ -857,17 +1199,25 @@ def main():
     ap.add_argument("--mc", type=int, default=16)
     ap.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"])
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="shard over the first N visible cards (0: off)")
     args = ap.parse_args()
 
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((args.mesh,), ("data",))
     names = list(SCENARIOS) if args.scenario == "all" else [args.scenario]
     for name in names:
         chart = scenario_chart(name, quick=args.quick)
         pol = None if args.dtype == "fp32" else "bf16"
         post = demo_posterior(chart, SCENARIOS[name], dtype_policy=pol)
-        srv = GPFieldServer(post, slab=args.slab)
+        srv = GPFieldServer(post, slab=args.slab, mesh=mesh)
         shape = chart.final_shape
         print(f"[{name}] chart {shape} = {int(np.prod(shape)):,} px, "
-              f"slab={args.slab}, dtype={args.dtype}, mode={srv.serving_mode}")
+              f"slab={args.slab}, dtype={args.dtype}, mode={srv.serving_mode}"
+              f", mesh={srv._mesh_desc()}")
 
         t0 = time.perf_counter()
         srv.run(mixed_requests(args.fields, args.mc))

@@ -194,6 +194,20 @@ class ConditionSystem:
     # the solver's captured CG segments on this system (``pcg``'s
     # ``segment_graphs``): the ladder's rungs and repeated requests re-use
     graphs: dict = dataclasses.field(default_factory=dict)
+    # the mesh the matvec splits its right-hand sides over, or None
+    mesh: object = None
+
+    def solve_context(self):
+        """The context a solve on this system runs in: on a mesh whose
+        slots span several devices the CG segments run op by op (a CUDA
+        graph holds one device's work), else as captured graphs."""
+        import contextlib
+
+        from repro_torch.core import graphs as _graphs
+
+        if self.mesh is not None and len(self.mesh.distinct_devices()) > 1:
+            return _graphs.eager()
+        return contextlib.nullcontext()
 
     @property
     def n_obs(self) -> int:
@@ -364,27 +378,61 @@ def icr_whitening_precond(icr, mats, obs, noise_var: float, *,
     return precond
 
 
+def _sharded_matvec(icr, mats, obs, noise_var: float, mesh) -> Callable:
+    """``condition_matvec`` with the right-hand sides split over the slots
+    of `mesh`: the batch is padded with zero columns to a multiple of the
+    slots, slot k takes its block of columns on its device, with the
+    matrices placed replicated (one copy per device, shared by its slots;
+    ``elastic.remesh_report``), and the blocks come back in order on the
+    caller's device."""
+    from repro_torch.distributed import elastic
+
+    placed, _ = elastic.remesh_report(mats, mesh, elastic.replicated(mats))
+    slots = [(slot.device, elastic.slot_view(placed, i))
+             for i, slot in enumerate(mesh.slots)]
+
+    def matvec(v: torch.Tensor) -> torch.Tensor:
+        k, n = v.shape[0], len(slots)
+        width = -(-k // n)
+        if width * n > k:
+            v = torch.cat([v, v.new_zeros((width * n - k, v.shape[1]))])
+        outs = [condition_matvec(icr, m, obs, noise_var,
+                                 v[i * width:(i + 1) * width].to(device))
+                for i, (device, m) in enumerate(slots)]
+        return torch.cat([o.to(v.device) for o in outs])[:k]
+
+    return matvec
+
+
 def build_condition_system(icr, obs, noise_var: float, *, theta=None,
                            mats=None, mesh=None,
                            precond_max_basis: int = 512,
                            use_precond: bool = True) -> ConditionSystem:
-    """Assemble the conditioning system on ``icr``'s device. A ``mesh``
-    (the JAX package's RHS-sharded matvec) is not ported yet and
-    raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_condition_system: the RHS-sharded matvec over a mesh "
-            "waits for the port's distributed modules (ROADMAP queue 1, "
-            "item 8)")
+    """Assemble the conditioning system on ``icr``'s device.
+
+    With ``mesh`` (a ``launch.mesh.Mesh``) the matvec splits the
+    right-hand sides over its slots, the matrices shared per device, the
+    width padded to a multiple of the slots (``_sharded_matvec``); the
+    preconditioner, the dense rung and the corrections stay on ``icr``'s
+    device. Any other ``mesh`` object raises a ``TypeError``."""
+    from repro_torch.launch.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, not "
+                        f"{type(mesh).__name__}")
     if mats is None:
         mats = icr.matrices_cached(theta)
     noise_var = float(noise_var)
 
-    def matvec(v: torch.Tensor) -> torch.Tensor:
-        return condition_matvec(icr, mats, obs, noise_var, v)
+    if mesh is None:
+        def matvec(v: torch.Tensor) -> torch.Tensor:
+            return condition_matvec(icr, mats, obs, noise_var, v)
+    else:
+        matvec = _sharded_matvec(icr, mats, obs, noise_var, mesh)
 
     precond = (icr_whitening_precond(icr, mats, obs, noise_var,
                                      max_basis=precond_max_basis)
                if use_precond else None)
     return ConditionSystem(icr=icr, obs=obs, noise_var=noise_var,
-                           mats=mats, matvec=matvec, precond=precond)
+                           mats=mats, matvec=matvec, precond=precond,
+                           mesh=mesh)

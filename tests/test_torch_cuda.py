@@ -923,3 +923,86 @@ def test_cuda_kissgp_segments_graph_against_eager(cuda):
     (_, sg), (_, se) = out
     assert abs(int(sg["iters"][0]) - int(se["iters"][0])) <= max(
         2, int(se["iters"][0]) // 10)
+
+
+# -- distributed: a virtual mesh of 8 slots on the card ------------------------
+# (chart, ρ, shard axis, the kernel its levels launch)
+DIST_CASES = (
+    (charts.regular_chart(32, 4, boundary="reflect"), 16.0, 0,
+     "refine_stationary"),
+    (charts.log_chart(32, 4, n_csz=5, n_fsz=4, delta0=0.01,
+                      boundary="reflect"), 1.0, 0, "refine_charted"),
+    (charts.galactic_dust_chart((8, 16, 16), 3), 0.5, 1, "refine_nd_fused"),
+    (charts.log_polar_chart((64, 64), 3), 2.0, 1, "refine_nd_fused"),
+)
+
+
+def _card_mesh(cuda, n=8, axis="space"):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((n,), (axis,), devices=[cuda] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [None, "bf16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", range(len(DIST_CASES)),
+                         ids=["regular", "log", "dust", "log_polar"])
+def test_cuda_sharded_apply_equals_the_unsharded_kernel_route(cuda, case,
+                                                              pol):
+    """``DistributedICR`` on 8 slots of the card: every sharded level
+    launches its kernel once per slot (a replicated level once), and the
+    gathered field equals the unsharded kernel route at the tolerances."""
+    from repro_torch.core.distributed import DistributedICR
+
+    chart, rho, axis, kname = DIST_CASES[case]
+    icr = ICR(chart, kernels.matern32.with_defaults(rho=rho),
+              use_pallas=True, dtype_policy=pol)
+    dist = DistributedICR(icr, _card_mesh(cuda), shard_axis=axis)
+    k = dist.first_sharded_level()
+    mats = icr.matrices()
+    xi = icr.init_xi(torch.Generator(device=cuda).manual_seed(0), batch=8)
+    placed = dist.place(mats)
+    build.LAUNCHES.clear()
+    blocks = dist.apply_sqrt_batch(placed, xi)
+    torch.cuda.synchronize()
+    assert +build.LAUNCHES == {kname: k + 8 * (chart.n_levels - k)}
+    got = dist.gather(blocks)
+    want = icr.apply_sqrt_batch(mats, xi)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert rel(got, want) <= TOL[str(want.dtype).removeprefix("torch.")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1], ids=["regular", "dust"])
+def test_cuda_samples_mode_equals_the_unsharded_slab(cuda, case):
+    """Samples mode on 8 slots of the card: one graph captured per slot,
+    and fields and moments bit for bit the unsharded server's."""
+    from repro_torch.launch import serve_gp as sg
+
+    chart, rho = SERVE_CHARTS[case]
+    post = sg.demo_posterior(chart, rho)
+    base, got = sg.mixed_requests(3, 8), sg.mixed_requests(3, 8)
+    sg.GPFieldServer(post, slab=2).run(base)
+    srv = sg.GPFieldServer(post, slab=2, mesh=_card_mesh(cuda, axis="data"))
+    srv.run(got)
+    m = srv.metrics()
+    assert m["mode"] == "sharded-samples:cuda-graph"
+    assert m["graph_captures"] == 8 and m["capacity"] == 16
+    assert all(s["fn"].graph is not None for s in srv._entry["slots"])
+    for a, b in zip(base, got):
+        assert a.error is None and b.error is None
+        pairs = (zip(a.fields, b.fields) if a.kind == "sample"
+                 else [(a.mean, b.mean), (a.std, b.std)])
+        for x, y in pairs:
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_kill_device_midstream_replays_bit_for_bit(cuda):
+    """The chaos suite's kill mid-stream on 8 slots of the card: a mesh of
+    7 after one re-plan, one cache miss, the replayed rows bit for bit the
+    unfaulted run's and the unsharded server's."""
+    from repro_torch.distributed import chaos
+
+    msg = chaos.check_kill_midstream("cuda")
+    assert "mesh 8->7" in msg

@@ -26,7 +26,10 @@ def _run(args, timeout=300):
      ["cg_posterior:", "conditioned posterior served OK"]),
     ("examples/torch_gp_regression_vi.py", ["--quick"],
      ["MAP: 40 steps", "ADVI: 20 steps", "posterior fitted and served OK"]),
-], ids=["quickstart", "gp_regression_cg", "gp_regression_vi"])
+    ("examples/torch_dust_map_3d.py", ["--quick", "--shards", "8"],
+     ["route=nd-fused", "fused VJP", "distributed over 8 slots",
+      "rel-err vs unsharded", "corr(shell0, shell1)"]),
+], ids=["quickstart", "gp_regression_cg", "gp_regression_vi", "dust_map_3d"])
 def test_torch_example_runs_on_the_cpu(script, args, expect):
     out = _run([script, "--device", "cpu", *args])
     for line in expect:

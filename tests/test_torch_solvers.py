@@ -539,7 +539,10 @@ def test_offgrid_interpolation_matches_the_jax_package():
 
 
 def test_build_condition_system_refuses_a_mesh():
+    """A mesh of slots splits the matvec's right-hand sides (held to the
+    unsharded matvec in ``test_torch_serve_mesh.py``); any other object
+    passed as ``mesh`` is refused."""
     _, ticr = _pair("tod")
     op = obs_operator(ticr, obs_idx=np.arange(8))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         build_condition_system(ticr, op, 0.01, mesh=object())
