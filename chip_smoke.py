@@ -7,7 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 (``python3 chip_smoke.py --eager-step LABEL=SRC[:fpad] ...`` instead
 times the eager dust fit step of the package under each SRC, one process
-each, to compare two trees in one call: see ``eager_step_ab``.)
+each, to compare two trees in one call: see ``eager_step_ab``;
+``--kernels-once`` launches every kernel once at a small shape, the
+program the sanitizers run: see ``kernels_once``.)
 
 Phases (any failure ends the run with a non-zero exit code):
 
@@ -145,6 +147,27 @@ Phases (any failure ends the run with a non-zero exit code):
    against the unsharded solve's within 10·max(rtol, δ), the mean within
    ``COND_MEAN_F64`` of the float64 posterior mean. One ``distributed``
    line.
+7b. analysis — the launch plans (``kernels/launch.py``) and the
+   static-analysis layer (``repro_torch.analysis``) on the card: the
+   verifier (coverage, bounds, halo, bytes, hygiene) over every level of
+   the four charts at full width, S = 8, f32 and bf16 (one process a
+   scenario) and over the distinct plans phase 7's runs launched through,
+   then its transpose pass on the kernels (S = 2; 1e-5 at f32, 5e-2 with
+   bf16); every kernel node of every graph the run captured (the slab,
+   the fixed-θ fit step, the transpose, the CG segment) against the plan
+   it was launched through, grid, block and shared memory (``plan_ties``,
+   with the pyramid's co-resident grid on the card beside the H100 model);
+   each of the ten kernels once at a full-width shape into NaN-filled
+   outputs with guard bands (``witness``: no NaN inside, the guards still
+   NaN, the plain version's result); ``compute-sanitizer`` memcheck and
+   racecheck over ``--kernels-once`` where the toolkit has the tool (its
+   absence, or a run without a summary, is recorded; a reported error
+   fails the run); the lint with ``ptxas``' registers; the profiler
+   roofline (``roofline/analysis.py``) of the apply, the VJP and the slab
+   on the four charts; and one learned-θ step's matrix build split into
+   the level-0 root, the per-level builds and the backward of each
+   (``theta_split``). Lines ``sanitizer``, ``verify``, ``plan_ties``,
+   ``witness``, ``lint``, ``roofline``, ``theta_split``.
 8. times   — per kernel at its chart's largest level (the pyramid at
    regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
    per-level kernels it replaces beside it):
@@ -510,6 +533,25 @@ def enqueue_ms(fn) -> float:
     return statistics.median(times)
 
 
+def host_ms_per_call(fn, calls: int = 200, blocks: int = 5) -> float:
+    """Median over `blocks` of the host milliseconds per call of `calls`
+    back-to-back calls of `fn` (the card synced between blocks): the host
+    cost of a call where the card keeps up, with less jitter than one
+    enqueue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def operand_bytes(route, args, out) -> int:
     """Bytes a kernel must move: each operand read once, the output
     written once."""
@@ -562,79 +604,6 @@ def window_einsum(coarse, r, t):
     n_fsz, n_csz = r.shape[-2:]
     win = coarse.unfold(1, n_csz, n_fsz // 2)[:, :t]
     return torch.einsum("tfc,btc->btf", r, win)
-
-
-# per instance of the kernels the ``ptxas`` line reports: a pattern of its
-# mangled name and how to name it from the pattern's groups (dtype, then
-# the instance's template arguments)
-_INSTANCES = (
-    (r"((?:stationary|charted)(?:_adj)?)_kernelI(13__nv_bfloat16|f)Lb([01])E"
-     r"Li(\d+)ELi(\d+)ELi(\d+)E", lambda kind, noise, f, c, nf: (
-         kind, "noise" if noise == "1" else "nn", f, c, nf)),
-    (r"(nd_fused)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
-     lambda kind, f, c: (kind, "", f, c, None)),
-    (r"(pyramid)_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)ELi(\d+)E",
-     lambda kind, nd, f, c: (kind, "nd" if nd == "1" else "1d", f, c, None)),
-)
-SM_REGISTERS = 65536         # 32-bit registers of an H100 SM
-SM_SMEM = 233472             # shared memory of an H100 SM (228 KB)
-BLOCK_SMEM_RESERVED = 1024   # shared memory the runtime keeps per block
-
-
-def blocks_per_sm(registers: int, smem: int) -> int:
-    """Resident blocks of 256 threads an H100 SM holds at `registers` per
-    thread (allocated in units of 8 per thread, i.e. 256 per warp) and
-    `smem` bytes of shared memory per block; at most 8 (2048 threads)."""
-    by_regs = SM_REGISTERS // (-(-registers // 8) * 8 * 256)
-    by_smem = SM_SMEM // (smem + BLOCK_SMEM_RESERVED) if smem else 8
-    return min(8, by_regs, by_smem)
-
-
-def ptxas_lines(smem=None,
-                libs=("refine_1d", "refine_1d_adjoint", "nd_fused",
-                      "pyramid")) -> dict:
-    """Registers and spill bytes of the streaming 1-D instances, the N-D
-    per-level instances and the pyramid's, from the ``-Xptxas -v`` report
-    kept beside each built library; for the N-D and pyramid instances also
-    the dynamic shared memory of their main-path launch (`smem`: kind ->
-    bytes, at f32 and bf16 alike) and the blocks of 256 an SM holds."""
-    import re
-
-    from repro_torch.kernels import build
-
-    smem = smem or {}
-    out = {}
-    for lib in libs:
-        log = build.library_path(lib).with_suffix(".log").read_text()
-        for entry, body in re.findall(
-                r"Compiling entry function '(\S+)'.*?\n(.*?)(?=Compiling "
-                r"entry function|\Z)", log, flags=re.S):
-            for pattern, parts in _INSTANCES:
-                inst = re.search(pattern, entry)
-                if inst is not None:
-                    break
-            else:
-                continue
-            kind, dtype, *rest = inst.groups()
-            kind, variant, f, c, nf = parts(kind, *rest)
-            regs = re.search(r"Used (\d+) registers", body)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", body)
-            stencil = (f"({f}, {c})" + (f" NF={nf}" if nf else "")
-                       if f != "0" else "runtime-size")
-            name = " ".join(x for x in (
-                kind, "bf16" if "bf" in dtype else "f32", variant, stencil)
-                if x)
-            row = {"registers": int(regs.group(1)),
-                   "spill_stores": int(spill.group(1)),
-                   "spill_loads": int(spill.group(2))}
-            key = f"{kind} {variant}".strip()
-            if key in smem and f != "0":
-                row["smem_bytes"] = smem[key]
-                row["blocks_per_sm"] = blocks_per_sm(row["registers"],
-                                                     smem[key])
-            out[name] = row
-    return out
 
 
 def main_path_smem(models) -> dict:
@@ -2556,6 +2525,472 @@ def check_distributed(models, flush, gen, card, device="cuda",
     return {k: launches[k] for k in KERNEL_INFO}
 
 
+# -- phase 7b: launch plans and the static-analysis layer on the card ---------
+# the captured graphs of the run, by the function captured
+GRAPH_CLASSES = {"slab": "slab_fn", "fit_step": "_fit_step",
+                 "transpose": "apply_sqrt_T", "cg_segment": "_advance"}
+# the guard band (elements) on each side of a witness output
+GUARD = 4096
+# the learned-θ paths whose matrix build phase 7b splits
+THETA_SPLIT = ("regular", "dust_theta", "log_polar_theta")
+SANITIZER_TIMEOUT = 600
+
+
+def verify_static(sharded_plans) -> dict:
+    """The verifier over every level of the four charts at full width (S =
+    8, f32 and bf16: ``analysis.scenarios.chip_scenarios``), one process a
+    scenario, and over the distinct plans phase 7's sharded runs launched
+    through. -> the record and the findings."""
+    import concurrent.futures as cf
+    import functools
+    import multiprocessing
+
+    from repro_torch.analysis import kernel_verify as kv
+    from repro_torch.analysis import scenarios as sc
+
+    t0 = time.perf_counter()
+    scns = sc.chip_scenarios(S)
+    with cf.ProcessPoolExecutor(
+            max_workers=len(scns),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        found = list(ex.map(functools.partial(kv.verify_scenario,
+                                              transpose=False), scns))
+    out = {"scenarios": {s.label: len(f) for s, f in zip(scns, found)},
+           "static_s": time.perf_counter() - t0}
+    findings = [f for fs in found for f in fs]
+    distinct = {}
+    for p in sharded_plans:
+        distinct.setdefault(repr(p.describe()), p)
+    for p in distinct.values():
+        findings += kv.verify_plan(p, scenario="phase 7 sharded")
+    out["sharded_plans"] = {"launches": len(sharded_plans),
+                            "distinct": len(distinct)}
+    return out, findings
+
+
+def verify_transpose_card() -> tuple:
+    """The transpose pass on the kernels, at the storage dtype (1e-5 at
+    f32, 5e-2 with bf16 storage), over every launch unit of the four
+    charts at full width, S = 2. -> (seconds, findings)."""
+    import torch
+
+    from repro_torch.analysis import kernel_verify as kv
+    from repro_torch.analysis import scenarios as sc
+
+    t0 = time.perf_counter()
+    findings = []
+    for scn in sc.chip_scenarios(S):
+        dtype = {"float32": torch.float32,
+                 "bfloat16": torch.bfloat16}[scn.storage]
+        groups = kv.transpose_groups(kv.scenario_groups(scn, device="cuda"))
+        findings += kv.verify_transpose(scn.chart(), groups, samples=2,
+                                        dtype=dtype, device="cuda",
+                                        scenario=scn.label)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, findings
+
+
+def plan_ties() -> dict:
+    """Every kernel node of every graph the run captured (``core.graphs.
+    CAPTURES``) against the launch plan its wrapper launched through
+    (``capture`` raises on a mismatch; this counts them), by kind: the
+    slab, the fixed-θ fit step, the transpose and the CG segment must each
+    have been captured and checked."""
+    from repro_torch.core import graphs
+
+    out = {}
+    for rec in graphs.CAPTURES:
+        kind = next((k for k, pat in GRAPH_CLASSES.items()
+                     if pat in rec["fn"]), "other")
+        o = out.setdefault(kind, {"graphs": 0, "nodes": 0, "equal": True})
+        o["graphs"] += 1
+        o["nodes"] += len(rec["nodes"])
+        o["equal"] &= (collections.Counter(rec["nodes"])
+                       == collections.Counter(rec["planned"]))
+    missing = [k for k in GRAPH_CLASSES if not out.get(k, {}).get("nodes")]
+    unequal = [k for k, o in out.items() if not o["equal"]]
+    if missing or unequal:
+        raise AssertionError(f"plan ties: no checked graph of {missing}, "
+                             f"nodes unlike their plans in {unequal}")
+    return out
+
+
+def witness_cases(models, gen) -> dict:
+    """Per kernel, one full-width case (f32): ``(launch(outs), outs' shapes,
+    plain())``, ``launch`` the internal wrapper writing into the given
+    output tensors, ``plain`` its plain version's outputs."""
+    import torch
+
+    from repro_torch.kernels import dispatch, icr_refine, nd_fused, pyramid
+
+    f32 = torch.float32
+    cases = {}
+
+    def last_level(cname):
+        icr, mats, _ = models[cname]
+        lvl = icr.chart.n_levels - 1
+        return icr, mats, lvl
+
+    for cname, charted in (("regular", False), ("log", True)):
+        icr, mats, lvl = last_level(cname)
+        geom, field, xi, r, d, ax = level_inputs(icr, mats, lvl, f32, gen)
+        _, (c, x, rr, dd) = dispatch.level_operands(field, xi, r, d, geom,
+                                                    sample_axis=True)
+        name = "refine_charted" if charted else "refine_stationary"
+        cases[name] = (
+            lambda outs, c=c, x=x, rr=rr, dd=dd, ch=charted:
+            icr_refine._refine_1d(c, x, rr, dd, charted=ch, out=outs[0]),
+            [(c.shape[0], x.shape[1] * x.shape[2])],
+            lambda c=c, x=x, rr=rr, dd=dd, ch=charted: [
+                (icr_refine.refine_charted_plain if ch else
+                 icr_refine.refine_stationary_plain)(c, x, rr, dd)])
+        (aname, g, r1, d1, length), = adjoint_cases(icr, mats, lvl, f32, gen)
+        cases[aname] = (
+            lambda outs, g=g, r1=r1, d1=d1, n=length, ch=charted:
+            icr_refine._adjoint_1d(g, r1, d1, n, charted=ch, out=outs),
+            [(g.shape[0], length), (g.shape[0], g.shape[1] // r1.shape[-2],
+                                    r1.shape[-2])],
+            lambda g=g, r1=r1, d1=d1, n=length, ch=charted: list(
+                (icr_refine.refine_charted_adjoint_plain if ch else
+                 icr_refine.refine_stationary_adjoint_plain)(
+                    g, r1, d1, coarse_len=n)))
+    for cname in ("dust", "log_polar"):
+        icr, mats, lvl = last_level(cname)
+        for name, coarse, r, t, _ in nn_cases(icr, mats, lvl, f32, gen):
+            if name in cases:
+                continue
+            ch = r.ndim == 3
+            cases[name] = (
+                lambda outs, c=coarse, r=r, t=t, ch=ch:
+                icr_refine._refine_1d(c, None, r, None, charted=ch, t=t,
+                                      out=outs[0]),
+                [(coarse.shape[0], t * r.shape[-2])],
+                lambda c=coarse, r=r, t=t, ch=ch: [
+                    icr_refine.refine_charted_nn_plain(c, r) if ch else
+                    icr_refine.refine_stationary_nn_plain(c, r, t)])
+        for name, g, r1, d1, length in adjoint_cases(icr, mats, lvl, f32,
+                                                     gen)[1:]:
+            if name in cases:
+                continue
+            ch = r1.ndim == 3
+            cases[name] = (
+                lambda outs, g=g, r1=r1, n=length, ch=ch:
+                icr_refine._adjoint_1d(g, r1, None, n, charted=ch,
+                                       out=(outs[0], None)),
+                [(g.shape[0], length)],
+                lambda g=g, r1=r1, n=length, ch=ch: [
+                    (icr_refine.refine_charted_adjoint_plain if ch else
+                     icr_refine.refine_stationary_adjoint_plain)(
+                        g, r1, None, coarse_len=n)])
+    icr, mats, lvl = last_level("dust")
+    geom, field, xi, r, d, ax = level_inputs(icr, mats, lvl, f32, gen)
+    args = nd_fused.nd_operands(field, xi, ax[0], ax[1], geom,
+                                sample_axis=True)
+    cases["refine_nd_fused"] = (
+        lambda outs, a=args: nd_fused._nd_fused(*a, out=outs[0]),
+        [tuple(args[1].shape)],
+        lambda a=args: [nd_fused.refine_nd_fused_plain(*a)])
+    icr, mats, _ = models["regular"]
+    k = dispatch.pyramid_cover(icr.chart, samples=S)
+    case = pyramid_case(icr, mats, f32, gen)
+    geoms, pfield, levels = case[0][:k], case[1], case[2][:k]
+    cases[PYRAMID] = (
+        lambda outs, f=pfield, gs=geoms, lv=levels:
+        pyramid._launch(f, gs, lv, out=outs[0]),
+        [(S,) + tuple(geoms[-1].fine_shape)],
+        lambda f=pfield, gs=geoms, lv=levels: [
+            pyramid.refine_pyramid_plain(f, gs, lv)])
+    return cases
+
+
+def nan_witness(models, gen) -> dict:
+    """Each of the ten kernels launched once at a full-width shape into
+    outputs that sit inside NaN-filled buffers with a guard band of
+    ``GUARD`` elements on each side: no NaN may remain inside, the guard
+    bands must stay NaN, and the result must equal the plain version (at
+    the f32 tolerance). No kernel of the port adds into its output."""
+    import torch
+
+    out = {}
+    for name, (launch_into, shapes, plain) in witness_cases(models,
+                                                            gen).items():
+        bufs = [torch.full((math.prod(s) + 2 * GUARD,), float("nan"),
+                           device="cuda") for s in shapes]
+        outs = [b[GUARD:GUARD + math.prod(s)].view(s)
+                for b, s in zip(bufs, shapes)]
+        launch_into(outs)
+        torch.cuda.synchronize()
+        want = plain()
+        inside_nan = sum(int(torch.isnan(o).sum()) for o in outs)
+        guards_kept = all(bool(torch.isnan(b[:GUARD]).all()
+                               and torch.isnan(b[-GUARD:]).all())
+                          for b in bufs)
+        err = max(rel_err(o, w)[1] for o, w in zip(outs, want))
+        out[name] = {"nan_inside": inside_nan, "guards_nan": guards_kept,
+                     "max_rel_err": err,
+                     "elements": sum(math.prod(s) for s in shapes)}
+        if inside_nan or not guards_kept or not err <= TOL["float32"]:
+            raise AssertionError(f"witness {name}: {out[name]}")
+    if set(out) != set(KERNEL_INFO):
+        raise AssertionError(f"witness: no case of "
+                             f"{sorted(set(KERNEL_INFO) - set(out))}")
+    return out
+
+
+def kernels_once() -> int:
+    """``--kernels-once``: every kernel of the port launched at least once
+    at a small shape (the transpose pass on the card over a 1-D stationary
+    chart with its pyramid, a charted 1-D chart and an N-D chart, f32):
+    the program the sanitizers run. Exits 1 on a transpose finding."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import kernel_verify as kv
+    from repro_torch.core import charts as tc
+    from repro_torch.kernels import build, dispatch
+
+    build.LAUNCHES.clear()
+    findings = []
+    for chart in (tc.regular_chart(64, 3, boundary="reflect"),
+                  tc.log_chart(64, 3, n_csz=5, n_fsz=4, delta0=0.01),
+                  tc.galactic_dust_chart((6, 8, 8), n_levels=2)):
+        groups = dispatch.chart_launch_plans(chart, samples=2)
+        groups += [g for g in dispatch.chart_launch_plans(
+            chart, samples=2, pyramid=False) if g["route"] != "pyramid"]
+        findings += kv.verify_transpose(chart, groups, samples=2,
+                                        dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    print(json.dumps({"launches": dict(build.LAUNCHES),
+                      "findings": [str(f) for f in findings]}))
+    silent = [k for k in KERNEL_INFO if not build.LAUNCHES[k]]
+    return 1 if findings or silent else 0
+
+
+def sanitize() -> dict:
+    """``compute-sanitizer --tool memcheck`` and ``--tool racecheck`` over
+    ``--kernels-once``, on the port's kernels only (``--kernel-name
+    kns=refine_``), both at once. Where the toolkit has no
+    ``compute-sanitizer``, or the tool refuses the card ("Device not
+    supported"), that is recorded in the line and the run goes on. Any
+    other end fails the run: an error or hazard reported, a non-zero exit
+    code, a timeout, or no summary printed."""
+    import re
+    import shutil
+
+    tool = shutil.which("compute-sanitizer")
+    default = Path("/usr/local/cuda/bin/compute-sanitizer")
+    if tool is None and default.exists():
+        tool = str(default)
+    if tool is None:
+        return {"available": False}
+    procs = {t: subprocess.Popen(
+        [tool, "--tool", t, "--kernel-name", "kns=refine_", sys.executable,
+         str(Path(__file__).resolve()), "--kernels-once"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for t in ("memcheck", "racecheck")}
+    out = {"available": True, "tool": tool}
+    failed = []
+    for t, proc in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=SANITIZER_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            out[t] = {"ran": False, "why": "timed out",
+                      "tail": log[-1500:]}
+            failed.append(t)
+            continue
+        summary = re.search(r"(ERROR|RACECHECK) SUMMARY: (\d+)", log)
+        unsupported = re.search(r"Error: (Device not supported[^\n]*)", log)
+        rec = {"ran": summary is not None and unsupported is None,
+               "returncode": proc.returncode}
+        if unsupported is not None:
+            # the tool starts, then refuses the card: the process's CUDA
+            # calls fail under it, which it counts as errors of its own
+            rec["why"] = unsupported.group(1)
+            rec["head"] = log[:300]
+        elif summary is None:
+            rec["why"] = "no summary"
+            rec["tail"] = log[-1500:]
+            failed.append(t)
+        else:
+            rec["reported"] = int(summary.group(2))
+            rec["summary"] = log[summary.start():].splitlines()[0]
+            if rec["reported"] or proc.returncode:
+                failed.append(t)
+                rec["tail"] = log[-1500:]
+        out[t] = rec
+    if failed:
+        raise AssertionError(f"sanitizer {failed}: {out}")
+    return out
+
+
+def roofline_lines(models, gen) -> dict:
+    """The profiler roofline (``roofline.analysis``) of the apply (S = 8),
+    the VJP (the transpose op by op) and the served slab (one graph
+    replay) on the four charts, f32: each port kernel's device ms per
+    call, its plans' bound at the H100's 3.35 TB/s and the share of it,
+    and the other device work's largest ops."""
+    import torch
+
+    from repro_torch.kernels import launch
+    from repro_torch.launch.serve_gp import GPFieldServer, demo_posterior
+    from repro_torch.roofline import analysis
+
+    out = {}
+    rho = {c: k.default_theta["rho"] for c, (_, k) in charts().items()}
+    for cname, (icr, mats, _) in models.items():
+        gen.manual_seed(61)
+        xi = icr.init_xi(gen, batch=S)
+        v = torch.randn((S,) + icr.out_shape, generator=gen, device="cuda")
+        srv = GPFieldServer(demo_posterior(icr.chart, rho[cname]), slab=S)
+        slab = srv._entry["fn"]
+        entries = {
+            "apply": lambda: icr.apply_sqrt_batch(mats, xi),
+            "vjp": lambda: icr.apply_sqrt_T_batch(mats, v, cached=False),
+        }
+        row = {}
+        for ename, fn in entries.items():
+            with launch.recording() as plans:
+                fn()
+            events = analysis.profile(fn, calls=3)
+            row[ename] = analysis.roofline(analysis.attribute(events), plans,
+                                           calls=3)
+        events = analysis.profile(slab, calls=3)
+        row["slab"] = analysis.roofline(analysis.attribute(events),
+                                        slab.plans, calls=3)
+        out[cname] = row
+        del srv
+    return out
+
+
+def theta_split(problems) -> dict:
+    """One learned-θ step's matrix build split apart (f32, CUDA events,
+    median of 5): the level-0 root (``level0_sqrt``), the per-level builds
+    (joint on 1-D charts, the per-axis factors on N-D ones, as
+    ``ICR.matrices`` builds them on the kernel route) and the backward of
+    each to ρ's latent, on regular, dust_theta and log_polar_theta."""
+    import torch
+
+    from repro_torch.core.refine import (axis_refinement_matrices_level,
+                                         level0_sqrt,
+                                         refinement_matrices_level)
+
+    def med(fn):
+        ts = []
+        for _ in range(6):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts[1:])
+
+    out = {}
+    for pname in THETA_SPLIT:
+        p = problems[pname]
+        icr, priors = p["icr"], p["priors"]
+        latent = {n: t.detach().clone().requires_grad_(True)
+                  for n, t in priors.zero_xi().items()}
+        chart = icr.chart
+        kw = dict(jitter=icr.jitter, device=icr.device, dtype=torch.float32)
+        build_level = (axis_refinement_matrices_level if chart.ndim > 1
+                       else refinement_matrices_level)
+
+        def kernel():
+            theta = dict(priors(latent))
+            theta["sigma"] = 1.0
+            return icr.kernel(theta)
+
+        def root():
+            return level0_sqrt(chart, kernel(), **kw)
+
+        def levels():
+            k = kernel()
+            return [build_level(chart, k, lvl, **kw)
+                    for lvl in range(chart.n_levels)]
+
+        def backward(build):
+            def run():
+                leaves = [t for t in _flat(build()) if t.requires_grad]
+                loss = sum((t * t).sum() for t in leaves)
+                torch.autograd.grad(loss, list(latent.values()))
+            return run
+
+        root_ms, levels_ms = med(root), med(levels)
+        out[pname] = {
+            "level0_points": math.prod(chart.shape(0)),
+            "root_ms": root_ms, "levels_ms": levels_ms,
+            "root_backward_ms": med(backward(root)) - root_ms,
+            "levels_backward_ms": med(backward(levels)) - levels_ms,
+            "levels": chart.n_levels}
+    return out
+
+
+def _flat(tree) -> list:
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _flat(x)]
+    return [tree]
+
+
+def check_analysis(models, problems, gen, sharded_plans) -> float:
+    """Phase 7b: the launch plans and the static-analysis layer on the
+    card (see the module docstring), one line per part. The sanitizers
+    run beside the static verifier (CPU work) and end before anything is
+    timed on the card. Returns the phase's seconds."""
+    import threading
+
+    import torch
+
+    from repro_torch.analysis import lint
+    from repro_torch.analysis import scenarios as sc
+    from repro_torch.kernels import pyramid
+
+    t_phase = time.perf_counter()
+    box = []
+
+    def run_sanitizer():
+        try:
+            box.append(sanitize())
+        except Exception as exc:   # raised below, in the main thread
+            box.append(exc)
+
+    worker = threading.Thread(target=run_sanitizer)
+    worker.start()
+    try:
+        verify, findings = verify_static(sharded_plans)
+    finally:
+        worker.join()
+    if isinstance(box[0], Exception):
+        raise box[0]
+    print("sanitizer: " + json.dumps(box[0]), flush=True)
+    verify["transpose_s"], more = verify_transpose_card()
+    findings += more
+    verify["findings"] = [str(f) for f in findings]
+    print("verify: " + json.dumps(verify), flush=True)
+    if findings:
+        raise AssertionError("verify: " + "; ".join(verify["findings"][:10]))
+
+    ties = plan_ties()
+    ties["pyramid_resident"] = {
+        "card_1d": pyramid.resident_blocks(torch.float32, False, 2, 3, 0,
+                                           "cuda"),
+        "model_1d": pyramid.resident_blocks(torch.float32, False, 2, 3, 0)}
+    print("plan_ties: " + json.dumps(ties), flush=True)
+    print("witness: " + json.dumps(nan_witness(models, gen)), flush=True)
+    regs = lint.ptxas_lines()
+    lint_found = [f for scn in sc.chip_scenarios(S)
+                  for f in lint.lint_scenario(scn, registers=regs)]
+    print("lint: " + json.dumps([str(f) for f in lint_found]), flush=True)
+    if lint_found:
+        raise AssertionError(f"lint: {lint_found[:5]}")
+    print("roofline: " + json.dumps(roofline_lines(models, gen)), flush=True)
+    print("theta_split: " + json.dumps(theta_split(problems)), flush=True)
+    return time.perf_counter() - t_phase
+
+
 def main() -> int:
     import torch
 
@@ -2571,8 +3006,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import ICR
-    from repro_torch.kernels import build
+    from repro_torch.core import graphs
+    from repro_torch.kernels import build, launch
 
+    # every graph the run captures, its kernel nodes and their plans
+    graphs.CAPTURES = collections.deque()
     t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2598,6 +3036,8 @@ def main() -> int:
         mats = icr.matrices()
         torch.cuda.synchronize()
         models[cname] = (icr, mats, time.perf_counter() - t0)
+    from repro_torch.analysis.lint import ptxas_lines
+
     print("ptxas: " + json.dumps(ptxas_lines(main_path_smem(models))),
           flush=True)
 
@@ -2648,10 +3088,17 @@ def main() -> int:
           flush=True)
 
     # -- 7. distributed: a mesh of 8 slots over the visible cards -----------
-    for k, n in check_distributed(models, flush, gen, card).items():
-        launches[k] += n
+    with launch.recording() as sharded_plans:
+        for k, n in check_distributed(models, flush, gen, card).items():
+            launches[k] += n
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
+
+    # -- 7b. launch plans and the static-analysis layer ---------------------
+    phase_s = check_analysis(models, problems, gen, sharded_plans)
+    del sharded_plans
+    print(f"phase 7b done at {time.perf_counter() - t_start:.1f} s "
+          f"({phase_s:.1f} s)", flush=True)
 
     # -- 8. times ---------------------------------------------------------------
     times = kernel_times(models, bandwidth, flush, gen)
@@ -2734,7 +3181,10 @@ EAGER_STEPS = 20
 def eager_step_one(src: str, variant: str) -> dict:
     """The eager dust fixed-θ fit (``map_fit``, op by op) of the package
     under `src`: ms per step by CUDA events and its host enqueue, and the
-    loss alone and the loss with its gradient, each way. ``fpad`` swaps
+    loss alone and the loss with its gradient, each way; then (``whole``)
+    each chart's apply and transpose enqueue, the apply's and a 1-D
+    wrapper's host ms per call (``host_ms_per_call``) and the learned-θ
+    steps (``train_step_times``). ``fpad`` swaps
     ``reflect_pad`` for F.pad alone (``core.refine._pad``) in every module
     that calls it."""
     import importlib
@@ -2785,12 +3235,57 @@ def eager_step_one(src: str, variant: str) -> dict:
                        lr=3e-2, **kw)
 
     flush = torch.empty(512 * 2**20, dtype=torch.float32, device="cuda")
-    return {"variant": variant, "loss_ms": time_ms(loss, flush),
-            "loss_enqueue_ms": enqueue_ms(loss),
-            "loss_grad_ms": time_ms(grad, flush),
-            "loss_grad_enqueue_ms": enqueue_ms(grad),
-            "step_ms": time_ms(fit, flush) / EAGER_STEPS,
-            "step_enqueue_ms": enqueue_ms(fit) / EAGER_STEPS}
+    rec = {"variant": variant, "loss_ms": time_ms(loss, flush),
+           "loss_enqueue_ms": enqueue_ms(loss),
+           "loss_grad_ms": time_ms(grad, flush),
+           "loss_grad_enqueue_ms": enqueue_ms(grad),
+           "step_ms": time_ms(fit, flush) / EAGER_STEPS,
+           "step_enqueue_ms": enqueue_ms(fit) / EAGER_STEPS}
+    # the whole path's host enqueue, as the ``whole_path`` and
+    # ``train_step`` lines take it: the apply (S = 8), the transpose op by
+    # op and the learned-θ steps, f32
+    models, whole = {}, {}
+    for cname, (chart, kern) in charts().items():
+        icr = ICR(chart, kern, use_pallas=True)
+        m = icr.matrices()
+        models[cname] = (icr, m, 0.0)
+        gen.manual_seed(11)
+        xi_s = icr.init_xi(gen, batch=S)
+        v = torch.randn((S,) + icr.out_shape, generator=gen, device="cuda")
+        whole[cname] = {
+            "apply_enqueue_ms": enqueue_ms(
+                lambda: icr.apply_sqrt_batch(m, xi_s)),
+            "apply_ms": time_ms(lambda: icr.apply_sqrt_batch(m, xi_s),
+                                flush),
+            "apply_sqrt_T_eager_enqueue_ms": enqueue_ms(
+                lambda: icr.apply_sqrt_T_batch(m, v, cached=False))}
+    # host ms per call of back-to-back calls (the card keeps up): the
+    # apply, and one 1-D forward launch through its wrapper alone
+    from repro_torch.kernels import icr_refine
+
+    for cname, (icr, m, _) in models.items():
+        gen.manual_seed(11)
+        xi_s = icr.init_xi(gen, batch=S)
+        whole[cname]["apply_host_ms_per_call"] = host_ms_per_call(
+            lambda: icr.apply_sqrt_batch(m, xi_s))
+    for name, (f, c, mats) in {"stationary": (2, 3, ()),
+                               "charted": (4, 5, (4096,))}.items():
+        t = 4096
+        ops = [torch.randn(shape, generator=gen, device="cuda") for shape in
+               ((S, (t - 1) * (f // 2) + c), (S, t, f), mats + (f, c),
+                mats + (f, f))]
+        fn = (icr_refine.refine_charted if mats
+              else icr_refine.refine_stationary)
+        whole[f"wrapper {name} 1-D"] = {
+            "host_ms_per_call": host_ms_per_call(lambda: fn(*ops))}
+    problems = {k: p for k, p in train_problems(models, gen).items()
+                if k in THETA_PATHS}
+    for pname, t in train_step_times(problems, flush).items():
+        whole[pname + " (learns ρ)"] = {
+            k: t[k] for k in ("train_step_ms", "train_step_enqueue_ms",
+                              "loss_ms")}
+    rec["whole"] = whole
+    return rec
 
 
 def eager_step_ab(specs) -> int:
@@ -2816,6 +3311,8 @@ def eager_step_ab(specs) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kernels-once"]:
+        sys.exit(kernels_once())
     if sys.argv[1:2] == ["--eager-step"]:
         sys.exit(eager_step_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--eager-step-one"]:

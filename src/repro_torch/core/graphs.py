@@ -33,7 +33,11 @@ taken back. The graph's own kernel nodes are then counted by their
 symbols (the CUDA driver's ``cuGraphGetNodes`` and ``cuFuncGetName`` on
 the kept ``cudaGraph_t``) and must equal those counts, or ``capture``
 raises; every replay adds the node counts, since each replay launches
-each node once.
+each node once. Each node's grid, block and dynamic shared memory must
+also equal the launch plan (``kernels/launch.py``) its wrapper launched
+through during capture, or ``capture`` raises; ``CAPTURES`` keeps the
+last captures' nodes and plans, and the replay callable carries its own
+(``nodes``, ``plans``).
 """
 from __future__ import annotations
 
@@ -45,10 +49,14 @@ from typing import Callable
 
 import torch
 
-__all__ = ["capture", "eager", "eager_mode", "graph_kernel_nodes", "lru",
-           "wrapper_of_kernel"]
+__all__ = ["capture", "eager", "eager_mode", "graph_kernel_launches",
+           "lru", "wrapper_of_kernel", "CAPTURES"]
 
 _EAGER = False   # True inside ``eager()``
+# the last captures (``capture`` appends): the captured function's name,
+# its graph's kernel nodes and its launch plans' nodes, each ``(wrapper,
+# grid, block, smem)`` (equal as multisets, or ``capture`` raised)
+CAPTURES: collections.deque = collections.deque(maxlen=64)
 
 
 @contextlib.contextmanager
@@ -119,9 +127,11 @@ class _KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
                                                    "ctx")])
 
 
-def graph_kernel_nodes(graph) -> collections.Counter:
+def graph_kernel_launches(graph) -> list:
     """The port's kernel nodes of a captured ``torch.cuda.CUDAGraph`` made
-    with ``keep_graph=True``, by wrapper name."""
+    with ``keep_graph=True``, in node order: ``(wrapper, grid, block,
+    dynamic shared memory)`` each, as ``kernels.launch.LaunchPlan.node``
+    gives them."""
     cu = ctypes.CDLL("libcuda.so.1")
 
     def check(res, what):
@@ -133,7 +143,7 @@ def graph_kernel_nodes(graph) -> collections.Counter:
     check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    counts = collections.Counter()
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
@@ -154,8 +164,9 @@ def graph_kernel_nodes(graph) -> collections.Counter:
                   "cuKernelGetName")
         wrapper = wrapper_of_kernel(name.value.decode())
         if wrapper is not None:
-            counts[wrapper] += 1
-    return counts
+            out.append((wrapper, (p.gx, p.gy, p.gz), (p.bx, p.by, p.bz),
+                        p.smem))
+    return out
 
 
 def capture(fn: Callable, *buffers, device) -> Callable:
@@ -178,9 +189,10 @@ def capture(fn: Callable, *buffers, device) -> Callable:
             return fn(*buffers)
 
         run.graph, run.launches = None, collections.Counter()
+        run.nodes, run.plans = None, []
         return run
 
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, launch
 
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -193,7 +205,8 @@ def capture(fn: Callable, *buffers, device) -> Callable:
     graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes are read
     before = collections.Counter(build.LAUNCHES)
     try:
-        with torch.cuda.device(device), torch.cuda.graph(graph):
+        with torch.cuda.device(device), torch.cuda.graph(graph), \
+                launch.recording() as plans:
             out = fn(*buffers)
     finally:  # recorded, not launched, whether or not the capture held
         captured = collections.Counter(build.LAUNCHES)
@@ -201,11 +214,21 @@ def capture(fn: Callable, *buffers, device) -> Callable:
         captured = +captured
         build.LAUNCHES.subtract(captured)
     graph.instantiate()
-    launches = graph_kernel_nodes(graph)
+    nodes = graph_kernel_launches(graph)
+    launches = collections.Counter(w for w, *_ in nodes)
     if launches != captured:
         raise RuntimeError(
             f"the graph's kernel nodes {dict(launches)} differ from the "
             f"launches its wrappers made {dict(captured)}")
+    # each node's grid, block and shared memory are its launch plan's
+    planned = collections.Counter(p.node for p in plans)
+    if collections.Counter(nodes) != planned:
+        raise RuntimeError(
+            "the graph's kernel nodes differ from their launch plans: "
+            f"{dict(collections.Counter(nodes) - planned)} not planned, "
+            f"{dict(planned - collections.Counter(nodes))} not captured")
+    CAPTURES.append({"fn": getattr(fn, "__qualname__", repr(fn)),
+                     "nodes": nodes, "planned": [p.node for p in plans]})
 
     def replay(*new):
         copy_in(new)
@@ -214,4 +237,5 @@ def capture(fn: Callable, *buffers, device) -> Callable:
         return out
 
     replay.graph, replay.launches = graph, launches
+    replay.nodes, replay.plans = nodes, list(plans)
     return replay

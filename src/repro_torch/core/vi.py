@@ -110,8 +110,9 @@ def _fit(loss_fn, params, steps: int, lr: float, *, jit: bool = True,
                     "map_fit/advi_fit(jit=True): the step could not be "
                     "captured as one CUDA graph. A forward that rebuilds "
                     "the matrices from a learned θ syncs with the host "
-                    "(torch.linalg's eigh); pass jit=False for it (ROADMAP "
-                    "queue 1, item 2: the learned-θ build on the card). "
+                    "(torch.linalg's eigh); pass jit=False for it "
+                    "(ROADMAP.md, 'Learned θ as a compiled fit': the "
+                    "matrix build without a host sync). "
                     f"The capture said: {exc}") from exc
             if run.graph is not None:
                 continue  # the capture's warm-up was step 0

@@ -31,20 +31,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures, by library: each exported launch function's argtypes,
-# ending in (int device, void* stream)
+# ending in the launch plan's (grid x, grid y, dynamic shared memory) and
+# (int device, void* stream)
+_PLAN = [_I] * 3
 SIGNATURES = {
     "refine_1d": {
-        "refine_1d_charted_fwd": [_I, _I] + [_P] * 5 + [_I] * 9 + [_P],
-        "refine_1d_stationary_fwd": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]},
+        "refine_1d_charted_fwd": [_I, _I] + [_P] * 5 + [_I] * 8 + _PLAN
+        + [_I, _P],
+        "refine_1d_stationary_fwd": [_I, _I] + [_P] * 5 + [_I] * 7 + _PLAN
+        + [_I, _P]},
     "refine_1d_adjoint": {
-        "refine_1d_charted_adj": [_I, _I] + [_P] * 5 + [_I] * 9 + [_P],
-        "refine_1d_stationary_adj": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P]},
+        "refine_1d_charted_adj": [_I, _I] + [_P] * 5 + [_I] * 8 + _PLAN
+        + [_I, _P],
+        "refine_1d_stationary_adj": [_I, _I] + [_P] * 5 + [_I] * 7 + _PLAN
+        + [_I, _P]},
     "nd_fused": {
-        "refine_nd_fused_fwd": [_I] + [_P] * 7 + [_I] * 17 + [_P]},
+        "refine_nd_fused_fwd": [_I] + [_P] * 7 + [_I] * 16 + _PLAN
+        + [_I, _P]},
     "pyramid": {
         "refine_pyramid_fwd":
-            [_I, _P] + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P]},
+            [_I, _P] + [_I] * 4 + [_P] * 4 + [_I, _P] + _PLAN + [_I, _P],
+        "refine_pyramid_resident": [_I] * 6 + [_P]},
 }
+# what a C entry returns when the grid or shared memory it derives differs
+# from the plan it was handed (csrc/common.cuh, kPlanMismatch)
+PLAN_MISMATCH = 10000
+
+
+class PlanMismatchError(ValueError):
+    """A launch does not match the plan that claims to describe it."""
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict = {}
@@ -123,6 +138,9 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
     lib = library(name)
     err = getattr(lib, fn_name)(
         *args, device.index, torch.cuda.current_stream(device).cuda_stream)
+    if err == PLAN_MISMATCH:
+        raise PlanMismatchError(f"{fn_name}: its grid or shared memory "
+                                "differs from the launch plan's")
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{fn_name} failed: {msg} ({err})")
@@ -135,26 +153,3 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype == torch.bfloat16:
         return 1
     raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
-
-
-def check_operands(**tensors) -> None:
-    """Wrapper-side checks before pointers go to C: every operand is a
-    contiguous CUDA tensor of one storage dtype. ``None`` operands (an
-    absent noise factor) are skipped."""
-    dtypes, devices = set(), set()
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}, expected cuda")
-        devices.add(t.device)
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-        dtypes.add(t.dtype)
-    if len(dtypes) != 1:
-        raise TypeError(f"operands mix dtypes {sorted(map(str, dtypes))}")
-    if len(devices) != 1:
-        raise ValueError(
-            f"operands on several devices {sorted(map(str, devices))}")
-    dtype_code(dtypes.pop())
-

@@ -69,8 +69,19 @@ __host__ __device__ __forceinline__ int reflect_index(int p, int pad, int n) {
 }
 
 constexpr int kThreads = 256;
+// What an entry returns when the grid or dynamic shared memory it derives
+// differs from the launch plan it was handed (kernels/launch.py): the
+// launch does not run.
+constexpr int kPlanMismatch = 10000;
 // Runs (threads) of one streaming launch: the run index is 32-bit.
 constexpr long long kMaxRuns = (1LL << 31) - kThreads;
+// Whether a streaming launch of `threads` threads matches its plan's grid
+// (gx, gy) and dynamic shared memory: ceil(threads / kThreads) x 1 blocks
+// and none.
+inline bool stream_plan_matches(long long threads, int gx, int gy,
+                                int smem) {
+  return gx == (threads + kThreads - 1) / kThreads && gy == 1 && smem == 0;
+}
 constexpr int kMaxCsz = 9;  // n_csz bound of the register windows
 constexpr int kMaxFsz = 8;  // n_fsz bound of the register noise rows
 
@@ -251,5 +262,7 @@ __device__ __forceinline__ void store_prefix(T* p, int n, const float (&v)[N]) {
 // Each kernel library is one translation unit, so this is defined once
 // per library: the Python wrappers turn a returned code into a message.
 extern "C" const char* repro_cuda_error_string(int code) {
+  if (code == repro::kPlanMismatch)
+    return "the launch's grid or shared memory differs from its plan";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

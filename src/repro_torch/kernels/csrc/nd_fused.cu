@@ -77,8 +77,11 @@ cudaError_t launch_nd_any(const void* field, const void* xi0, const void* r0,
 // padded so that L_a >= (T_a-1)*n_fsz/2 + n_csz; xi0 and out
 // (S, T0*F, P) with P = (contract1 ? T1*F : 1) * T2*F; r0/d0 (F, C)/(F, F)
 // or per family (T0, F, C)/(T0, F, F); r1 (unused unless contract1) and r2
-// (F, C) or (T_a, F, C); all on `device`, launched on `stream`. Returns
-// the launch's cudaError_t.
+// (F, C) or (T_a, F, C); all on `device`, launched on `stream`. The grid
+// is (tiles of one sample, S) blocks of 256 with nd_smem_floats floats of
+// dynamic shared memory, which the launch plan's plan_gx, plan_gy and
+// plan_smem (bytes) must be. Returns the launch's cudaError_t, or
+// kPlanMismatch.
 extern "C" int refine_nd_fused_fwd(int dtype, const void* field,
                                    const void* xi0, const void* r0,
                                    const void* d0, const void* r1,
@@ -86,13 +89,18 @@ extern "C" int refine_nd_fused_fwd(int dtype, const void* field,
                                    int L1, int L2, int T0, int T1, int T2,
                                    int C, int F, int ch0, int ch1, int ch2,
                                    int B0, int B1, int B2, int contract1,
+                                   int plan_gx, int plan_gy, int plan_smem,
                                    int device, void* stream) {
-  if (C > repro::kMaxCsz || F > repro::kMaxFsz)
+  if (C > repro::kMaxCsz || F > repro::kMaxFsz || B0 < 1 || B1 < 1 ||
+      B2 < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
   repro::NdParams p{L0, L1, L2, 0,  0,  0,  T0, T1, T2, C,
                     F,  ch0, ch1, ch2, B0, B1, B2, contract1};
+  if (plan_gx != repro::nd_tiles_per_sample(p) || plan_gy != S ||
+      (size_t)plan_smem != repro::nd_smem_floats(p) * sizeof(float))
+    return repro::kPlanMismatch;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return repro::launch_nd_any<float>(field, xi0, r0, d0, r1, r2, out, S,

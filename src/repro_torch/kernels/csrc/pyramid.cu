@@ -174,10 +174,14 @@ __global__ void __launch_bounds__(kThreads, ND ? 4 : 3)
   }
 }
 
+// The co-resident blocks of an instance (blocks per SM times SMs) into
+// *resident; with p, the launch of min(resident, max_tiles, max_blocks if
+// > 0) blocks, that grid in *grid_out, where the plan's grid plan_grid
+// must equal it.
 template <typename T, bool ND, int FT, int CT>
-cudaError_t launch_pyramid(const PyrParams& p, size_t smem, int max_tiles,
-                           int max_blocks, int* grid_out,
-                           cudaStream_t stream) {
+cudaError_t launch_pyramid(const PyrParams* p, size_t smem, int max_tiles,
+                           int max_blocks, int plan_grid, int* grid_out,
+                           int* resident, cudaStream_t stream) {
   auto kernel = refine_pyramid_kernel<T, ND, FT, CT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -192,13 +196,16 @@ cudaError_t launch_pyramid(const PyrParams& p, size_t smem, int max_tiles,
                                                     kThreads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *resident = per_sm * sms;
+  if (p == nullptr) return cudaSuccess;
   // every co-resident block, but no more than the largest level has tiles;
   // max_blocks > 0 caps it further (the tests' striding check)
   int grid = per_sm * sms;
   if (grid > max_tiles) grid = max_tiles;
   if (max_blocks > 0 && grid > max_blocks) grid = max_blocks;
   *grid_out = grid;
-  void* args[] = {const_cast<PyrParams*>(&p)};
+  if (plan_grid != grid) return (cudaError_t)kPlanMismatch;
+  void* args[] = {const_cast<PyrParams*>(p)};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                   dim3(grid), dim3(kThreads), args, smem,
                                   stream);
@@ -207,34 +214,36 @@ cudaError_t launch_pyramid(const PyrParams& p, size_t smem, int max_tiles,
 }
 
 template <typename T, bool ND>
-cudaError_t launch_stencil(const PyrParams& p, int C, int F, size_t smem,
-                           int max_tiles, int max_blocks, int* grid_out,
-                           cudaStream_t st) {
+cudaError_t launch_stencil(const PyrParams* p, int C, int F, size_t smem,
+                           int max_tiles, int max_blocks, int plan_grid,
+                           int* grid_out, int* resident, cudaStream_t st) {
   if (F == 4 && C == 5)
     return launch_pyramid<T, ND, 4, 5>(p, smem, max_tiles, max_blocks,
-                                       grid_out, st);
+                                       plan_grid, grid_out, resident, st);
   if (F == 2 && C == 3)
     return launch_pyramid<T, ND, 2, 3>(p, smem, max_tiles, max_blocks,
-                                       grid_out, st);
-  return launch_pyramid<T, ND, 0, 0>(p, smem, max_tiles, max_blocks, grid_out,
-                                     st);
+                                       plan_grid, grid_out, resident, st);
+  return launch_pyramid<T, ND, 0, 0>(p, smem, max_tiles, max_blocks,
+                                     plan_grid, grid_out, resident, st);
 }
 
 template <typename T>
 cudaError_t launch_kind(const PyrParams& p, int C, int F, size_t smem,
-                        int max_tiles, int max_blocks, int* grid_out,
-                        cudaStream_t st) {
+                        int max_tiles, int max_blocks, int plan_grid,
+                        int* grid_out, cudaStream_t st) {
   // a 1-D level's runs hold the instance's families
   for (int l = 0; l < p.n_levels; ++l)
     if (p.lv[l].ndim == 1 &&
         p.lv[l].q.B0 != (p.lv[l].q.ch0 ? charted_families(F, C)
                                         : stream_fwd_families<T>(F, C)))
       return cudaErrorInvalidValue;
+  int resident = 0;
   return p.lv[0].ndim > 1
-             ? launch_stencil<T, true>(p, C, F, smem, max_tiles, max_blocks,
-                                       grid_out, st)
-             : launch_stencil<T, false>(p, C, F, smem, max_tiles, max_blocks,
-                                        grid_out, st);
+             ? launch_stencil<T, true>(&p, C, F, smem, max_tiles, max_blocks,
+                                       plan_grid, grid_out, &resident, st)
+             : launch_stencil<T, false>(&p, C, F, smem, max_tiles,
+                                        max_blocks, plan_grid, grid_out,
+                                        &resident, st);
 }
 
 }  // namespace repro
@@ -253,11 +262,16 @@ cudaError_t launch_kind(const PyrParams& p, int C, int F, size_t smem,
 // grid. Writes the grid size to *grid_out and
 // returns the launch's cudaError_t: a grid that cannot be co-resident, or
 // a device without cooperative launch, is an error, never a fallback.
+// plan_gx, plan_gy and plan_smem are the launch plan's grid (x, 1) and
+// dynamic shared memory (bytes): where they differ from the grid and
+// shared memory derived here, nothing launches and it returns
+// kPlanMismatch.
 extern "C" int refine_pyramid_fwd(int dtype, const long long* table,
                                   int n_levels, int S, int C, int F,
                                   const void* field, void* out,
                                   void* scratch0, void* scratch1,
-                                  int max_blocks, int* grid_out, int device,
+                                  int max_blocks, int* grid_out, int plan_gx,
+                                  int plan_gy, int plan_smem, int device,
                                   void* stream) {
   if (C > repro::kMaxCsz || F > repro::kMaxFsz || n_levels < 1 ||
       n_levels > repro::kMaxLevels)
@@ -311,12 +325,38 @@ extern "C" int refine_pyramid_fwd(int dtype, const long long* table,
     if (lv.tiles > max_tiles) max_tiles = lv.tiles;
   }
   const size_t smem = smem_floats * sizeof(float);
+  if (plan_gy != 1 || (size_t)plan_smem != smem) return repro::kPlanMismatch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)repro::launch_kind<float>(p, C, F, smem, max_tiles,
-                                          max_blocks, grid_out, st);
+                                          max_blocks, plan_gx, grid_out, st);
   if (dtype == 1)
-    return (int)repro::launch_kind<__nv_bfloat16>(p, C, F, smem, max_tiles,
-                                                  max_blocks, grid_out, st);
+    return (int)repro::launch_kind<__nv_bfloat16>(
+        p, C, F, smem, max_tiles, max_blocks, plan_gx, grid_out, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The co-resident blocks (blocks per SM times SMs) of the instance that a
+// pyramid of `nd`-D levels (1, or 2/3) with stencil (F, C) runs at `smem`
+// bytes of dynamic shared memory, into *blocks: what a launch plan's grid
+// is made of. Returns a cudaError_t.
+extern "C" int refine_pyramid_resident(int dtype, int nd, int C, int F,
+                                       int smem, int device, int* blocks) {
+  if (C > repro::kMaxCsz || F > repro::kMaxFsz)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  int grid = 0;
+  const size_t bytes = (size_t)smem;
+  if (dtype == 0)
+    return nd > 1 ? (int)repro::launch_stencil<float, true>(
+                        nullptr, C, F, bytes, 0, 0, 0, &grid, blocks, 0)
+                  : (int)repro::launch_stencil<float, false>(
+                        nullptr, C, F, bytes, 0, 0, 0, &grid, blocks, 0);
+  if (dtype == 1)
+    return nd > 1 ? (int)repro::launch_stencil<__nv_bfloat16, true>(
+                        nullptr, C, F, bytes, 0, 0, 0, &grid, blocks, 0)
+                  : (int)repro::launch_stencil<__nv_bfloat16, false>(
+                        nullptr, C, F, bytes, 0, 0, 0, &grid, blocks, 0);
   return (int)cudaErrorInvalidValue;
 }

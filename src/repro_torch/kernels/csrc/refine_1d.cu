@@ -202,12 +202,20 @@ cudaError_t launch_stationary_dtype(int noise, const void* coarse,
 // xi and d (they may be null). A thread owns NF families (an instance of
 // the stencil's, or 1 for the runtime-size instance) of SB rows, a row
 // `runs` = ceil(nT / NF) threads, the grid ceil(ceil(B / SB) * runs / 256)
-// blocks of 256. Returns the launch's cudaError_t.
+// blocks of 256. plan_gx, plan_gy, plan_smem: the launch plan's grid and
+// dynamic shared memory, which must be that grid, 1 and 0. Returns the
+// launch's cudaError_t, or kPlanMismatch.
 extern "C" int refine_1d_charted_fwd(int dtype, int noise, const void* coarse,
                                      const void* xi, const void* r,
                                      const void* d, void* out, int B, int L,
                                      int nT, int C, int F, int NF, int SB,
-                                     int runs, int device, void* stream) {
+                                     int runs, int plan_gx, int plan_gy,
+                                     int plan_smem, int device,
+                                     void* stream) {
+  if (SB < 1) return (int)cudaErrorInvalidValue;
+  if (!repro::stream_plan_matches((long long)((B + SB - 1) / SB) * runs,
+                                  plan_gx, plan_gy, plan_smem))
+    return repro::kPlanMismatch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -223,13 +231,19 @@ extern "C" int refine_1d_charted_fwd(int dtype, int noise, const void* coarse,
 // As refine_1d_charted_fwd with r (F, C) and d (F, F) shared by every
 // family. A thread owns NF families of one row (an instance of the
 // stencil's, or 1 for the runtime-size instance), a row `runs` =
-// ceil(nT / NF) threads, the grid ceil(B * runs / 256) blocks of 256.
+// ceil(nT / NF) threads, the grid ceil(B * runs / 256) blocks of 256,
+// which the plan's must be.
 extern "C" int refine_1d_stationary_fwd(int dtype, int noise,
                                         const void* coarse, const void* xi,
                                         const void* r, const void* d,
                                         void* out, int B, int L, int nT,
                                         int C, int F, int NF, int runs,
-                                        int device, void* stream) {
+                                        int plan_gx, int plan_gy,
+                                        int plan_smem, int device,
+                                        void* stream) {
+  if (!repro::stream_plan_matches((long long)B * runs, plan_gx, plan_gy,
+                                  plan_smem))
+    return repro::kPlanMismatch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -439,13 +439,19 @@ cudaError_t launch_stationary_dtype(int noise, const void* g, const void* r,
 // `device`, launched on `stream`. A thread owns NF families (an instance
 // of the stencil's, or 1 for the runtime-size instance) of SB rows, a row
 // `runs` = ceil(nT / NF) threads, the last of which writes dcoarse on to
-// L, the grid ceil(ceil(B / SB) * runs / 256) blocks of 256. Returns the
-// launch's cudaError_t.
+// L, the grid ceil(ceil(B / SB) * runs / 256) blocks of 256, which the
+// plan's grid (plan_gx, plan_gy, no shared memory) must be. Returns the
+// launch's cudaError_t, or kPlanMismatch.
 extern "C" int refine_1d_charted_adj(int dtype, int noise, const void* g,
                                      const void* r, const void* d, void* dc,
                                      void* dxi, int B, int L, int nT, int C,
                                      int F, int NF, int SB, int runs,
+                                     int plan_gx, int plan_gy, int plan_smem,
                                      int device, void* stream) {
+  if (SB < 1) return (int)cudaErrorInvalidValue;
+  if (!repro::stream_plan_matches((long long)((B + SB - 1) / SB) * runs,
+                                  plan_gx, plan_gy, plan_smem))
+    return repro::kPlanMismatch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -467,7 +473,12 @@ extern "C" int refine_1d_stationary_adj(int dtype, int noise, const void* g,
                                         const void* r, const void* d,
                                         void* dc, void* dxi, int B, int L,
                                         int nT, int C, int F, int NF,
-                                        int runs, int device, void* stream) {
+                                        int runs, int plan_gx, int plan_gy,
+                                        int plan_smem, int device,
+                                        void* stream) {
+  if (!repro::stream_plan_matches((long long)B * runs, plan_gx, plan_gy,
+                                  plan_smem))
+    return repro::kPlanMismatch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -366,3 +366,177 @@ def refine_T(g, r, d, geom: LevelGeom, *, axis_mats=None,
     if geom.boundary == "reflect":
         dc = reflect_pad_T(dc, geom.b, 1)
     return dc, dxi
+
+
+# -- launch plans (kernels/launch.py) -------------------------------------------
+# The wrappers build a LaunchPlan per launch and launch through it; these
+# exports rebuild the same records from geometry alone, for the forward and
+# the fixed-matrix VJP of every level, so analysis/kernel_verify.py proves
+# its properties about exactly the launches that run.
+VJP_ROUTE = {ROUTE_STATIONARY_1D: "stationary-1d-adjoint",
+             ROUTE_CHARTED_1D: "charted-1d-adjoint",
+             ROUTE_ND_FUSED: "nd-fused-adjoint",
+             ROUTE_AXES_ND: "nd-axes-adjoint",
+             ROUTE_PYRAMID: "pyramid-adjoint"}
+
+
+def _charted_axes(chart, geom: LevelGeom) -> tuple:
+    """Which axes of a level carry per-family factors: an N-D level's
+    non-invariant axes; a 1-D level on the charted route."""
+    if len(geom.coarse_shape) == 1:
+        return (route_for(geom) == ROUTE_CHARTED_1D,)
+    return tuple(not inv for inv in chart.invariant)
+
+
+def _padded_extents(geom: LevelGeom) -> tuple:
+    return tuple(_padded_len(n, geom) for n in geom.coarse_shape)
+
+
+def _nd_vjp_plans(geom: LevelGeom, charted: tuple, samples: int,
+                  dtype) -> list:
+    """The fixed-matrix backward of an N-D level
+    (``nd_fused.refine_nd_fused_adjoint``): axis 0's adjoint with noise
+    over the padded field, then each trailing axis's without."""
+    from .icr_refine import adjoint_1d_plan
+
+    T, fsz, csz = tuple(geom.T), geom.n_fsz, geom.n_csz
+    padded = _padded_extents(geom)
+    f_trail = [t * fsz for t in T[1:]]
+    plans = [adjoint_1d_plan(batch=samples * math.prod(f_trail), t=T[0],
+                             coarse_len=padded[0], n_fsz=fsz, n_csz=csz,
+                             dtype=dtype, charted=charted[0])]
+    for a in range(1, len(T)):
+        batch = (samples * math.prod(padded[:a])
+                 * math.prod(f_trail[a:]))
+        plans.append(adjoint_1d_plan(batch=batch, t=T[a],
+                                     coarse_len=padded[a], n_fsz=fsz,
+                                     n_csz=csz, dtype=dtype,
+                                     charted=charted[a], noise=False))
+    return plans
+
+
+def level_launch_plans(chart, lvl: int, route: str | None = None, *,
+                       samples: int = 1, dtype=None) -> dict:
+    """Every launch one level of `chart` makes on `route` (default: its
+    kernel route): ``{"forward": [plans], "vjp": [plans]}``, the VJP at
+    fixed matrices. The ``nd-axes`` route's forward is its per-axis passes
+    (the last axis first, axis 0 with noise), its VJP their adjoints in
+    reverse."""
+    from .icr_refine import adjoint_1d_plan, refine_1d_plan
+
+    dtype = storage_width(dtype)[1]
+    geom = LevelGeom.for_level(chart, lvl)
+    route = route or route_for(geom, have_axis_mats=chart.ndim > 1)
+    charted = _charted_axes(chart, geom)
+    T, fsz, csz = tuple(geom.T), geom.n_fsz, geom.n_csz
+    padded = _padded_extents(geom)
+    if route in (ROUTE_STATIONARY_1D, ROUTE_CHARTED_1D):
+        kw = dict(batch=samples, t=T[0], coarse_len=padded[0], n_fsz=fsz,
+                  n_csz=csz, dtype=dtype, charted=charted[0])
+        return {"forward": [refine_1d_plan(**kw)],
+                "vjp": [adjoint_1d_plan(**kw)]}
+    if route == ROUTE_ND_FUSED:
+        return {"forward": [nd_fused.nd_fused_plan(
+                    samples=samples, field_shape=padded, T=T, n_fsz=fsz,
+                    n_csz=csz, charted=charted, dtype=dtype)],
+                "vjp": _nd_vjp_plans(geom, charted, samples, dtype)}
+    if route == ROUTE_AXES_ND:
+        extents = list(geom.coarse_shape)
+        fwd, vjp = [], []
+        for a in range(len(T) - 1, -1, -1):
+            batch = samples * math.prod(extents) // extents[a]
+            kw = dict(batch=batch, t=T[a], coarse_len=padded[a], n_fsz=fsz,
+                      n_csz=csz, dtype=dtype, charted=charted[a],
+                      noise=a == 0)
+            fwd.append(refine_1d_plan(**kw))
+            vjp.append(adjoint_1d_plan(**kw))
+            extents[a] = T[a] * fsz
+        return {"forward": fwd, "vjp": vjp[::-1]}
+    raise ValueError(f"no launch plans for route {route!r}")
+
+
+def chart_launch_plans(chart, *, samples: int = 1, dtype=None,
+                       pyramid: bool = True, device=None) -> list:
+    """Launch-plan export for a whole chart, as ``plan()`` routes it: one
+    group per launch unit, ``{"level", "route", "vjp_route", "geoms",
+    "forward", "vjp"}``. The pyramid's cover (``pyramid=True``) is one
+    group (``level = (0, k-1)``) with its one launch, and its VJP the
+    per-level adjoints in reverse. ``device`` (a CUDA device) makes the
+    pyramid's grid the card's own occupancy instead of the H100 model."""
+    from .icr_refine import adjoint_1d_plan
+    from .pyramid import pyramid_plan
+
+    itemsize, dtype = storage_width(dtype)
+    cover = (pyramid_cover(chart, samples=samples, itemsize=itemsize)
+             if pyramid else None) or 0
+    groups = []
+    if cover:
+        geoms = [LevelGeom.for_level(chart, lvl) for lvl in range(cover)]
+        charted = [_charted_axes(chart, g) for g in geoms]
+        vjp = []
+        for geom, ch in zip(reversed(geoms), reversed(charted)):
+            if len(geom.coarse_shape) == 1:
+                vjp.append(adjoint_1d_plan(
+                    batch=samples, t=geom.T[0],
+                    coarse_len=_padded_extents(geom)[0], n_fsz=geom.n_fsz,
+                    n_csz=geom.n_csz, dtype=dtype, charted=ch[0]))
+            else:
+                vjp += _nd_vjp_plans(geom, ch, samples, dtype)
+        groups.append({"level": (0, cover - 1), "route": ROUTE_PYRAMID,
+                       "vjp_route": VJP_ROUTE[ROUTE_PYRAMID],
+                       "geoms": geoms,
+                       "forward": [pyramid_plan(samples=samples, geoms=geoms,
+                                                charted=charted, dtype=dtype,
+                                                device=device)],
+                       "vjp": vjp})
+    for lvl in range(cover, chart.n_levels):
+        geom = LevelGeom.for_level(chart, lvl)
+        route = route_for(geom, have_axis_mats=chart.ndim > 1)
+        groups.append({"level": lvl, "route": route,
+                       "vjp_route": VJP_ROUTE[route], "geoms": [geom],
+                       **level_launch_plans(chart, lvl, route,
+                                            samples=samples, dtype=dtype)})
+    return groups
+
+
+def plan_signature(chart, *, samples: int = 1, dtype=None,
+                   pyramid: bool = True) -> list:
+    """Canonical JSON-safe export of ``plan()`` with each level's launches:
+    one dict per level (route, VJP route, kernel, dtype, the modeled bytes
+    as ints) and per launch unit its plans' (kernel, instance, grid,
+    block, shared memory), forward and VJP. ``json.dumps(...,
+    sort_keys=True)`` of two signatures of one geometry is byte-identical,
+    so a routing, tiling or byte-model change shows as a diff against a
+    golden."""
+    entries = plan(chart, pyramid=pyramid, samples=samples, dtype=dtype)
+    groups = chart_launch_plans(chart, samples=samples, dtype=dtype,
+                                pyramid=pyramid)
+    launches = {}
+    for grp in groups:
+        first = grp["level"][0] if isinstance(grp["level"], tuple) \
+            else grp["level"]
+        launches[first] = {k: [launch_signature(p) for p in grp[k]]
+                           for k in ("forward", "vjp")}
+    by_level = {}
+    for g in groups:
+        lo, hi = (g["level"] if isinstance(g["level"], tuple)
+                  else (g["level"], g["level"]))
+        by_level.update({lvl: g["vjp_route"] for lvl in range(lo, hi + 1)})
+    out = []
+    for e in entries:
+        out.append({
+            "level": e["level"], "route": e["route"],
+            "vjp_route": by_level[e["level"]], "kernel": e["kernel"],
+            "launches": e["launches"], "dtype": e["dtype"],
+            "hbm_bytes": {str(k): int(v) for k, v in e["hbm_bytes"].items()},
+            "plans": launches.get(e["level"])})
+    return out
+
+
+def launch_signature(p) -> dict:
+    """One plan's structural signature: kernel, instance, grid, block and
+    shared memory (JSON-safe)."""
+    inst = {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in p.instance.items()}
+    return {"kernel": p.kernel, "instance": inst, "grid": list(p.grid),
+            "block": list(p.block), "smem": int(p.smem)}

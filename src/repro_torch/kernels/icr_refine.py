@@ -34,9 +34,12 @@ matrices that require grad.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from . import build
+from . import build, launch
 from .ref import matrix_cotangents_1d
 from .ref import refine_charted_nn_ref as refine_charted_nn_plain
 from .ref import refine_charted_ref as refine_charted_plain
@@ -50,10 +53,11 @@ __all__ = ["refine_stationary", "refine_charted", "refine_stationary_plain",
            "refine_stationary_adjoint",
            "refine_charted_adjoint", "refine_stationary_adjoint_plain",
            "refine_charted_adjoint_plain", "stream_shape_1d",
-           "charted_shape_1d"]
+           "charted_shape_1d", "refine_1d_plan", "adjoint_1d_plan",
+           "stream_maps"]
 
 # threads per block of the streaming kernels (kThreads in csrc/common.cuh)
-THREADS = 256
+THREADS = launch.THREADS
 # families per thread of the streaming stationary kernels, forward and
 # adjoint, by (n_fsz, n_csz, storage itemsize): their compile-time
 # instances. Any other stencil runs the runtime-size instance, one family
@@ -116,6 +120,173 @@ def charted_shape_1d(batch: int, t: int, n_fsz: int, n_csz: int,
     return nf, rows, runs, -(-threads // THREADS)
 
 
+def stream_maps(i, *, batch: int, t: int, coarse_len: int, n_fsz: int,
+                n_csz: int, families: int, rows: int, runs: int,
+                charted: bool, noise: bool, adjoint: bool) -> tuple:
+    """Ownership of the threads ``i`` (an int64 array) of a streaming 1-D
+    launch, the index math of ``refine_1d.cu`` / ``refine_1d_adjoint.cu``
+    (and of the pyramid's 1-D levels): thread ``i`` owns run ``i % runs``
+    (``families`` families) of the rows ``[(i // runs)·rows, +rows)``.
+    -> ``(writes, reads, needs)``, ``launch.Boxes`` keyed by operand:
+    ``coarse``/``xi``/``out`` forward, ``g``/``dc``/``dxi`` adjoint, ``r``
+    and ``d``. A thread past the last row owns nothing (empty boxes)."""
+    B = launch.Boxes.of
+    f, c, s, nf = n_fsz, n_csz, n_fsz // 2, families
+    chunk = i // runs
+    b0 = chunk * rows
+    rws = (b0, np.minimum(b0 + rows, batch))
+    t0 = (i - chunk * runs) * nf
+    t1 = np.minimum(t0 + nf, t)
+    fam = (t0, t1)
+    mats = {"r": B(fam, (0, f), (0, c)) if charted else B((0, f), (0, c))}
+    if noise:
+        mats["d"] = (B(fam, (0, f), (0, f)) if charted else
+                     B((0, f), (0, f)))
+    if not adjoint:
+        # the run's coarse window, (t1 - t0 - 1)·s + n_csz from t0·s; each
+        # family t needs [t·s, t·s + n_csz)
+        writes = {"out": B(rws, (t0 * f, t1 * f))}
+        reads = {"coarse": B(rws, (t0 * s, t0 * s + (t1 - t0 - 1) * s + c)),
+                 **mats}
+        first, last = t0, t1 - 1
+        needs = {"coarse": B(rws, (first * s, last * s + c)), **mats}
+        if noise:
+            reads["xi"] = needs["xi"] = B(rws, fam, (0, f))
+    else:
+        q = (c - 1) // s
+        # dcoarse [t0·s, (t0+NF)·s); the row's last run on to L
+        c1 = np.where(t0 + nf >= t, coarse_len, (t0 + nf) * s)
+        writes = {"dc": B(rws, (t0 * s, c1))}
+        # g of the run's families and of the q_max to their left
+        lo = np.maximum(t0 - q, 0)
+        reads = {"g": B(rws, (lo * f, t1 * f)), **mats}
+        # dcoarse i gathers from the families t with 0 <= i - t·s < n_csz
+        t_lo = np.clip(-((c - 1 - t0 * s) // s), 0, t)
+        t_hi = np.clip((c1 - 1) // s + 1, 0, t)
+        needs = {"g": B(rws, (np.minimum(t_lo, t0) * f,
+                              np.maximum(t_hi, t1) * f)), **mats}
+        if charted:
+            reads["r"] = B((lo, t1), (0, f), (0, c))
+            needs["r"] = B((np.minimum(t_lo, t0), np.maximum(t_hi, t1)),
+                           (0, f), (0, c))
+        if noise:
+            writes["dxi"] = B(rws, fam, (0, f))
+    live = (b0 < batch) & (t0 < t)
+    return tuple({k: v.masked(live) for k, v in m.items()}
+                 for m in (writes, reads, needs))
+
+
+# the wrappers' plans by argument list and the charted kernels' tuning
+# (which ``charted_shape_1d`` reads): a launch looks its plan up once
+_PLANS_1D: dict = {}
+
+
+def _plan_1d(*, batch: int, t: int, coarse_len: int, n_fsz: int, n_csz: int,
+             dtype, charted: bool, noise: bool,
+             adjoint: bool) -> launch.LaunchPlan:
+    """The launch plan of one streaming 1-D launch (forward or adjoint):
+    its geometry from ``stream_shape_1d`` / ``charted_shape_1d``, then the
+    record (``_plan_1d_record``)."""
+    key = (batch, t, coarse_len, n_fsz, n_csz, dtype, charted, noise,
+           adjoint, CHARTED_THREADS, CHARTED_MAX_ROWS)
+    plan = _PLANS_1D.get(key)
+    if plan is None:
+        if len(_PLANS_1D) >= 512:
+            _PLANS_1D.clear()
+        plan = _PLANS_1D[key] = _geometry_plan_1d(
+            batch, t, coarse_len, n_fsz, n_csz, dtype, charted, noise,
+            adjoint)
+    return plan
+
+
+def _geometry_plan_1d(batch, t, coarse_len, n_fsz, n_csz, dtype, charted,
+                      noise, adjoint) -> launch.LaunchPlan:
+    storage = launch.dtype_name(dtype)
+    itemsize = {"float32": 4, "bfloat16": 2}.get(storage, 8)
+    if charted:
+        nf, sb, runs, blocks = charted_shape_1d(batch, t, n_fsz, n_csz,
+                                                itemsize)
+    else:
+        nf, runs, blocks = stream_shape_1d(batch, t, n_fsz, n_csz, itemsize,
+                                           adjoint=adjoint)
+        sb = 1
+    table = CHARTED_FAMILIES if charted else STREAM_FAMILIES[
+        "adjoint" if adjoint else "forward"]
+    stencil = ((n_fsz, n_csz) if (n_fsz, n_csz, itemsize) in table
+               else "runtime")
+    return _plan_1d_record(batch, t, coarse_len, n_fsz, n_csz, storage,
+                           charted, noise, adjoint, stencil, nf, sb, runs,
+                           blocks)
+
+
+# a plan is immutable: built once per geometry (the key holds the geometry
+# the shape functions chose, so a changed tuning table makes a new plan)
+@functools.lru_cache(maxsize=512)
+def _plan_1d_record(batch, t, coarse_len, f, c, storage, charted, noise,
+                    adjoint, stencil, nf, sb, runs,
+                    blocks) -> launch.LaunchPlan:
+    """The plan's operands and ownership maps, the index math of
+    ``refine_1d.cu`` / ``refine_1d_adjoint.cu``: thread ``i`` owns run ``i
+    % runs`` (NF families) of row ``i // runs`` (stationary) or of the
+    rows ``[(i // runs)·SB, +SB)`` (charted)."""
+    mat = (t,) if charted else ()
+    ops = [launch.Operand("g", (batch, t * f), storage) if adjoint else
+           launch.Operand("coarse", (batch, coarse_len), storage)]
+    if noise and not adjoint:
+        ops.append(launch.Operand("xi", (batch, t, f), storage))
+    ops.append(launch.Operand("r", mat + (f, c), storage))
+    if noise:
+        ops.append(launch.Operand("d", mat + (f, f), storage))
+    if adjoint:
+        ops.append(launch.Operand("dc", (batch, coarse_len), storage,
+                                  out=True))
+        if noise:
+            ops.append(launch.Operand("dxi", (batch, t, f), storage,
+                                      out=True))
+    else:
+        ops.append(launch.Operand("out", (batch, t * f), storage, out=True))
+    kernel = ("refine_charted" if charted else "refine_stationary") + (
+        "_adjoint" if adjoint else "") + ("" if noise else "_nn")
+
+    def maps() -> tuple:
+        i = np.arange(blocks * launch.THREADS, dtype=np.int64)
+        spaces = {op.name: op.shape for op in ops}
+        return (launch.Group(kernel, spaces, *stream_maps(
+            i, batch=batch, t=t, coarse_len=coarse_len, n_fsz=f, n_csz=c,
+            families=nf, rows=sb, runs=runs, charted=charted, noise=noise,
+            adjoint=adjoint)),)
+
+    return launch.LaunchPlan(
+        kernel=kernel, library="refine_1d_adjoint" if adjoint else
+        "refine_1d",
+        entry=("refine_1d_" + ("charted" if charted else "stationary")
+               + ("_adj" if adjoint else "_fwd")),
+        instance={"dtype": storage, "noise": noise, "charted": charted,
+                  "stencil": stencil, "families": nf, "rows": sb,
+                  "runs": runs},
+        grid=(blocks, 1, 1), block=(launch.THREADS, 1, 1), smem=0,
+        operands=tuple(ops), ownership=maps)
+
+
+def refine_1d_plan(*, batch: int, t: int, coarse_len: int, n_fsz: int,
+                   n_csz: int, dtype="float32", charted: bool,
+                   noise: bool = True) -> launch.LaunchPlan:
+    """The plan of a forward 1-D launch (#1-#4): ``batch`` rows of ``t``
+    families over coarse rows of ``coarse_len``."""
+    return _plan_1d(batch=batch, t=t, coarse_len=coarse_len, n_fsz=n_fsz,
+                    n_csz=n_csz, dtype=dtype, charted=charted, noise=noise,
+                    adjoint=False)
+
+
+def adjoint_1d_plan(*, batch: int, t: int, coarse_len: int, n_fsz: int,
+                    n_csz: int, dtype="float32", charted: bool,
+                    noise: bool = True) -> launch.LaunchPlan:
+    """The plan of an adjoint 1-D launch (#5-#8)."""
+    return _plan_1d(batch=batch, t=t, coarse_len=coarse_len, n_fsz=n_fsz,
+                    n_csz=n_csz, dtype=dtype, charted=charted, noise=noise,
+                    adjoint=True)
+
+
 def refine_stationary_adjoint_plain(g, r, d=None, *, coarse_len: int):
     """Plain version of ``refine_stationary_adjoint``, on any device."""
     dc, dxi, _, _ = refine_stationary_vjp_ref(None, None, r, d, g,
@@ -144,9 +315,11 @@ def _check_1d(name, batch, t, n_fsz, n_csz, length, *, mat_lead, r, d):
         raise ValueError(f"{name}: level too large for 32-bit indices")
 
 
-def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None):
+def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None,
+               out=None):
     """The forward kernel; ``xi=None`` (with ``d=None`` and the family count
-    ``t``) is the noise-free variant."""
+    ``t``) is the noise-free variant. ``out``: a tensor of the output's
+    shape to write into, instead of a new one."""
     noise = xi is not None
     if coarse.device.type == "cpu":
         if noise:
@@ -154,7 +327,7 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None):
             return plain(coarse, xi, r, d)
         return (refine_charted_nn_plain(coarse, r) if charted
                 else refine_stationary_nn_plain(coarse, r, t))
-    build.check_operands(coarse=coarse, xi=xi, r=r, d=d)
+    build.dtype_code(coarse.dtype)
     batch, length = coarse.shape
     n_fsz, n_csz = r.shape[-2:]
     if noise:
@@ -166,33 +339,33 @@ def _refine_1d(coarse, xi, r, d, *, charted: bool, t: int | None = None):
         t = r.shape[0]
     _check_1d("refine_1d", batch, t, n_fsz, n_csz, length,
               mat_lead=(t,) if charted else (), r=r, d=d)
-    if charted:
-        fn = "refine_1d_charted_fwd"
-        shape = charted_shape_1d(batch, t, n_fsz, n_csz,
-                                 coarse.element_size())[:3]
-    else:
-        fn = "refine_1d_stationary_fwd"
-        shape = stream_shape_1d(batch, t, n_fsz, n_csz,
-                                coarse.element_size())[:2]
-    out = torch.empty((batch, t * n_fsz), dtype=coarse.dtype,
-                      device=coarse.device)
-    build.launch("refine_1d", fn, coarse.device,
-                 build.dtype_code(coarse.dtype), int(noise),
-                 coarse.data_ptr(), xi.data_ptr() if noise else None,
-                 r.data_ptr(), d.data_ptr() if noise else None,
-                 out.data_ptr(), batch, length, t, n_csz, n_fsz, *shape)
-    build.LAUNCHES[("refine_charted" if charted else "refine_stationary")
-                   + ("" if noise else "_nn")] += 1
+    plan = refine_1d_plan(batch=batch, t=t, coarse_len=length, n_fsz=n_fsz,
+                          n_csz=n_csz, dtype=coarse.dtype, charted=charted,
+                          noise=noise)
+    inst = plan.instance
+    shape = ((inst["families"], inst["rows"], inst["runs"]) if charted
+             else (inst["families"], inst["runs"]))
+    if out is None:
+        out = torch.empty((batch, t * n_fsz), dtype=coarse.dtype,
+                          device=coarse.device)
+    launch.run_plan(plan, {"coarse": coarse, "xi": xi, "r": r, "d": d,
+                           "out": out},
+                    build.dtype_code(coarse.dtype), int(noise),
+                    coarse.data_ptr(), xi.data_ptr() if noise else None,
+                    r.data_ptr(), d.data_ptr() if noise else None,
+                    out.data_ptr(), batch, length, t, n_csz, n_fsz, *shape)
     return out
 
 
-def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
+def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool, out=None):
+    """The adjoint kernel; ``out``: ``(dcoarse, dxi or None)`` tensors to
+    write into, instead of new ones."""
     noise = d is not None
     if g.device.type == "cpu":
         plain = (refine_charted_adjoint_plain if charted
                  else refine_stationary_adjoint_plain)
         return plain(g, r, d, coarse_len=coarse_len)
-    build.check_operands(g=g, r=r, d=d)
+    build.dtype_code(g.dtype)
     n_fsz, n_csz = r.shape[-2:]
     batch, width = g.shape
     t = width // n_fsz
@@ -201,25 +374,23 @@ def _adjoint_1d(g, r, d, coarse_len: int, *, charted: bool):
                          f"{n_fsz}")
     _check_1d("refine_1d_adjoint", batch, t, n_fsz, n_csz, coarse_len,
               mat_lead=(t,) if charted else (), r=r, d=d)
-    if charted:
-        fn = "refine_1d_charted_adj"
-        shape = charted_shape_1d(batch, t, n_fsz, n_csz,
-                                 g.element_size())[:3]
+    plan = adjoint_1d_plan(batch=batch, t=t, coarse_len=coarse_len,
+                           n_fsz=n_fsz, n_csz=n_csz, dtype=g.dtype,
+                           charted=charted, noise=noise)
+    inst = plan.instance
+    shape = ((inst["families"], inst["rows"], inst["runs"]) if charted
+             else (inst["families"], inst["runs"]))
+    if out is None:
+        dc = torch.empty((batch, coarse_len), dtype=g.dtype, device=g.device)
+        dxi = (torch.empty((batch, t, n_fsz), dtype=g.dtype, device=g.device)
+               if noise else None)
     else:
-        fn = "refine_1d_stationary_adj"
-        shape = stream_shape_1d(batch, t, n_fsz, n_csz, g.element_size(),
-                                adjoint=True)[:2]
-    dc = torch.empty((batch, coarse_len), dtype=g.dtype, device=g.device)
-    dxi = (torch.empty((batch, t, n_fsz), dtype=g.dtype, device=g.device)
-           if noise else None)
-    build.launch("refine_1d_adjoint", fn, g.device,
-                 build.dtype_code(g.dtype), int(noise), g.data_ptr(),
-                 r.data_ptr(), d.data_ptr() if noise else None,
-                 dc.data_ptr(), dxi.data_ptr() if noise else None, batch,
-                 coarse_len, t, n_csz, n_fsz, *shape)
-    name = ("refine_charted_adjoint" if charted
-            else "refine_stationary_adjoint") + ("" if noise else "_nn")
-    build.LAUNCHES[name] += 1
+        dc, dxi = out
+    launch.run_plan(plan, {"g": g, "r": r, "d": d, "dc": dc, "dxi": dxi},
+                    build.dtype_code(g.dtype), int(noise), g.data_ptr(),
+                    r.data_ptr(), d.data_ptr() if noise else None,
+                    dc.data_ptr(), dxi.data_ptr() if noise else None, batch,
+                    coarse_len, t, n_csz, n_fsz, *shape)
     return (dc, dxi) if noise else dc
 
 

@@ -22,19 +22,22 @@ give the factors' cotangents.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.refine import LevelGeom, reflect_pad, reflect_pad_T
 
-from . import build
+from . import build, launch
 from .icr_refine import refine_charted_adjoint, refine_stationary_adjoint
 from .ref import accum_dtype_for, windows_1d
 
 __all__ = ["refine_nd_fused", "refine_nd_fused_core", "refine_nd_fused_plain",
            "refine_nd_fused_adjoint", "nd_operands", "nd_operands_T",
-           "precontract_noise", "prepare_xi0", "prepare_xi0_T", "nd_tile"]
+           "precontract_noise", "prepare_xi0", "prepare_xi0_T", "nd_tile",
+           "nd_fused_plan", "nd_smem_bytes", "tile_maps"]
 
 # shared memory a block may take: four blocks of 256 threads fit on an SM
 # of the H100 (228 KB, 1 KB of it reserved per block)
@@ -188,15 +191,152 @@ def nd_tile(T: tuple, csz: int, fsz: int, charted: tuple,
     return tuple(tile)
 
 
-def _nd_fused(field, xi0, r0, d0, rts, T) -> torch.Tensor:
+def nd_smem_bytes(tile3, T3, csz: int, fsz: int, charted3,
+                  contract1: bool) -> int:
+    """Dynamic shared memory (bytes) of a block of ``nd_fused.cu`` or of
+    the pyramid's N-D levels: the C entries' ``nd_smem_floats``
+    (``csrc/nd_tile.cuh``, ``NdPitch``) transcribed, on the 3-axis form
+    (a 2-D level's middle axis has extent 1)."""
+    s = fsz // 2
+    b0, b1, b2 = tile3
+    e0, e2 = (b0 - 1) * s + csz, (b2 - 1) * s + csz
+    e1 = (b1 - 1) * s + csz if contract1 else 1
+    g1 = b1 * fsz if contract1 else 1
+    g2 = (b2 * fsz + 3) // 4 * 4
+    box = e0 * e1 * e2
+    a1 = e0 * g1 * g2 if contract1 else 0
+    n = e0 * e1 * g2 + max(box, a1)
+    n += (b0 if charted3[0] else 1) * (fsz * csz + fsz * fsz)
+    n += (b1 if charted3[1] else 1) * fsz * csz if contract1 else 0
+    n += (b2 if charted3[2] else 1) * fsz * csz
+    return 4 * n
+
+
+def tile_maps(*, samples: int, T3, tile3, csz: int, fsz: int, charted3,
+              contract1: bool):
+    """Ownership of the tiles of one N-D level (``nd_fused_tile`` in
+    ``csrc/nd_tile.cuh``): for tile ``k`` (sample ``k // per``, tile ``k %
+    per`` of the sample's ``per``), the box of the fine output and of ξ0
+    it touches, on the 4-axis view ``(S, T_0·f, T_1·f, T_2·f)``, the
+    padded coarse box it reads, ``[f_a·s, f_a·s + E_a)`` per axis, the
+    windows its families need, and the factor rows. -> ``(writes, reads,
+    needs)`` of ``launch.Boxes`` keyed by operand (``field`` in padded
+    coordinates)."""
+    Boxes = launch.Boxes
+    s = fsz // 2
+    n = [-(-t // b) for t, b in zip(T3, tile3)]
+    per = n[0] * n[1] * n[2]
+    k = np.arange(samples * per, dtype=np.int64)
+    smp, j = k // per, k % per
+    j2, j1, j0 = j % n[2], (j // n[2]) % n[1], j // (n[1] * n[2])
+    f = [j0 * tile3[0], j1 * tile3[1], j2 * tile3[2]]
+    nb = [np.minimum(tile3[a], T3[a] - f[a]) for a in range(3)]
+    rows = (smp, smp + 1)
+    fine = [(f[a] * fsz, (f[a] + nb[a]) * fsz) for a in range(3)]
+    if not contract1:
+        fine[1] = (0, 1)
+    box = Boxes.of(rows, *fine)
+    win = []
+    for a in range(3):
+        if a == 1 and not contract1:
+            win.append((0, 1))
+            continue
+        # the box the kernel loads: E_a = (nb_a - 1)·s + C from f_a·s
+        win.append((f[a] * s, f[a] * s + (nb[a] - 1) * s + csz))
+    need = []
+    for a in range(3):
+        if a == 1 and not contract1:
+            need.append((0, 1))
+            continue
+        # family t needs [t·s, t·s + C): the union over the tile's
+        last = f[a] + nb[a] - 1
+        need.append((f[a] * s, last * s + csz))
+    mats = {}
+    for a, name in ((0, "r0"), (1, "r1"), (2, "r2")):
+        if a == 1 and not contract1:
+            continue
+        mats[name] = (Boxes.of((f[a], f[a] + nb[a]), (0, fsz), (0, csz))
+                      if charted3[a] else Boxes.of((0, fsz), (0, csz)))
+    mats["d0"] = (Boxes.of((f[0], f[0] + nb[0]), (0, fsz), (0, fsz))
+                  if charted3[0] else Boxes.of((0, fsz), (0, fsz)))
+    writes = {"out": box}
+    reads = {"field": Boxes.of(rows, *win), "xi0": box, **mats}
+    needs = {"field": Boxes.of(rows, *need), "xi0": box, **mats}
+    return writes, reads, needs
+
+
+def nd_fused_plan(*, samples: int, field_shape: tuple, T: tuple, n_fsz: int,
+                  n_csz: int, charted: tuple, dtype="float32"):
+    """The launch plan of one ``nd_fused.cu`` launch (#9): ``samples``
+    samples of the padded field ``field_shape`` (the level's axes, padded),
+    on ``nd_tile``'s tile."""
+    return _nd_fused_plan(samples, tuple(field_shape), tuple(T), n_fsz,
+                          n_csz, tuple(charted), launch.dtype_name(dtype))
+
+
+# the wrapper's own cache, keyed by its operands' geometry: ``nd_tile`` is
+# a pure function of it, so a launch looks its plan up once
+@functools.lru_cache(maxsize=256)
+def _nd_fused_plan(samples, field_shape, T, fsz, csz, charted, storage):
+    tile = tuple(nd_tile(T, csz, fsz, charted, samples))
+    return _nd_fused_record(samples, field_shape, T, fsz, csz, charted,
+                            storage, tile)
+
+
+# a plan is immutable: built once per geometry, the tile included
+@functools.lru_cache(maxsize=256)
+def _nd_fused_record(samples, field_shape, T, fsz, csz, charted, storage,
+                     tile):
+    nd = len(T)
+    budget = 4 * _smem_floats(tile, tuple(T), nd, csz, fsz, tuple(charted))
+    three = (lambda v, fill: tuple(v) if nd == 3
+             else (v[0], fill, v[1]))
+    T3, tile3, L3 = three(T, 1), three(tile, 1), three(field_shape, 1)
+    ch3 = three(charted, False)
+    prod_f = math.prod(t * fsz for t in T[1:])
+    grid = (math.prod(-(-t // b) for t, b in zip(T3, tile3)), samples, 1)
+    smem = nd_smem_bytes(tile3, T3, csz, fsz, ch3, nd == 3)
+
+    def mat(a):
+        return ((T[a],) if charted[a] else ()) + (fsz, csz)
+
+    ops = [launch.Operand("field", (samples,) + tuple(field_shape), storage),
+           launch.Operand("xi0", (samples, T[0] * fsz, prod_f), storage),
+           launch.Operand("r0", mat(0), storage),
+           launch.Operand("d0", ((T[0],) if charted[0] else ())
+                          + (fsz, fsz), storage)]
+    ops += [launch.Operand(f"r{a}" if nd == 3 else "r2", mat(a), storage)
+            for a in range(1, nd)]
+    ops.append(launch.Operand("out", (samples, T[0] * fsz, prod_f), storage,
+                              out=True))
+    view = (samples, T3[0] * fsz, T3[1] * fsz if nd == 3 else 1,
+            T3[2] * fsz)
+
+    def maps():
+        spaces = {op.name: op.shape for op in ops}
+        spaces.update(out=view, xi0=view, field=(samples,) + tuple(L3))
+        return (launch.Group("refine_nd_fused", spaces, *tile_maps(
+            samples=samples, T3=T3, tile3=tile3, csz=csz, fsz=fsz,
+            charted3=ch3, contract1=nd == 3)),)
+
+    return launch.LaunchPlan(
+        kernel="refine_nd_fused", library="nd_fused",
+        entry="refine_nd_fused_fwd",
+        instance={"dtype": storage, "noise": True, "charted": list(charted),
+                  "stencil": (fsz, csz) if (fsz, csz) in ((4, 5), (2, 3))
+                  else "runtime", "tile": list(tile), "nd": nd},
+        grid=grid, block=(launch.THREADS, 1, 1), smem=smem,
+        operands=tuple(ops), smem_budget=budget, ownership=maps)
+
+
+def _nd_fused(field, xi0, r0, d0, rts, T, out=None) -> torch.Tensor:
     if field.device.type == "cpu":
         return refine_nd_fused_plain(field, xi0, r0, d0, rts, T)
     nd = field.ndim - 1
     if nd not in (2, 3):
         raise ValueError(f"the fused N-D kernel takes 2-D and 3-D levels, "
                          f"not {nd}-D")
-    build.check_operands(field=field, xi0=xi0, r0=r0, d0=d0,
-                         **{f"r{a + 1}": r for a, r in enumerate(rts)})
+    build.dtype_code(field.dtype)
     fsz, csz = r0.shape[-2], r0.shape[-1]
     s = fsz // 2
     n_s = field.shape[0]
@@ -211,8 +351,12 @@ def _nd_fused(field, xi0, r0, d0, rts, T) -> torch.Tensor:
     charted = (r0.ndim == 3,) + tuple(r.ndim == 3 for r in rts)
     if n_s > 65535:
         raise ValueError(f"{n_s} samples exceed the launch grid")
-    tile = nd_tile(T, csz, fsz, charted, n_s)
-    out = torch.empty_like(xi0)
+    plan = nd_fused_plan(samples=n_s, field_shape=tuple(field.shape[1:]),
+                         T=tuple(T), n_fsz=fsz, n_csz=csz, charted=charted,
+                         dtype=field.dtype)
+    tile = plan.instance["tile"]
+    if out is None:
+        out = torch.empty_like(xi0)
     if nd == 3:
         L, TT, B = field.shape[1:], T, tile
         r1, r2, ch1, ch2 = rts[0], rts[1], charted[1], charted[2]
@@ -220,13 +364,15 @@ def _nd_fused(field, xi0, r0, d0, rts, T) -> torch.Tensor:
         L = (field.shape[1], 1, field.shape[2])
         TT, B = (T[0], 1, T[1]), (tile[0], 1, tile[1])
         r1, r2, ch1, ch2 = None, rts[0], False, charted[1]
-    build.launch("nd_fused", "refine_nd_fused_fwd", field.device,
-                 build.dtype_code(field.dtype), field.data_ptr(),
-                 xi0.data_ptr(), r0.data_ptr(), d0.data_ptr(),
-                 None if r1 is None else r1.data_ptr(), r2.data_ptr(),
-                 out.data_ptr(), n_s, *L, *TT, csz, fsz, int(charted[0]),
-                 int(ch1), int(ch2), *B, int(nd == 3))
-    build.LAUNCHES["refine_nd_fused"] += 1
+    named = {"field": field, "xi0": xi0, "r0": r0, "d0": d0, "out": out,
+             "r2": r2}
+    if r1 is not None:
+        named["r1"] = r1
+    launch.run_plan(plan, named, build.dtype_code(field.dtype),
+                    field.data_ptr(), xi0.data_ptr(), r0.data_ptr(),
+                    d0.data_ptr(), None if r1 is None else r1.data_ptr(),
+                    r2.data_ptr(), out.data_ptr(), n_s, *L, *TT, csz, fsz,
+                    int(charted[0]), int(ch1), int(ch2), *B, int(nd == 3))
     return out
 
 
@@ -290,7 +436,8 @@ def refine_nd_fused_core(field, xi0, r0, d0, rts, T) -> torch.Tensor:
         if any(m.requires_grad for m in (r0, d0, *rts)):
             raise NotImplementedError(
                 "learned θ has no backward on the fused N-D kernel "
-                "(ROADMAP, module 7): run such a level through "
+                "(ROADMAP.md, 'Learned θ as a compiled fit'): run such a "
+                "level through "
                 "dispatch.refine, which takes the nd-axes route "
                 "(nd.refine_axes) when a factor requires grad")
         if field.requires_grad or xi0.requires_grad:

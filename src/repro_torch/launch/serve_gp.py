@@ -103,7 +103,8 @@ server's ``shard_map`` modes, driven from one process):
     re-plans mid-solve through ``pcg_solve``'s checkpoint/resume; chart
     mode solves unsharded.
 
-Not ported: ``lowered_slab``.
+``lowered_slab()`` returns the active slab's launch plans and, on the
+card, its captured graph's kernel nodes (grid, block, shared memory).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_gp [--scenario dust]
           [--mesh N]
@@ -1094,6 +1095,49 @@ class GPFieldServer:
         """Modeled device-memory bytes of one slab's levels (the plan's
         ``hbm_bytes`` at the slab height; the draw is not modeled)."""
         return sum(e["hbm_bytes"]["selected"] for e in self._entry["plan"])
+
+    def _slab_pyramid(self) -> bool:
+        icr = self.posterior.icr
+        return (icr.use_pallas and icr.use_pyramid
+                and not (self.mesh is not None and self.shard == "chart"))
+
+    def lowered_slab(self) -> dict:
+        """The active entry's slab executable as it was lowered: the
+        counterpart of the JAX server's ``lowered_slab``.
+
+        ``plan``: the slab's ``dispatch.plan_signature`` rows (routes and
+        modeled bytes per level, at the slot's rows and storage dtype);
+        ``launches``: the launch plans of one slab's kernels in launch
+        order, each as ``dispatch.launch_signature`` gives it (kernel,
+        instance, grid, block, shared memory; the unsharded route's, which
+        a samples-mode slot runs too; None in chart mode and without
+        ``use_pallas``); ``graph``: on the card, the captured slab graph's
+        kernel nodes in node order, ``[wrapper, grid, block, smem]`` each
+        (in samples mode the first slot's), else None; ``mode``: how the
+        slab runs (``serving_mode``)."""
+        entry = self._entry
+        icr = self.posterior.icr
+        storage = icr.policy.storage_dtype
+        samples = entry["local_rows"]
+        fn = (entry["slots"][0] if "slots" in entry else entry)["fn"]
+        launches = None
+        if icr.use_pallas and not (self.mesh is not None
+                                   and self.shard == "chart"):
+            groups = dispatch.chart_launch_plans(
+                icr.chart, samples=samples, dtype=storage,
+                pyramid=self._slab_pyramid(), device=icr.device)
+            launches = [dispatch.launch_signature(p)
+                        for g in groups for p in g["forward"]]
+        graph = None
+        if fn.graph is not None:
+            graph = [[w, list(g), list(b), int(m)]
+                     for w, g, b, m in graphs.graph_kernel_launches(
+                         fn.graph)]
+        return {"plan": dispatch.plan_signature(
+                    icr.chart, samples=samples, dtype=storage,
+                    pyramid=self._slab_pyramid()),
+                "launches": launches, "graph": graph,
+                "mode": self.serving_mode}
 
     @property
     def route(self) -> str:

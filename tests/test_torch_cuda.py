@@ -12,6 +12,7 @@ at float32 (the sums run in another order), 5e-2 with bfloat16 storage
 (one rounding of the output may land on the other side).
 """
 import itertools
+import json
 
 import numpy as np
 import pytest
@@ -1006,3 +1007,59 @@ def test_cuda_kill_device_midstream_replays_bit_for_bit(cuda):
 
     msg = chaos.check_kill_midstream("cuda")
     assert "mesh 8->7" in msg
+
+
+# -- launch plans and the static-analysis layer ----------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(SERVE_CHARTS)))
+def test_cuda_slab_graph_nodes_equal_their_plans(cuda, case):
+    """Every kernel node of the served slab's graph carries the grid,
+    block and shared memory of the launch plan its wrapper launched
+    through, and ``lowered_slab`` gives those nodes beside the slab's
+    plans (the pyramid's grid the card's own co-resident count)."""
+    import collections
+
+    from repro_torch.launch import serve_gp as sg
+
+    chart, rho = SERVE_CHARTS[case]
+    srv = sg.GPFieldServer(sg.demo_posterior(chart, rho), slab=4)
+    fn = srv._entry["fn"]
+    assert fn.nodes and collections.Counter(fn.nodes) == collections.Counter(
+        p.node for p in fn.plans)
+    low = srv.lowered_slab()
+    assert low["mode"] == "single:cuda-graph"
+    assert low["graph"] == [[w, list(g), list(b), m] for w, g, b, m in
+                            fn.nodes]
+    planned = sorted(json.dumps([p["kernel"], p["grid"], p["block"],
+                                 p["smem"]]) for p in low["launches"])
+    assert planned == sorted(json.dumps(n) for n in low["graph"])
+
+
+@pytest.mark.cuda
+def test_cuda_launch_refuses_a_plan_it_does_not_match(cuda):
+    """The C entries derive their grid and shared memory and refuse a plan
+    that says otherwise: nothing launches."""
+    import dataclasses
+
+    from repro_torch.kernels import launch
+
+    coarse = torch.randn(3, 42, device=cuda)
+    xi = torch.randn(3, 40, 2, device=cuda)
+    r, d = torch.randn(2, 3, device=cuda), torch.randn(2, 2, device=cuda)
+    plan = icr_refine.refine_1d_plan(batch=3, t=40, coarse_len=42, n_fsz=2,
+                                     n_csz=3, charted=False)
+    out = torch.full((3, 80), float("nan"), device=cuda)
+    args = (build.dtype_code(coarse.dtype), 1, coarse.data_ptr(),
+            xi.data_ptr(), r.data_ptr(), d.data_ptr(), out.data_ptr(), 3, 42,
+            40, 3, 2, plan.instance["families"], plan.instance["runs"])
+    tensors = {"coarse": coarse, "xi": xi, "r": r, "d": d, "out": out}
+    for bad in (dataclasses.replace(plan, grid=(2, 1, 1)),
+                dataclasses.replace(plan, smem=16)):
+        with pytest.raises(launch.PlanMismatchError):
+            launch.run_plan(bad, tensors, *args)
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()
+    launch.run_plan(plan, tensors, *args)
+    torch.cuda.synchronize()
+    want = icr_refine.refine_stationary_plain(coarse, xi, r, d)
+    assert rel(out, want) < TOL["float32"]

@@ -47,6 +47,10 @@ from repro_torch.core.distributed import DistributedICR, reflect_edges
 from repro_torch.core.refine import reflect_pad
 from repro_torch.launch.mesh import P, make_mesh
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 TOL = {None: 1e-5, "bf16": 5e-2}
 CPU8 = [torch.device("cpu")] * 8
 

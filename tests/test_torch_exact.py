@@ -30,6 +30,10 @@ from repro_torch.checkpoint import (CheckpointManager, load_pytree,
 from repro_torch.core import charts as tcharts
 from repro_torch.core import kernels as tkernels
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 
 def rel(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)

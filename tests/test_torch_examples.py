@@ -13,6 +13,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _run(args, timeout=300):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src")
+    # the test workers share the machine's cores: one OpenMP thread keeps
+    # the example's torch from spinning against the other workers
+    env.setdefault("OMP_NUM_THREADS", "1")
     out = subprocess.run([sys.executable] + args, env=env, timeout=timeout,
                          capture_output=True, text=True, cwd=REPO)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]

@@ -39,6 +39,10 @@ from repro_torch.core import kernels as tkernels
 from repro_torch.core import refine as trefine
 from repro_torch.kernels import policy
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 
 def rel(got, want) -> float:
     got = np.asarray(got, np.float64)

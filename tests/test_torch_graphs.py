@@ -50,6 +50,10 @@ from repro_torch.solvers import (CGConfig, build_condition_system,
                                  pcg, pcg_iterate)
 from repro_torch.solvers.reports import CONVERGED, STALLED
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 
 def _same_bits(a, b) -> bool:
     a, b = tree_leaves(a), tree_leaves(b)

@@ -25,6 +25,10 @@ from repro_torch.convert import matrices_to_torch, xi_to_torch
 from repro_torch.core import charts as tcharts
 from repro_torch.core import kernels as tkernels
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 TOL = {None: 1e-5, "bf16": 5e-2}
 
 

@@ -32,6 +32,10 @@ from repro_torch.core import charts as tcharts
 from repro_torch.core import refine as trefine
 from repro_torch.kernels import build, dispatch, icr_refine, nd_fused, ref
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -479,8 +483,19 @@ def test_kernel_route_refuses_gradients():
 
 
 def test_operand_checks_before_a_launch():
+    """``launch.run_plan`` checks every tensor against its plan (shape,
+    dtype) and takes CUDA tensors only, before any pointer goes to C."""
+    from repro_torch.kernels import launch
+
+    plan = icr_refine.refine_1d_plan(batch=2, t=3, coarse_len=5, n_fsz=2,
+                                     n_csz=3, charted=False)
     with pytest.raises(ValueError, match="expected cuda"):
-        build.check_operands(x=torch.zeros(2))
+        launch.run_plan(plan, {"out": torch.zeros(2, 6)})
+    with pytest.raises(launch.PlanMismatchError):
+        launch.run_plan(plan, {"out": torch.zeros(2, 7)})
+    with pytest.raises(launch.PlanMismatchError):
+        launch.run_plan(plan, {"out": torch.zeros(2, 6,
+                                                  dtype=torch.bfloat16)})
     with pytest.raises(TypeError):
         build.dtype_code(torch.float64)
     assert build.dtype_code(torch.bfloat16) == 1

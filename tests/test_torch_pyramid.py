@@ -39,6 +39,10 @@ from repro_torch.core import kernels as tkernels
 from repro_torch.core import refine as trefine
 from repro_torch.kernels import dispatch, pyramid
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 MAT_TOL = 1e-4
 DTYPES = {"float32": (jnp.float32, torch.float32),

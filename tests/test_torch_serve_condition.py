@@ -38,6 +38,10 @@ from repro_torch.launch import serve_gp as sg
 from repro_torch.solvers import SolveReport, build_condition_system
 from repro_torch.solvers.gp_system import obs_operator
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 RHO = 8.0
 
 

@@ -48,6 +48,10 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import serve_gp as sg
 from repro_torch.roofline import refine_level_traffic
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 TOL = {None: 1e-5, "bf16": 5e-2}
 CHART = tcharts.regular_chart(32, 3, boundary="reflect")  # 256 points, 1-D
 

@@ -46,6 +46,10 @@ from repro_torch.launch import serve_gp as sg
 from repro_torch.launch.mesh import P, make_mesh
 from repro_torch.solvers import build_condition_system, obs_operator
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

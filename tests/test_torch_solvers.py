@@ -45,6 +45,10 @@ from repro_torch.solvers import gp_system as tgp
 from repro_torch.solvers.reports import (BREAKDOWN, CONVERGED, DIVERGED,
                                          NONFINITE, STALLED)
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 
 def rel(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)

@@ -42,6 +42,10 @@ from repro_torch import (
 from repro_torch.convert import matrices_to_torch, posterior_to_torch
 from repro_torch.optim import adamw, linear_warmup_cosine
 
+# the test workers share the machine's cores: one intra-op thread each
+# keeps torch's OpenMP pool from spinning against the other workers
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def problem():
