@@ -9,7 +9,9 @@ Run from the root of a checkout, with no arguments:
 times the eager dust fit step of the package under each SRC, one process
 each, to compare two trees in one call: see ``eager_step_ab``;
 ``--kernels-once`` launches every kernel once at a small shape, the
-program the sanitizers run: see ``kernels_once``.)
+program the sanitizers run: see ``kernels_once``; ``--level0-probe``
+asks whether cuSOLVER's syevd, and the Cholesky root the port takes
+instead, can be captured in a CUDA graph: see ``level0_probe``.)
 
 Phases (any failure ends the run with a non-zero exit code):
 
@@ -53,19 +55,26 @@ Phases (any failure ends the run with a non-zero exit code):
    learned-θ paths the matrix cotangents <= 1e-4 and dρ reported, see
    ``theta_gradient``), and ``ICR.apply_sqrt_T_batch`` on the kernels
    against autograd of the plain apply at both policies. The fixed-θ
-   fits run compiled (``jit=True``: one captured CUDA graph per step,
-   replayed); the learned-θ ones with ``jit=False`` (their eigh syncs
-   with the host).
+   fits, fixed θ and learned θ alike, run compiled (``jit=True``: one
+   captured CUDA graph per step, replayed; a learned-θ step rebuilds its
+   matrices inside the graph). Before the fits, the eigensolver of the
+   matrix build (``kernels/sym_eig.py``) against its plain version at the
+   largest batch each learned-θ path's build hands it and at log's 65,536
+   4x4 D's (``eig_cases``; bit for bit, <= 1e-6 relative, status under
+   its bound): one ``sym_eig`` line.
 4b. graphs — the compiled paths against the same code run op by op on
    the card, bit for bit: ``map_fit(jit=True)`` against ``jit=False`` on
    dust, log and log_polar (10 steps, losses and ξ̂), dust's ADVI fit
    against its eager twin from the same generator state,
    ``apply_sqrt_T_batch`` (a replay of its cached graph) against its chain
    op by op on the four charts at S = 1 and 8 and both policies (and
-   against autograd of the plain apply at the tolerances above), and
-   ``map_fit(jit=True)`` on regular's learned-θ forward, which must raise
-   naming ``jit=False``; every capture holds its kernel nodes to its
-   wrappers' launches (``core/graphs.capture``). One ``graphs`` line.
+   against autograd of the plain apply at the tolerances above), and the
+   learned-θ fits: ``map_fit(jit=True)`` against ``jit=False`` on
+   regular, dust_theta and log_polar_theta at full width (10 steps;
+   losses, ξ̂ and ρ's latent) and a learned-θ ``advi_fit`` on regular (one
+   matrix build per draw) against its eager twin; every capture holds its
+   kernel nodes to its wrappers' launches and their launch plans
+   (``core/graphs.capture``). One ``graphs`` line.
 5. serve   — ``GPFieldServer(demo_posterior(...), slab=8)`` on each
    chart at both dtype policies serves ``mixed_requests(3, 16)`` cold,
    then warm, the launch counters zeroed just before and read just after
@@ -157,16 +166,16 @@ Phases (any failure ends the run with a non-zero exit code):
    the fixed-θ fit step, the transpose, the CG segment) against the plan
    it was launched through, grid, block and shared memory (``plan_ties``,
    with the pyramid's co-resident grid on the card beside the H100 model);
-   each of the ten kernels once at a full-width shape into NaN-filled
-   outputs with guard bands (``witness``: no NaN inside, the guards still
-   NaN, the plain version's result); ``compute-sanitizer`` memcheck and
+   each of the ten kernels and the eigensolver once at a full-width shape
+   into NaN-filled outputs with guard bands (``witness``: no NaN inside,
+   the guards still NaN, the plain version's result); ``compute-sanitizer`` memcheck and
    racecheck over ``--kernels-once`` where the toolkit has the tool (its
    absence, or a run without a summary, is recorded; a reported error
    fails the run); the lint with ``ptxas``' registers; the profiler
    roofline (``roofline/analysis.py``) of the apply, the VJP and the slab
    on the four charts; and one learned-θ step's matrix build split into
-   the level-0 root, the per-level builds and the backward of each
-   (``theta_split``). Lines ``sanitizer``, ``verify``, ``plan_ties``,
+   the level-0 root, the per-level builds and the backward of each, op by
+   op and as graph replays (``theta_split``). Lines ``sanitizer``, ``verify``, ``plan_ties``,
    ``witness``, ``lint``, ``roofline``, ``theta_split``.
 8. times   — per kernel at its chart's largest level (the pyramid at
    regular's cover, the one ``ICR`` runs, and at the dust prefix, with the
@@ -183,7 +192,10 @@ Phases (any failure ends the run with a non-zero exit code):
    against the kernels, forward and backward, and ``apply_sqrt_T_batch``
    replayed and op by op with the host enqueue of each; and one training
    step's milliseconds (forward, backward and update) per path, with its
-   host enqueue time, op by op and, at fixed θ, as one graph replay.
+   host enqueue time, op by op and as one graph replay; the eigensolver at
+   each ``eig_cases`` batch against its plain version and
+   ``torch.linalg.eigh`` (its line in ``kernels`` carries them under
+   ``per_batch``, headed by log_polar_theta's).
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -269,6 +281,15 @@ KERNEL_INFO = {
         "replaces_fn": "_pyramid_kernel",
         "chart": "regular"},
 }
+# the port's kernel with no TPU counterpart: the batched Jacobi of the
+# matrix build, which XLA's eigh is inside the TPU's compiled step
+EIG = "sym_eig"
+EIG_INFO = {"source": "src/repro_torch/kernels/csrc/sym_eig.cu",
+            "replaces": "src/repro/core/refine.py:61",
+            "replaces_fn": "jnp.linalg.eigh (XLA's Jacobi in the compiled "
+                           "step; no Pallas kernel)"}
+# the launch counters the phases read: the ten kernels and the eigensolver
+COUNTED = tuple(KERNEL_INFO) + (EIG,)
 FORWARD = ("refine_stationary", "refine_charted", "refine_nd_fused")
 NOISE_FREE = ("refine_stationary_nn", "refine_charted_nn")
 PYRAMID = "refine_pyramid"
@@ -278,19 +299,22 @@ ADJOINT = tuple(k for k in KERNEL_INFO
 # the pyramid's forward and its replay over the 1-D kernels; the charts
 # the pyramid does not cover (dispatch.pyramid_cover: N-D and charted 1-D)
 # through their per-level kernels and the adjoints, the learned-θ N-D
-# paths through the nd-axes route
+# paths through the nd-axes route; every learned-θ path through the
+# eigensolver of its matrix build
 TRAIN_REACHES = {
     "dust": ("refine_nd_fused", "refine_charted_adjoint",
              "refine_stationary_adjoint_nn"),
-    "regular": (PYRAMID, "refine_stationary", "refine_stationary_adjoint"),
+    "regular": (PYRAMID, "refine_stationary", "refine_stationary_adjoint",
+                EIG),
     "log": ("refine_charted", "refine_charted_adjoint"),
     "log_polar": ("refine_nd_fused", "refine_charted_adjoint",
                   "refine_charted_adjoint_nn"),
     "dust_theta": ("refine_charted", "refine_stationary_nn",
-                   "refine_charted_adjoint", "refine_stationary_adjoint_nn"),
+                   "refine_charted_adjoint", "refine_stationary_adjoint_nn",
+                   EIG),
     "log_polar_theta": ("refine_charted", "refine_charted_nn",
                         "refine_charted_adjoint",
-                        "refine_charted_adjoint_nn"),
+                        "refine_charted_adjoint_nn", EIG),
 }
 NOISE = 0.05                 # observation noise of the training data
 OBS_FRAC = 0.3
@@ -730,6 +754,92 @@ def check_kernels(models, gen) -> dict:
     return errors
 
 
+def eig_cases(problems) -> dict:
+    """The batches the eigensolver takes on the main path: per learned-θ
+    path the largest its build hands ``sym_eig`` (by matrices, then n), and
+    the 65,536 4x4 D's of log's last level (the largest batch of any
+    build), each (batch, n, n), recorded from ``ICR.matrices``."""
+    from repro_torch.kernels import sym_eig
+
+    out = {}
+    for name in ("regular", "dust_theta", "log_polar_theta", "log"):
+        icr = problems[name]["icr"]
+        seen, real = [], sym_eig.sym_eig
+
+        def spy(mat, *args, seen=seen, real=real, **kw):
+            seen.append(mat.detach().reshape((-1,) + mat.shape[-2:]).clone())
+            return real(mat, *args, **kw)
+
+        sym_eig.sym_eig = spy
+        try:
+            icr.matrices()
+        finally:
+            sym_eig.sym_eig = real
+        if name == "log":
+            seen = [m for m in seen if m.shape[-1] == icr.chart.n_fsz]
+        a = max(seen, key=lambda m: (m.shape[0], m.shape[-1]))
+        out[f"{name}-{a.shape[0]}x{a.shape[1]}x{a.shape[2]}"] = a
+    return out
+
+
+def check_sym_eig(cases) -> dict:
+    """Phase 2, the eigensolver: the kernel against its plain version on
+    the card at every case of ``eig_cases`` (eigenvalues and eigenvectors
+    bit for bit; the largest difference relative to the largest
+    eigenvalue, held at 1e-6) and its status under ``BOUND``."""
+    import torch
+
+    from repro_torch.kernels import sym_eig
+
+    out = {}
+    for name, a in cases.items():
+        got, want = sym_eig.sym_eig(a), sym_eig.sym_eig_plain(a)
+        torch.cuda.synchronize()
+        absd = max(float((g - w).abs().max()) for g, w in zip(got[:2],
+                                                              want[:2]))
+        rel = absd / max(float(want[0].abs().max()), 1e-30)
+        out[name] = {"equal": all(torch.equal(g, w) for g, w
+                                  in zip(got[:2], want[:2])),
+                     "max_abs_err": absd, "max_rel_err": rel,
+                     "status_max": float(got[2].max())}
+        if not (rel <= 1e-6 and out[name]["status_max"] <= sym_eig.BOUND):
+            raise AssertionError(f"sym_eig {name}: {out[name]}")
+    return out
+
+
+def sym_eig_times(cases, bandwidth, flush) -> dict:
+    """Per case of ``eig_cases``: the kernel's, its plain version's and
+    ``torch.linalg.eigh``'s milliseconds on the same batch (null where the
+    library refuses the batch, with its error), and the bound: the batch
+    read once and its eigenpairs and status written once at the card's
+    bandwidth, against the rotations' float32 operations (``sweeps ·
+    (m−1) · m/2`` rotations of 18n + 15 flops each) at its peak."""
+    import torch
+
+    from repro_torch.kernels import sym_eig
+
+    out = {}
+    for name, a in cases.items():
+        b, n = a.shape[0], a.shape[-1]
+        m = n + n % 2
+        flops = sym_eig.sweeps_for(n) * (m - 1) * (m // 2) * (18 * n + 15)
+        bound_ms, bound_by = bound((2 * n * n + n + 1) * 4 * b,
+                                   b * flops / 2, bandwidth)
+        entry = {"batch": b, "n": n,
+                 "ms": time_ms(lambda a=a: sym_eig.sym_eig(a), flush),
+                 "plain_ms": time_ms(lambda a=a: sym_eig.sym_eig_plain(a),
+                                     flush),
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None}
+        try:
+            entry["library_ms"] = time_ms(lambda a=a: torch.linalg.eigh(a),
+                                          flush)
+        except RuntimeError as exc:   # cuSOLVER refuses some batches
+            entry["library_error"] = str(exc)[:200]
+        out[name] = entry
+    return out
+
+
 def check_path(models, gen) -> tuple:
     """Phase 3: sample_batch at both policies, twice per chart: with the
     pyramid (the default), which must launch once for its cover and the
@@ -794,10 +904,10 @@ THETA_PATHS = {"regular": (0.04, 0.06, 0.03), "dust_theta": (0.5, 0.8, 0.4),
                "log_polar_theta": (2.0, 3.0, 1.5)}
 
 
-# dρ through the kernels against the float64 witness: the float32 build
-# of the level-0 square root rounds its eigenvalues near the clip by
-# ~1e-7 ‖K‖, which its derivative 1/(2 sqrt λ) amplifies (0.38 % on a
-# (6, 8, 8) dust chart on the CPU; PERF.md)
+# dρ through the kernels against the float64 witness: set where the
+# level-0 root was a float32 eigh, whose rounding near the clip its
+# derivative 1/(2 sqrt λ) amplified (0.38 % on a (6, 8, 8) dust chart on
+# the CPU); the float64 Cholesky root leaves ~1e-5 (PERF.md)
 DRHO_F64_TOL = 1e-2
 
 
@@ -864,9 +974,8 @@ def theta_gradient(pname, p, point) -> dict:
     the clip by up to 1/(2 sqrt(eps)), so dρ through the kernels is held
     against the plain versions' at 1e-3. The witness of dρ itself is the plain versions in float64 on the
     card, matrices built in float64 (``ICR.matrices(dtype=)``): dρ through
-    the kernels is held against it at ``DRHO_F64_TOL``, the float32
-    rounding of the level-0 eigenvalues near the clip (PERF.md). The plain
-    versions in float32 on the CPU are reported beside them."""
+    the kernels is held against it at ``DRHO_F64_TOL`` (PERF.md). The
+    plain versions in float32 on the CPU are reported beside them."""
     import torch
 
     from repro_torch import ICR, gaussian_log_likelihood, neg_log_joint
@@ -946,16 +1055,15 @@ def check_train(problems, gen) -> tuple:
     from repro_torch import ICR, advi_fit, map_fit, neg_log_joint
     from repro_torch.kernels import build
 
-    launches = {k: 0 for k in KERNEL_INFO}
+    launches = {k: 0 for k in COUNTED}
     report = {}
     for cname, p in problems.items():
         icr = p["icr"]
         build.LAUNCHES.clear()
-        # a learned-θ forward rebuilds the matrices, whose eigh syncs
-        # with the host: it cannot be captured, and runs op by op
+        # every fit is compiled: a learned-θ step captures its matrix build
         fit, losses = map_fit(p["ll"], p["forward"], p["params"], p["y"],
                               steps=20 if cname == "dust" else 10,
-                              lr=p["lr"], jit=cname not in THETA_PATHS)
+                              lr=p["lr"])
         entry = {"map_losses": [float(v) for v in losses]}
         if cname == "dust":
             _, elbos = advi_fit(
@@ -968,7 +1076,7 @@ def check_train(problems, gen) -> tuple:
                 raise AssertionError(f"dust ADVI: the ELBO did not rise: "
                                      f"{entry['advi_elbos']}")
         torch.cuda.synchronize()
-        counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+        counts = {k: build.LAUNCHES[k] for k in COUNTED}
         entry["launches"] = counts
         if not (bool(torch.isfinite(losses).all())
                 and float(losses[-1]) < float(losses[0])):
@@ -982,7 +1090,7 @@ def check_train(problems, gen) -> tuple:
         if silent:
             raise AssertionError(f"{cname}: kernels never launched on the "
                                  f"training path: {silent}")
-        for k in KERNEL_INFO:
+        for k in COUNTED:
             launches[k] += counts[k]
 
         # one step's gradient, through the kernels and the plain versions
@@ -1052,22 +1160,25 @@ def check_graphs(problems, models, gen) -> tuple:
     generator state, ``apply_sqrt_T_batch`` (a replay of its cached graph)
     against its op-by-op chain on the four charts at S = 1 and 8 and both
     dtype policies (and against autograd of the plain apply at 1e-5 /
-    5e-2), and ``map_fit(jit=True)`` on regular's learned-θ forward, which
-    must raise and name ``jit=False``. Every capture checks that its
-    kernel nodes equal its wrappers' launches; every graphed path must
-    launch the kernels its chart reaches, the counters zeroed just before
-    and read just after. Returns ``(launches, record)``."""
+    5e-2), and the learned-θ fits: ``map_fit(jit=True)`` against
+    ``jit=False`` on regular, dust_theta and log_polar_theta (losses, ξ̂
+    and ρ's latent; the matrices rebuilt inside the captured step) and a
+    learned-θ ``advi_fit`` on regular (one build per draw, ``per_draw``)
+    against its eager twin. Every capture checks that its kernel nodes
+    equal its wrappers' launches and their launch plans; every graphed
+    path must launch the kernels its chart reaches, the counters zeroed
+    just before and read just after. Returns ``(launches, record)``."""
     import torch
 
-    from repro_torch import ICR, advi_fit, map_fit
+    from repro_torch import ICR, advi_fit, map_fit, per_draw
     from repro_torch.core import graphs
     from repro_torch.kernels import build
 
-    launches = {k: 0 for k in KERNEL_INFO}
+    launches = {k: 0 for k in COUNTED}
 
     def read(what, reaches):
         torch.cuda.synchronize()
-        counts = {k: build.LAUNCHES[k] for k in KERNEL_INFO}
+        counts = {k: build.LAUNCHES[k] for k in COUNTED}
         silent = [k for k in reaches if counts[k] == 0]
         if silent:
             raise AssertionError(f"graphs {what}: kernels never launched: "
@@ -1143,19 +1254,43 @@ def check_graphs(problems, models, gen) -> tuple:
                                          f"apply_sqrt_T {entry}")
             del icr, m
 
-    # a learned-θ forward syncs with the host (eigh): the capture raises
-    p = problems["regular"]
-    try:
-        map_fit(p["ll"], p["forward"], p["params"], p["y"], steps=2,
-                lr=p["lr"])
-    except RuntimeError as exc:
-        record["learned_theta_raises"] = str(exc)[:240]
-        if "jit=False" not in str(exc) or "ROADMAP" not in str(exc):
-            raise AssertionError(f"graphs: the learned-θ capture raised "
-                                 f"without naming jit=False: {exc}")
-    else:
-        raise AssertionError("graphs: map_fit(jit=True) on a learned-θ "
-                             "forward did not raise")
+    # learned θ: the step rebuilds the matrices from θ inside the graph
+    record["learned_theta"] = {}
+    for cname in THETA_PATHS:
+        p = problems[cname]
+        args = (p["ll"], p["forward"], p["params"], p["y"])
+        build.LAUNCHES.clear()
+        fit_g, loss_g = map_fit(*args, steps=GRAPH_STEPS, lr=p["lr"])
+        counts = read(f"{cname} learned-θ map_fit", TRAIN_REACHES[cname])
+        nodes = graphs.CAPTURES[-1]
+        fit_e, loss_e = map_fit(*args, steps=GRAPH_STEPS, lr=p["lr"],
+                                jit=False)
+        entry = {"losses_equal": same_bits(loss_g, loss_e),
+                 "xi_equal": same_bits(fit_g[0], fit_e[0]),
+                 "rho_latent_equal": same_bits(fit_g[1], fit_e[1]),
+                 "kernel_nodes": len(nodes["nodes"]),
+                 "nodes_equal_plans": sorted(nodes["nodes"])
+                 == sorted(nodes["planned"]),
+                 "launches": counts}
+        if cname == "regular":
+            gen.manual_seed(47)
+            build.LAUNCHES.clear()
+            q_g, elbo_g = advi_fit(gen, p["ll"], per_draw(p["forward"]),
+                                   p["params"], p["y"], steps=GRAPH_STEPS,
+                                   lr=p["lr"])
+            read("regular learned-θ advi_fit", TRAIN_REACHES[cname])
+            gen.manual_seed(47)
+            with graphs.eager():
+                q_e, elbo_e = advi_fit(gen, p["ll"], per_draw(p["forward"]),
+                                       p["params"], p["y"],
+                                       steps=GRAPH_STEPS, lr=p["lr"])
+            entry.update(advi_elbos_equal=same_bits(elbo_g, elbo_e),
+                         advi_params_equal=same_bits(q_g, q_e))
+        record["learned_theta"][cname] = entry
+        if not all(v for k, v in entry.items()
+                   if k not in ("launches", "kernel_nodes")):
+            raise AssertionError(f"graphs {cname}: the graphed learned-θ "
+                                 f"fit differs from the eager one: {entry}")
     torch.cuda.synchronize()
     record["launches"] = launches
     return launches, record
@@ -1513,7 +1648,7 @@ def train_step_times(problems, flush) -> dict:
     where they go: the loss alone (forward, recording the graph), the
     update alone, and the backward as the rest; and on the fixed-θ paths
     the same step as one replay of its captured CUDA graph (``graph_*``;
-    null where θ is learned: that step cannot be captured)."""
+    on the learned-θ paths too, the matrix build inside the graph)."""
     import torch
 
     from repro_torch import neg_log_joint
@@ -1547,16 +1682,14 @@ def train_step_times(problems, flush) -> dict:
                  "train_step_enqueue_ms": enqueue_ms(step),
                  "loss_ms": loss_ms, "update_ms": update_ms,
                  "backward_ms": step_ms - loss_ms - update_ms,
-                 "graph_step_ms": None, "graph_step_enqueue_ms": None,
                  "points": p["icr"].chart.size,
                  "learns_theta": cname in THETA_PATHS}
-        if cname not in THETA_PATHS:
-            _, gstep = fit_step()
-            replay = graphs.capture(gstep, device="cuda")
-            entry.update(graph_step_ms=time_ms(replay, flush),
-                         graph_step_enqueue_ms=enqueue_ms(replay),
-                         graph_kernel_nodes=sum(replay.launches.values()))
-            del replay
+        _, gstep = fit_step()
+        replay = graphs.capture(gstep, device="cuda")
+        entry.update(graph_step_ms=time_ms(replay, flush),
+                     graph_step_enqueue_ms=enqueue_ms(replay),
+                     graph_kernel_nodes=sum(replay.launches.values()))
+        del replay
         out[cname] = entry
     return out
 
@@ -2703,17 +2836,24 @@ def witness_cases(models, gen) -> dict:
     return cases
 
 
-def nan_witness(models, gen) -> dict:
-    """Each of the ten kernels launched once at a full-width shape into
+def nan_witness(models, gen, problems) -> dict:
+    """Each of the ten kernels and the eigensolver (at log's 65,536 4x4
+    matrices) launched once at a full-width shape into
     outputs that sit inside NaN-filled buffers with a guard band of
     ``GUARD`` elements on each side: no NaN may remain inside, the guard
     bands must stay NaN, and the result must equal the plain version (at
     the f32 tolerance). No kernel of the port adds into its output."""
     import torch
 
+    from repro_torch.kernels import sym_eig
+
+    cases = witness_cases(models, gen)
+    a = next(v for k, v in eig_cases(problems).items() if k.startswith("log-"))
+    cases[EIG] = (lambda outs, a=a: sym_eig.sym_eig(a, out=outs),
+                  [tuple(a.shape[:-1]), tuple(a.shape), (a.shape[0],)],
+                  lambda a=a: list(sym_eig.sym_eig_plain(a)))
     out = {}
-    for name, (launch_into, shapes, plain) in witness_cases(models,
-                                                            gen).items():
+    for name, (launch_into, shapes, plain) in cases.items():
         bufs = [torch.full((math.prod(s) + 2 * GUARD,), float("nan"),
                            device="cuda") for s in shapes]
         outs = [b[GUARD:GUARD + math.prod(s)].view(s)
@@ -2731,9 +2871,9 @@ def nan_witness(models, gen) -> dict:
                      "elements": sum(math.prod(s) for s in shapes)}
         if inside_nan or not guards_kept or not err <= TOL["float32"]:
             raise AssertionError(f"witness {name}: {out[name]}")
-    if set(out) != set(KERNEL_INFO):
+    if set(out) != set(COUNTED):
         raise AssertionError(f"witness: no case of "
-                             f"{sorted(set(KERNEL_INFO) - set(out))}")
+                             f"{sorted(set(COUNTED) - set(out))}")
     return out
 
 
@@ -2747,7 +2887,7 @@ def kernels_once() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.analysis import kernel_verify as kv
     from repro_torch.core import charts as tc
-    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels import build, dispatch, sym_eig
 
     build.LAUNCHES.clear()
     findings = []
@@ -2759,10 +2899,13 @@ def kernels_once() -> int:
             chart, samples=2, pyramid=False) if g["route"] != "pyramid"]
         findings += kv.verify_transpose(chart, groups, samples=2,
                                         dtype=torch.float32, device="cuda")
+    for n in (4, 8):   # the eigensolver's thread and warp routes
+        a = torch.randn((9, n, n), device="cuda")
+        sym_eig.sym_eig(a + a.mT)
     torch.cuda.synchronize()
     print(json.dumps({"launches": dict(build.LAUNCHES),
                       "findings": [str(f) for f in findings]}))
-    silent = [k for k in KERNEL_INFO if not build.LAUNCHES[k]]
+    silent = [k for k in COUNTED if not build.LAUNCHES[k]]
     return 1 if findings or silent else 0
 
 
@@ -2869,9 +3012,12 @@ def theta_split(problems) -> dict:
     median of 5): the level-0 root (``level0_sqrt``), the per-level builds
     (joint on 1-D charts, the per-axis factors on N-D ones, as
     ``ICR.matrices`` builds them on the kernel route) and the backward of
-    each to ρ's latent, on regular, dust_theta and log_polar_theta."""
+    each to ρ's latent, on regular, dust_theta and log_polar_theta; each
+    op by op and (``graph_*``) as one replay of its captured CUDA graph,
+    as a compiled step runs it. Call inside ``build_checks()``."""
     import torch
 
+    from repro_torch.core import graphs
     from repro_torch.core.refine import (axis_refinement_matrices_level,
                                          level0_sqrt,
                                          refinement_matrices_level)
@@ -2919,13 +3065,19 @@ def theta_split(problems) -> dict:
                 torch.autograd.grad(loss, list(latent.values()))
             return run
 
-        root_ms, levels_ms = med(root), med(levels)
-        out[pname] = {
-            "level0_points": math.prod(chart.shape(0)),
-            "root_ms": root_ms, "levels_ms": levels_ms,
-            "root_backward_ms": med(backward(root)) - root_ms,
-            "levels_backward_ms": med(backward(levels)) - levels_ms,
-            "levels": chart.n_levels}
+        entry = {"level0_points": math.prod(chart.shape(0)),
+                 "levels": chart.n_levels}
+        for tag, wrap in (("", lambda fn: fn),
+                          ("graph_", lambda fn: graphs.capture(
+                              fn, device="cuda"))):
+            root_ms, levels_ms = med(wrap(root)), med(wrap(levels))
+            entry.update({
+                f"{tag}root_ms": root_ms, f"{tag}levels_ms": levels_ms,
+                f"{tag}root_backward_ms": med(wrap(backward(root)))
+                - root_ms,
+                f"{tag}levels_backward_ms": med(wrap(backward(levels)))
+                - levels_ms})
+        out[pname] = entry
     return out
 
 
@@ -2979,7 +3131,8 @@ def check_analysis(models, problems, gen, sharded_plans) -> float:
                                            "cuda"),
         "model_1d": pyramid.resident_blocks(torch.float32, False, 2, 3, 0)}
     print("plan_ties: " + json.dumps(ties), flush=True)
-    print("witness: " + json.dumps(nan_witness(models, gen)), flush=True)
+    print("witness: " + json.dumps(nan_witness(models, gen, problems)),
+          flush=True)
     regs = lint.ptxas_lines()
     lint_found = [f for scn in sc.chip_scenarios(S)
                   for f in lint.lint_scenario(scn, registers=regs)]
@@ -2987,7 +3140,11 @@ def check_analysis(models, problems, gen, sharded_plans) -> float:
     if lint_found:
         raise AssertionError(f"lint: {lint_found[:5]}")
     print("roofline: " + json.dumps(roofline_lines(models, gen)), flush=True)
-    print("theta_split: " + json.dumps(theta_split(problems)), flush=True)
+    from repro_torch.core.refine import build_checks
+
+    with build_checks():
+        split = theta_split(problems)
+    print("theta_split: " + json.dumps(split), flush=True)
     return time.perf_counter() - t_phase
 
 
@@ -3007,6 +3164,7 @@ def main() -> int:
 
     from repro_torch import ICR
     from repro_torch.core import graphs
+    from repro_torch.core.refine import build_checks
     from repro_torch.kernels import build, launch
 
     # every graph the run captures, its kernel nodes and their plans
@@ -3052,11 +3210,15 @@ def main() -> int:
 
     # -- 3. the sampling path, with the pyramid and per level ------------------
     launches, path_err, covers = check_path(models, gen)
+    launches = collections.Counter(launches)
     print("path: " + json.dumps({"launches": launches, "covers": covers,
                                  "max_rel_err": path_err}), flush=True)
 
     # -- 4. training through the adjoint kernels and nd-axes --------------------
     problems = train_problems(models, gen)
+    eig = eig_cases(problems)
+    eig_errors = check_sym_eig(eig)
+    print("sym_eig: " + json.dumps(eig_errors), flush=True)
     train_launches, train = check_train(problems, gen)
     for k, n in train_launches.items():
         launches[k] += n
@@ -3117,6 +3279,21 @@ def main() -> int:
                  "chart": info["chart"], "per_dtype": times[kname]}
         entries.append(entry)
         print(json.dumps(entry), flush=True)
+    eig_times = sym_eig_times(eig, bandwidth, flush)
+    head = eig_times[next(k for k in eig if k.startswith("log_polar_theta"))]
+    entry = {"name": EIG, "route": "cuda", "source": EIG_INFO["source"],
+             "replaces": EIG_INFO["replaces"],
+             "replaces_fn": EIG_INFO["replaces_fn"],
+             "launches": launches[EIG],
+             "max_abs_err": max(e["max_abs_err"] for e in eig_errors.values()),
+             "ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"],
+             "max_rel_err": {"float32": max(e["max_rel_err"]
+                                            for e in eig_errors.values())},
+             "chart": "log_polar_theta", "per_batch": eig_times}
+    entries.append(entry)
+    print(json.dumps(entry), flush=True)
 
     whole = {}
     for cname, (icr0, mats, mats_s) in models.items():
@@ -3162,8 +3339,11 @@ def main() -> int:
           flush=True)
     print("levels_fp32: " + json.dumps(level_split(models, flush, gen)),
           flush=True)
-    print("train_step: " + json.dumps(train_step_times(problems, flush)),
-          flush=True)
+    # the learned-θ steps' builds keep their statuses on the device while
+    # they are timed, and are read once after (refine.build_checks)
+    with build_checks():
+        steps = train_step_times(problems, flush)
+    print("train_step: " + json.dumps(steps), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))
@@ -3310,7 +3490,102 @@ def eager_step_ab(specs) -> int:
     return 0
 
 
+def level0_probe() -> int:
+    """``--level0-probe``: can the level-0 root be rebuilt inside a CUDA
+    graph? (1) cuSOLVER's syevd through a binding on the current stream
+    (``kernels/sym_eig.dense_eigh``: workspace from torch's allocator,
+    info on the device) at n = 1024, 2048 and 4096, one process each
+    (``--probe-syevd``): eager twice, then captured and replayed, each
+    against the first call bit for bit; (2) the root the port takes,
+    ``core/refine.level0_sqrt`` (a float64 Cholesky factor), on the three
+    learned-θ charts' level-0 points, captured and replayed against its
+    eager build bit for bit. One ``probe`` line each, then the card."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import graphs, refine
+    from repro_torch.kernels import build
+
+    build.build(["sym_eig", "dense_eigh"])
+    roots = {}
+    for n in (1024, 2048, 4096):   # one process each: a failed capture
+        run = subprocess.run(       # leaves the context unusable
+            [sys.executable, str(Path(__file__).resolve()), "--probe-syevd",
+             str(n)], capture_output=True, text=True)
+        roots[n] = (json.loads(run.stdout.strip().splitlines()[-1])
+                    if run.returncode == 0 else
+                    {"rc": run.returncode, "stderr": run.stderr[-600:]})
+    print("probe syevd: " + json.dumps(roots), flush=True)
+
+    chol = {}
+    for cname, rho in (("regular", THETA_PATHS["regular"][1] * 2**20),
+                       ("dust", THETA_PATHS["dust_theta"][1]),
+                       ("log_polar", THETA_PATHS["log_polar_theta"][1])):
+        chart, kern = charts()[cname]
+        rho_t = torch.tensor(rho, device="cuda")
+
+        def root(rho_t=rho_t, chart=chart, kern=kern):
+            return refine.level0_sqrt(chart, kern({"rho": rho_t,
+                                                   "sigma": 1.0}))
+
+        entry = {"points": math.prod(chart.shape(0))}
+        try:
+            with refine.build_checks():
+                first = root()
+                replay = graphs.capture(root, device="cuda")
+                entry["replay_equal"] = all(torch.equal(replay(), first)
+                                            for _ in range(2))
+        except Exception as exc:   # the probe records what failed
+            entry["error"] = f"{type(exc).__name__}: {exc}"[:600]
+        chol[cname] = entry
+    print("probe cholesky root: " + json.dumps(chol), flush=True)
+    print(card_line())
+    return 0
+
+
+def probe_syevd(n: int) -> int:
+    """``--probe-syevd N``: cuSOLVER's syevd (``sym_eig.dense_eigh``) on an
+    N-point Matérn matrix, eager twice, then captured in a CUDA graph and
+    replayed twice, each against the first call bit for bit; one JSON
+    line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.kernels import kernel_matrix
+    from repro_torch.kernels import sym_eig
+
+    x = torch.linspace(0, 1, n, device="cuda")[:, None]
+    k = kernel_matrix(charts()["regular"][1].with_defaults(rho=0.05)(), x)
+    k = 0.5 * (k + k.T)
+    entry = {}
+    try:
+        first = sym_eig.dense_eigh(k)
+        again = sym_eig.dense_eigh(k)
+        torch.cuda.synchronize()
+        entry.update(workspace_bytes=sym_eig.workspace_bytes(n, "cuda"),
+                     eager_repeat_equal=all(torch.equal(a, b) for a, b
+                                            in zip(first, again)),
+                     info=int(first[2]))
+        g = torch.cuda.CUDAGraph()
+        buf = k.clone()
+        with torch.cuda.graph(g):
+            out = sym_eig.dense_eigh(buf)
+        for rep in range(2):
+            g.replay()
+            torch.cuda.synchronize()
+            entry[f"replay{rep}_equal"] = all(
+                torch.equal(a, b) for a, b in zip(first, out))
+    except Exception as exc:   # the probe records what failed
+        entry["error"] = f"{type(exc).__name__}: {exc}"[:400]
+    print(json.dumps(entry))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--probe-syevd"]:
+        sys.exit(probe_syevd(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--level0-probe"]:
+        sys.exit(level0_probe())
     if sys.argv[1:2] == ["--kernels-once"]:
         sys.exit(kernels_once())
     if sys.argv[1:2] == ["--eager-step"]:

@@ -11,12 +11,12 @@ The twin of ``examples/gp_regression_vi.py``:
                 the fitted ρ for uncertainties, then the ADVI posterior
                 served as field draws and predictive moments
 
-The joint MAP rebuilds the matrices from θ in every step, and their eigh
-syncs with the host, so it runs op by op (``jit=False``; on the card a
-captured step would raise). The ADVI fit at fixed θ is compiled as the
-JAX package's scan is: on the card each step is one replay of a captured
-CUDA graph. ``--device cpu`` runs the kernels' plain versions; ``--quick``
-takes a 256-point chart and a few steps.
+Both fits are compiled as the JAX package's scan is: on the card each
+step is one replay of a captured CUDA graph, the joint MAP's with the
+matrices rebuilt from θ inside it (the families' eigenpairs by the
+batched Jacobi kernel, the level-0 root a float64 Cholesky factor, no
+host sync). ``--device cpu`` runs the kernels' plain versions;
+``--quick`` takes a 256-point chart and a few steps.
 
 Run:  PYTHONPATH=src python examples/torch_gp_regression_vi.py [--steps 300]
 """
@@ -69,7 +69,8 @@ def main():
         print(f"  level {entry['level']}: fwd={entry['kernel']} "
               f"bwd={[v['kernel'] for v in entry['vjp']]}")
 
-    # joint (field, θ) MAP: the matrices are rebuilt inside every step
+    # joint (field, θ) MAP: the matrices are rebuilt inside every step,
+    # compiled with it
     priors = StandardizedModel({"rho": lognormal_prior(0.06 * n, 0.03 * n)})
     ll = gaussian_log_likelihood(0.05, obs_idx)
 
@@ -80,8 +81,7 @@ def main():
 
     latent0 = (icr.zero_xi(), priors.zero_xi(device=dev))
     t0 = time.perf_counter()
-    latent, losses = map_fit(ll, fwd, latent0, y, steps=args.steps, lr=2e-2,
-                             jit=False)
+    latent, losses = map_fit(ll, fwd, latent0, y, steps=args.steps, lr=2e-2)
     rho_hat = float(priors(latent[1])["rho"])
     dt = time.perf_counter() - t0
     with torch.no_grad():

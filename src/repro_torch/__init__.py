@@ -40,6 +40,7 @@ from .core import (
     matern52,
     neg_log_joint,
     normal_prior,
+    per_draw,
     poisson_log_likelihood,
     rbf,
     regular_chart,
@@ -83,7 +84,8 @@ __all__ = [
     "exponential", "galactic_dust_chart", "gauss_kl",
     "gaussian_log_likelihood", "log_chart", "log_polar_chart",
     "lognormal_prior", "map_fit", "map_posterior", "matern32", "matern52",
-    "neg_log_joint", "normal_prior", "poisson_log_likelihood", "rbf", "regular_chart",
+    "neg_log_joint", "normal_prior", "per_draw", "poisson_log_likelihood",
+    "rbf", "regular_chart",
     "uniform_prior", "charted_gp_dataset", "BF16", "FP32", "DtypePolicy",
     "refine_charted", "refine_charted_adjoint", "refine_nd_fused",
     "refine_stationary", "refine_stationary_adjoint", "adamw",

@@ -44,6 +44,7 @@ from .vi import (
     map_fit,
     map_posterior,
     neg_log_joint,
+    per_draw,
     poisson_log_likelihood,
 )
 
@@ -57,5 +58,6 @@ __all__ = [
     "StandardizedModel", "lognormal_prior", "normal_prior", "uniform_prior",
     "Posterior", "advi_fit", "advi_posterior", "cg_posterior",
     "gaussian_log_likelihood",
-    "map_fit", "map_posterior", "neg_log_joint", "poisson_log_likelihood",
+    "map_fit", "map_posterior", "neg_log_joint", "per_draw",
+    "poisson_log_likelihood",
 ]

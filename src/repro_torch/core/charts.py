@@ -24,6 +24,7 @@ the chart maps are torch functions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -189,13 +190,18 @@ class Chart:
                        dtype=torch.float32) -> torch.Tensor:
         """All charted positions at `level`, (prod(shape_l), dim_D).
 
-        Only for small levels (tests, the level-0 exact sqrt).
+        Only for small levels (tests, the level-0 exact sqrt). The chart
+        coordinates are made on `device` once per (level, device, dtype)
+        and kept (``_grid_coords``), so a learned-θ build of the level-0
+        root copies nothing from the host.
         """
-        axes = [self.axis_coords(level, a) for a in range(self.ndim)]
-        mesh = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
-        pts = torch.as_tensor(mesh.reshape(-1, self.ndim), dtype=dtype,
-                              device=device)
-        return self.map_to_D(pts)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        coords = _grid_coords(self, level, device, dtype)
+        # the identity map would hand out the kept tensor itself
+        return self.map_to_D(coords.clone() if self.phi_inv is None
+                             else coords)
 
     def map_to_D(self, chart_pts: torch.Tensor) -> torch.Tensor:
         """Map chart coordinates (..., ndim) to the modeled space."""
@@ -205,6 +211,17 @@ class Chart:
         if out.ndim == chart_pts.ndim - 1:  # scalar-valued map
             out = out[..., None]
         return out
+
+
+@functools.lru_cache(maxsize=256)
+def _grid_coords(chart: Chart, level: int, device: torch.device,
+                 dtype) -> torch.Tensor:
+    """The chart coordinates of every pixel at `level`, (prod(shape_l),
+    ndim): the numpy float64 grid cast to `dtype` on `device`."""
+    axes = [chart.axis_coords(level, a) for a in range(chart.ndim)]
+    mesh = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+    return torch.as_tensor(mesh.reshape(-1, chart.ndim), dtype=dtype,
+                           device=device)
 
 
 # -- chart maps (module-level so charts stay picklable and hashable) -----------

@@ -90,7 +90,9 @@ def lru(cache: dict, key, make: Callable, size: int):
     return value
 
 # the kernels' symbols (csrc/*.cu) and the wrapper names they count under;
-# the 1-D kernels' second template argument is NOISE (false: ``_nn``)
+# the 1-D kernels' second template argument is NOISE (false: ``_nn``). The
+# level-0 root's cuSOLVER calls (csrc/dense_eigh.cu) are a library's
+# kernels, as cuBLAS's are: no wrapper counts them
 _WRAPPER_OF = {
     "refine_1d_stationary_adj_kernel": "refine_stationary_adjoint",
     "refine_1d_charted_adj_kernel": "refine_charted_adjoint",
@@ -98,7 +100,11 @@ _WRAPPER_OF = {
     "refine_1d_charted_kernel": "refine_charted",
     "refine_nd_fused_kernel": "refine_nd_fused",
     "refine_pyramid_kernel": "refine_pyramid",
+    "sym_eig_thread_kernel": "sym_eig",
+    "sym_eig_warp_kernel": "sym_eig",
 }
+# the wrappers whose kernels take no NOISE argument
+_ONE_INSTANCE = ("refine_nd_fused", "refine_pyramid", "sym_eig")
 # a mangled symbol: the name, then ``I`` and the template arguments, the
 # storage type (``f`` or ``13__nv_bfloat16``) and a bool (``Lb1E``) first
 _SYMBOL = re.compile(r"\d(" + "|".join(_WRAPPER_OF)
@@ -112,7 +118,7 @@ def wrapper_of_kernel(symbol: str) -> str | None:
     if m is None:
         return None
     stem = _WRAPPER_OF[m.group(1)]
-    if stem in ("refine_nd_fused", "refine_pyramid"):
+    if stem in _ONE_INSTANCE:
         return stem
     if m.group(2) is None:
         raise ValueError(f"no NOISE argument in {symbol!r}")

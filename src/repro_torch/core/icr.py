@@ -40,6 +40,7 @@ from .kernels import Kernel
 from .refine import (
     LevelGeom,
     axis_refinement_matrices_level,
+    build_checks,
     level0_sqrt,
     refine_level,
     refine_level_T,
@@ -121,24 +122,33 @@ class ICR:
         not built — a joint N-D build is ``n_csz^{3d}`` per family). The
         math runs in `dtype` (float32; float64 gives a reference on the
         plain versions); a float32 result is cast to the storage dtype.
+        In float32 no part of the build syncs with the host on the card
+        (``core/refine``), so a forward that calls it can be captured;
+        the decompositions' statuses are read as the build ends, or after
+        the last step of a fit around it, and a failed one raises
+        ``refine.BuildError`` naming the level.
         """
         build_axes = (self.use_pallas and self.chart.ndim > 1
                       if axes is None else axes)
         build_joint = (not build_axes) if joint is None else joint
         k = self.kernel(theta)
         kw = dict(jitter=self.jitter, device=self.device, dtype=dtype)
-        out = {"sqrt0": level0_sqrt(self.chart, k, **kw)}
         levels = range(self.chart.n_levels)
-        if build_joint:
-            pairs = [refinement_matrices_level(self.chart, k, lvl, **kw)
-                     for lvl in levels]
-            out["R"] = [p[0] for p in pairs]
-            out["sqrtD"] = [p[1] for p in pairs]
-        if build_axes:
-            pairs = [axis_refinement_matrices_level(self.chart, k, lvl, **kw)
-                     for lvl in levels]
-            out["Rax"] = [p[0] for p in pairs]
-            out["sqrtDax"] = [p[1] for p in pairs]
+        # the decompositions' statuses are read as the build ends, or by
+        # the fit around it after its last step (``refine.build_checks``)
+        with build_checks():
+            out = {"sqrt0": level0_sqrt(self.chart, k, **kw)}
+            if build_joint:
+                pairs = [refinement_matrices_level(self.chart, k, lvl, **kw)
+                         for lvl in levels]
+                out["R"] = [p[0] for p in pairs]
+                out["sqrtD"] = [p[1] for p in pairs]
+            if build_axes:
+                pairs = [axis_refinement_matrices_level(self.chart, k, lvl,
+                                                        **kw)
+                         for lvl in levels]
+                out["Rax"] = [p[0] for p in pairs]
+                out["sqrtDax"] = [p[1] for p in pairs]
         pol = self.policy
         if dtype == torch.float32 and pol.storage_dtype != torch.float32:
             out = pol.cast_storage(out)

@@ -8,14 +8,33 @@ nearest coarse pixels:
     s_f    = R s_c + sqrt(D) ξ_f                 (paper Eq. 9)
 
 On chart-invariant axes every family shares one set of matrices (paper
-§4.3). The matrices are built with batched ``torch.linalg`` solves and
-eigendecompositions over the families. ``refine_level`` is the plain
-apply path; the kernel route lives in ``repro_torch.kernels``.
+§4.3). The matrices are built over the families in batches, with no host
+sync on the card, so that a learned-θ step can be captured as one CUDA
+graph (``core/vi._fit``):
+
+* the window coordinates live on the device, made once per (chart, level,
+  axis, device, dtype) (``_axis_windows``, ``Chart.grid_positions``);
+* every float32 family of at most 32 points is decomposed by the batched
+  Jacobi eigensolver ``kernels/sym_eig.sym_eig`` (its plain version on the
+  CPU): the symmetric root of D and the SPD solve of ``K_cc`` alike
+  (``_SpdSolve``); larger families, and float64 references, by
+  ``torch.linalg.eigh``, which syncs and cannot be captured;
+* the level-0 root is the Cholesky factor of ``K + eps·I`` in float64
+  (``level0_sqrt``; ``cholesky_ex`` leaves its info on the device);
+* each factorisation's status (the Jacobi's off-diagonal norm, the
+  Cholesky info) stays on the device, collected by ``build_checks()``: a
+  fit reads them once, after its last step; a build outside one, as it
+  ends.
+
+``refine_level`` is the plain apply path; the kernel route lives in
+``repro_torch.kernels``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Callable
 
 import numpy as np
@@ -26,27 +45,47 @@ from .charts import Chart
 from .kernels import kernel_matrix
 
 
-def _family_positions(chart: Chart, level: int):
+def _device(device) -> torch.device:
+    """`device` with its index: the cache keys of the device geometry."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@functools.lru_cache(maxsize=1024)
+def _axis_windows_on(chart: Chart, level: int, axis: int,
+                     device: torch.device, dtype) -> tuple:
+    cw = chart.axis_coarse_windows(level, axis)
+    fw = chart.axis_fine_windows(level, axis)
+    if chart.invariant[axis]:
+        # representative family: an interior one, away from the boundary
+        rep = min(cw.shape[0] - 1, chart.b)
+        cw, fw = cw[rep : rep + 1], fw[rep : rep + 1]
+    return (torch.as_tensor(cw, dtype=dtype, device=device),
+            torch.as_tensor(fw, dtype=dtype, device=device))
+
+
+def _axis_windows(chart: Chart, level: int, axis: int, device,
+                  dtype) -> tuple:
+    """(coarse (T'_a, n_csz), fine (T'_a, n_fsz)) chart coordinates of the
+    family windows along `axis`, collapsed to one representative family on
+    an invariant axis (T'_a = 1): today's numpy float64 windows cast to
+    `dtype`, made on `device` once and kept, so a build copies nothing from
+    the host."""
+    return _axis_windows_on(chart, level, axis, _device(device), dtype)
+
+
+def _family_positions(chart: Chart, level: int, device, dtype):
     """Per-axis chart coords of family windows, collapsed on invariant axes.
 
-    Returns (coarse_axes, fine_axes, full_T, kept_T):
-      coarse_axes[a]: (T'_a, n_csz) chart coords (T'_a == 1 if invariant)
-      fine_axes[a]:   (T'_a, n_fsz)
-      full_T: true family counts per axis; kept_T: materialized counts.
+    Returns (coarse_axes, fine_axes): coarse_axes[a] is (T'_a, n_csz)
+    (T'_a == 1 if invariant), fine_axes[a] (T'_a, n_fsz), tensors on
+    `device`.
     """
-    coarse_axes, fine_axes, full_T, kept_T = [], [], [], []
-    for a in range(chart.ndim):
-        cw = chart.axis_coarse_windows(level, a)
-        fw = chart.axis_fine_windows(level, a)
-        full_T.append(cw.shape[0])
-        if chart.invariant[a]:
-            # representative family: an interior one, away from the boundary
-            rep = min(cw.shape[0] - 1, chart.b)
-            cw, fw = cw[rep : rep + 1], fw[rep : rep + 1]
-        coarse_axes.append(cw)
-        fine_axes.append(fw)
-        kept_T.append(cw.shape[0])
-    return coarse_axes, fine_axes, tuple(full_T), tuple(kept_T)
+    pairs = [_axis_windows(chart, level, a, device, dtype)
+             for a in range(chart.ndim)]
+    return [c for c, _ in pairs], [f for _, f in pairs]
 
 
 def _mean_diag(m: torch.Tensor) -> torch.Tensor:
@@ -55,17 +94,154 @@ def _mean_diag(m: torch.Tensor) -> torch.Tensor:
 
 # cuSOLVER's batched eigh (torch 2.11, CUDA 12.8) rejects a batch of 65536
 # 4x4 matrices with CUSOLVER_STATUS_INVALID_VALUE on an H100, and takes
-# 1000; the charted 1-D levels have ~65K families, so batches are split
+# 1000: where torch.linalg still runs on the card (families above 32
+# points, float64 references) batches are split
 _EIGH_CHUNK = 1024
 
 
-def _eigh(mat: torch.Tensor):
-    """``torch.linalg.eigh`` over a batch of matrices, in chunks of at most
-    ``_EIGH_CHUNK`` matrices."""
+class BuildError(RuntimeError):
+    """A factorisation of a matrix build failed: a Jacobi sweep count that
+    did not converge, a Cholesky info, a non-finite root."""
+
+
+class BuildStatus:
+    """The statuses of the decompositions of the builds inside one
+    ``build_checks()`` block, on the device: per (label, what), the worst
+    value seen (a running maximum, NaN sticks) and its bound. Noting writes
+    in place, so a captured build updates the same tensors at every replay;
+    ``check`` reads them all at once."""
+
+    def __init__(self):
+        self.entries: dict = {}
+
+    def note(self, label: str, what: str, value: torch.Tensor,
+             bound: float) -> None:
+        value = value.detach().float().reshape(())
+        entry = self.entries.get((label, what))
+        if entry is None:
+            self.entries[(label, what)] = (value.clone(), bound)
+        else:
+            entry[0].copy_(torch.maximum(entry[0], value))
+
+    def failures(self) -> list:
+        """``(label, what, value, bound)`` of every entry above its bound
+        (NaN included); reads the device once."""
+        if not self.entries:
+            return []
+        if _capturing():
+            raise RuntimeError("a build's statuses cannot be read inside a "
+                               "capture: open build_checks() around it")
+        vals = list(self.entries.values())
+        host = torch.stack([v.to(vals[0][0].device) for v, _ in vals]).cpu()
+        return [(label, what, float(x), bound)
+                for ((label, what), (_, bound)), x
+                in zip(self.entries.items(), host.tolist())
+                if not x <= bound]
+
+    def check(self) -> None:
+        """Raise ``BuildError`` naming every label whose status failed."""
+        bad = self.failures()
+        if bad:
+            raise BuildError("the matrix build failed: " + "; ".join(
+                f"{label}: {what} {x:.3g} (bound {bound:g})"
+                for label, what, x, bound in bad))
+
+
+# the active ``build_checks()`` blocks' statuses, per thread (a server may
+# build matrices on a thread of its own)
+_LOCAL = threading.local()
+
+
+def _logs() -> list:
+    if not hasattr(_LOCAL, "logs"):
+        _LOCAL.logs = []
+    return _LOCAL.logs
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+@contextlib.contextmanager
+def build_checks():
+    """Collect the statuses of every build inside the block. The outermost
+    block checks them when it ends (``BuildStatus.check``; one read of the
+    device), an inner one adds to it. ``core/vi._fit`` wraps a whole fit,
+    so a captured learned-θ step never reads the host; ``ICR.matrices``
+    wraps one build."""
+    logs = _logs()
+    if logs:
+        yield logs[-1]
+        return
+    log = BuildStatus()
+    logs.append(log)
+    try:
+        yield log
+    finally:
+        logs.pop()
+    log.check()
+
+
+def _note(label, what, value, bound) -> None:
+    logs = _logs()
+    if logs:
+        logs[-1].note(label, what, value, bound)
+        return
+    if _capturing():
+        raise RuntimeError(f"{label}: a matrix build inside a capture needs "
+                           "build_checks() around the capture")
+    log = BuildStatus()
+    log.note(label, what, value, bound)
+    log.check()
+
+
+def _jacobi(mat: torch.Tensor) -> bool:
+    """Whether the batched Jacobi (``sym_eig``) decomposes `mat`: float32,
+    at most 32 points."""
+    from repro_torch.kernels import sym_eig
+
+    return mat.dtype == torch.float32 and mat.shape[-1] <= sym_eig.MAX_N
+
+
+def _linalg(fn, mat, rhs, label):
+    """``fn(mat[, rhs])`` of torch.linalg, which syncs with the host:
+    inside a capture it raises, naming the matrices' size."""
+    n = mat.shape[-1]
+    name = fn.__name__.removeprefix("linalg_")
+    what = (f"{label}: torch.linalg.{name} of {n}×{n} {mat.dtype} "
+            "matrices (above sym_eig's 32 points, or not float32) syncs "
+            "with the host")
+    if _capturing():
+        raise RuntimeError(f"{what} and cannot be captured")
+    try:
+        return fn(mat) if rhs is None else fn(mat, rhs)
+    except RuntimeError as exc:
+        raise RuntimeError(f"{what}: {exc}") from exc
+
+
+def _eigh(mat: torch.Tensor, label: str | None = None):
+    """Eigenpairs (ascending) of a batch of symmetric matrices, with no
+    host sync where the card allows it: float32 matrices of at most 32
+    points by the batched Jacobi (``sym_eig``), which writes its status
+    for ``build_checks`` (``label`` names the matrix). Larger families and
+    other dtypes take ``torch.linalg.eigh``, in chunks of ``_EIGH_CHUNK``
+    matrices, which syncs: inside a capture such a family raises, naming
+    its size."""
+    from repro_torch.kernels import sym_eig
+
+    n = mat.shape[-1]
+    label = label or f"a {n}×{n} matrix"
+    if _jacobi(mat):
+        evals, evecs, status = sym_eig.sym_eig(mat)
+        _note(label, "Jacobi off-diagonal norm", status.amax(),
+              sym_eig.BOUND)
+        return evals, evecs
     if mat.ndim == 2:
-        return torch.linalg.eigh(mat)
+        return _linalg(torch.linalg.eigh, mat, None, label)
     flat = mat.reshape((-1,) + mat.shape[-2:])
-    parts = [torch.linalg.eigh(c) for c in flat.split(_EIGH_CHUNK)]
+    parts = [_linalg(torch.linalg.eigh, c, None, label)
+             for c in flat.split(_EIGH_CHUNK)]
     return (torch.cat([p[0] for p in parts]).reshape(mat.shape[:-1]),
             torch.cat([p[1] for p in parts]).reshape(mat.shape))
 
@@ -88,8 +264,8 @@ class _PsdSqrt(torch.autograd.Function):
     changed from one float32 evaluation to the next at near-ties."""
 
     @staticmethod
-    def forward(ctx, mat, eps):
-        evals, evecs = _eigh(mat)
+    def forward(ctx, mat, eps, label):
+        evals, evecs = _eigh(mat, label)
         root = torch.sqrt(torch.maximum(evals, eps[..., 0]))
         ctx.save_for_backward(evals, evecs, root, eps)
         return (evecs * root[..., None, :]) @ evecs.transpose(-1, -2)
@@ -114,10 +290,11 @@ class _PsdSqrt(torch.autograd.Function):
             diag = inner.diagonal(dim1=-2, dim2=-1)
             g_eps = torch.where(kept, 0.0, diag / (2 * root)).sum(
                 -1, keepdim=True)[..., None].sum_to_size(eps.shape)
-        return g_mat, g_eps
+        return g_mat, g_eps, None
 
 
-def _psd_sqrt(mat: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+def _psd_sqrt(mat: torch.Tensor, eps: torch.Tensor,
+              label: str | None = None) -> torch.Tensor:
     """A square root of a (nearly) PSD matrix, with eigenvalues clipped at
     ``eps`` (shape ``(..., 1, 1)``). Any ``S`` with ``S Sᵀ = D`` will do
     (paper §3.2); eigh stays finite where Cholesky fails on the
@@ -126,11 +303,47 @@ def _psd_sqrt(mat: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     ``V sqrt(Λ) Vᵀ``, which differs from it by an orthogonal factor on
     the right, invisible to the standard normal ξ it multiplies, and
     whose θ-derivative does not depend on the eigenvectors eigh picks
-    (``_PsdSqrt``)."""
-    return _PsdSqrt.apply(mat, eps)
+    (``_PsdSqrt``). ``label`` names the matrix (``_eigh``)."""
+    return _PsdSqrt.apply(mat, eps, label)
 
 
-def _family_points(windows, device, dtype=torch.float32) -> torch.Tensor:
+class _SpdSolve(torch.autograd.Function):
+    """``R = K_fc K_cc⁻¹`` for a symmetric positive definite (jittered)
+    ``K_cc``, by its eigenpairs from the same decomposition as the roots
+    (``_eigh``), so the solve syncs with nothing (torch.linalg.solve reads
+    its LU status on the host). The right-hand sides go through the
+    eigenbasis, ``R = ((K_fc V) Λ⁻¹) Vᵀ`` (forming ``V Λ⁻¹ Vᵀ`` first
+    rounds its large entries), and one step of refinement with the
+    residual ``K_fc − R K_cc`` in float64 follows: D = K_ff − R K_fcᵀ is a
+    small difference, and this keeps its float32 error at or under an LU
+    solve's (half of it on the (8, 8, 8) dust chart of the CPU tests, 3.7e-5
+    of D against a float64 build). Backward, by matmuls: ``dK_fc = g
+    K_cc⁻¹``, ``dK_cc = −K_cc⁻¹ K_fcᵀ g K_cc⁻¹ = −Rᵀ dK_fc``."""
+
+    @staticmethod
+    def forward(ctx, k_cc, k_fc, label):
+        evals, evecs = _eigh(k_cc, label)
+        r = _solve_right(k_fc, evals, evecs)
+        wide = torch.float64
+        res = k_fc.to(wide) - r.to(wide) @ k_cc.to(wide)
+        r = (r.to(wide) + _solve_right(res, evals.to(wide), evecs.to(wide))
+             ).to(r.dtype)
+        ctx.save_for_backward(evals, evecs, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        evals, evecs, r = ctx.saved_tensors
+        g_fc = _solve_right(g, evals, evecs)
+        return -(r.transpose(-1, -2) @ g_fc), g_fc, None
+
+
+def _solve_right(b, evals, evecs):
+    """``b A⁻¹`` for ``A = V Λ Vᵀ``: ``((b V) Λ⁻¹) Vᵀ``."""
+    return ((b @ evecs) / evals[..., None, :]) @ evecs.transpose(-1, -2)
+
+
+def _family_points(windows) -> torch.Tensor:
     """Tensor product of per-axis family windows.
 
     windows[a]: (K_a, W) chart coords -> (*K, W^d, ndim): for every family
@@ -141,25 +354,32 @@ def _family_points(windows, device, dtype=torch.float32) -> torch.Tensor:
     width = windows[0].shape[1]
     cols = []
     for a in range(nd):
-        t = torch.as_tensor(windows[a], dtype=dtype, device=device)
         shape = [1] * (2 * nd)
         shape[a], shape[nd + a] = kk[a], width
-        cols.append(t.reshape(shape).expand(*kk, *([width] * nd)))
+        cols.append(windows[a].reshape(shape).expand(*kk, *([width] * nd)))
     return torch.stack(cols, dim=-1).reshape(*kk, width**nd, nd)
 
 
-def _conditional(k_cc, k_fc, k_ff, jitter, *, scale=None):
+def _conditional(k_cc, k_fc, k_ff, jitter, *, scale=None, label="a family"):
     """(R, sqrt(D)) of Eq. 7/8 for batched kernel blocks; ``scale``
-    divides D (and its jitter reference) by the kernel variance."""
+    divides D (and its jitter reference) by the kernel variance. ``label``
+    names the level for the build's statuses."""
     eps = jitter * _mean_diag(k_cc)
     eye = torch.eye(k_cc.shape[-1], dtype=k_cc.dtype, device=k_cc.device)
     k_cc = k_cc + eps * eye
-    r = torch.linalg.solve(k_cc, k_fc.transpose(-1, -2)).transpose(-1, -2)
-    d = k_ff - r @ k_fc.transpose(-1, -2)
+    if _jacobi(k_cc):
+        r = _SpdSolve.apply(k_cc, k_fc, f"{label} K_cc")
+    else:  # torch.linalg: float64 references, families above 32 points
+        r = _linalg(torch.linalg.solve, k_cc, k_fc.transpose(-1, -2),
+                    f"{label} K_cc").transpose(-1, -2)
+    # the difference of two near-equal matrices, taken in float64
+    wide = torch.float64
+    d = (k_ff.to(wide) - r.to(wide) @ k_fc.to(wide).transpose(-1, -2)
+         ).to(k_ff.dtype)
     d = 0.5 * (d + d.transpose(-1, -2))
     if scale is not None:
         d, k_ff = d / scale, k_ff / scale
-    return r, _psd_sqrt(d, jitter * _mean_diag(k_ff))
+    return r, _psd_sqrt(d, jitter * _mean_diag(k_ff), f"{label} D")
 
 
 def refinement_matrices_level(chart: Chart, kernel_fn: Callable, level: int,
@@ -171,12 +391,13 @@ def refinement_matrices_level(chart: Chart, kernel_fn: Callable, level: int,
     Returns R: (*kept_T, n_fsz^d, n_csz^d), sqrtD: (*kept_T, n_fsz^d,
     n_fsz^d), `dtype` on `device` (the card by default, as ``ICR``).
     """
-    coarse_axes, fine_axes, _, _ = _family_positions(chart, level)
-    cpos = chart.map_to_D(_family_points(coarse_axes, device, dtype))
-    fpos = chart.map_to_D(_family_points(fine_axes, device, dtype))
+    coarse_axes, fine_axes = _family_positions(chart, level, device, dtype)
+    cpos = chart.map_to_D(_family_points(coarse_axes))
+    fpos = chart.map_to_D(_family_points(fine_axes))
     return _conditional(kernel_matrix(kernel_fn, cpos),
                         kernel_matrix(kernel_fn, fpos, cpos),
-                        kernel_matrix(kernel_fn, fpos), jitter)
+                        kernel_matrix(kernel_fn, fpos), jitter,
+                        label=f"refinement level {level}")
 
 
 def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
@@ -205,23 +426,19 @@ def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
                  for o in range(nd)]
 
     def pts(wins, axis):
-        wins = torch.as_tensor(wins, dtype=dtype, device=device)
         cols = [wins if o == axis else torch.full_like(wins, rep_coord[o])
                 for o in range(nd)]
         return chart.map_to_D(torch.stack(cols, dim=-1))
 
     rs, ds = [], []
     for a in range(nd):
-        cw = chart.axis_coarse_windows(level, a)
-        fw = chart.axis_fine_windows(level, a)
-        if chart.invariant[a]:
-            rep = min(cw.shape[0] - 1, chart.b)
-            cw, fw = cw[rep : rep + 1], fw[rep : rep + 1]
+        cw, fw = _axis_windows(chart, level, a, device, dtype)
         cpos, fpos = pts(cw, a), pts(fw, a)
         r, sqrt_d = _conditional(kernel_matrix(kernel_fn, cpos),
                                  kernel_matrix(kernel_fn, fpos, cpos),
                                  kernel_matrix(kernel_fn, fpos), jitter,
-                                 scale=k0 if a > 0 else None)
+                                 scale=k0 if a > 0 else None,
+                                 label=f"refinement level {level} axis {a}")
         if chart.invariant[a]:
             r, sqrt_d = r[0], sqrt_d[0]
         rs.append(r)
@@ -231,10 +448,38 @@ def axis_refinement_matrices_level(chart: Chart, kernel_fn: Callable,
 
 def level0_sqrt(chart: Chart, kernel_fn: Callable, *, jitter: float = 1e-6,
                 device="cuda", dtype=torch.float32) -> torch.Tensor:
-    """Exact square root of the level-0 kernel matrix (small by design)."""
-    k = kernel_matrix(kernel_fn, chart.grid_positions(0, device=device,
-                                                      dtype=dtype))
-    return _psd_sqrt(0.5 * (k + k.T), jitter * _mean_diag(k))
+    """A square root of the level-0 kernel matrix (small by design): a
+    lower Cholesky factor, built and factored in float64 and cast to
+    `dtype`. With ``eps = jitter · mean diag``, it factors K itself where
+    every eigenvalue of K exceeds eps (``K − eps·I`` factors), so that
+    ``S Sᵀ = K`` as the JAX package's ``V sqrt(max(Λ, eps))`` gives; else
+    ``K + eps·I``, which bounds the factor's inverse as the clip does.
+
+    The JAX package takes its root from ``eigh``. On the card neither
+    torch.linalg.eigh nor cuSOLVER's syevd can be captured in a CUDA graph
+    (PERF.md, the level-0 probe), and a learned-θ step rebuilds this
+    root; ``cholesky_ex(check_errors=False)`` syncs with nothing, the
+    choice between the two is made on the device, and the info stays there
+    (read by ``build_checks``). Any ``S`` with ``S Sᵀ = K`` serves the
+    standard normal ξ it multiplies (paper §3.2). K is built in float64:
+    the float32 K of strongly correlated level-0 points (the 1,024-point
+    regular chart at ρ = 0.06 of its extent) has eigenvalues below
+    ``-eps``, where no jitter of that size makes it positive definite. One
+    root form on every path, fixed θ included."""
+    pos = chart.grid_positions(0, device=device, dtype=torch.float64)
+    k = kernel_matrix(kernel_fn, pos)
+    k = 0.5 * (k + k.T)
+    eps = jitter * _mean_diag(k)
+    eye = torch.eye(k.shape[-1], dtype=k.dtype, device=k.device)
+    with torch.no_grad():
+        _, clipped = torch.linalg.cholesky_ex(k - eps * eye,
+                                              check_errors=False)
+    shift = torch.where(clipped == 0, 0.0, eps.detach()[0, 0])
+    root, info = torch.linalg.cholesky_ex(k + shift * eye,
+                                          check_errors=False)
+    _note("the level-0 root", "Cholesky info + non-finite pivots",
+          info.abs() + (~torch.isfinite(root.diagonal())).sum(), 0.0)
+    return root.to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)

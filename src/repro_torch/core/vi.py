@@ -92,32 +92,54 @@ def _fit(loss_fn, params, steps: int, lr: float, *, jit: bool = True,
     static buffers). With ``jit`` on a CUDA device the step is captured
     once as a CUDA graph (``core/graphs.capture``) and replayed: the
     capture's eager warm-up is the real step 0, and replays 1 to
-    ``steps - 1`` follow. A capture that fails raises; it never falls back
-    to eager steps. CPU tensors run the same step eagerly."""
-    from repro_torch.core import graphs
+    ``steps - 1`` follow. A forward that rebuilds the matrices from a
+    learned θ is captured with its build (``core/refine``: the Jacobi
+    eigensolver, the level-0 root's Cholesky factor). A capture that fails
+    raises; it never falls back to eager steps. CPU tensors run the same
+    step eagerly.
+
+    The builds' statuses (the eigensolver's convergence, the Cholesky info)
+    stay on the device during the fit (``refine.build_checks``) and are
+    read once, after the last step: a failed one raises
+    ``refine.BuildError`` naming the level."""
+    from repro_torch.core import graphs, refine
 
     step, losses = _fit_step(loss_fn, params, steps, lr)
     device = losses.device
     run = step
-    for i in range(steps):
-        if draw is not None:
-            draw()
-        if i == 0 and jit:
-            try:
-                run = graphs.capture(step, device=device)
-            except RuntimeError as exc:
-                raise RuntimeError(
-                    "map_fit/advi_fit(jit=True): the step could not be "
-                    "captured as one CUDA graph. A forward that rebuilds "
-                    "the matrices from a learned θ syncs with the host "
-                    "(torch.linalg's eigh); pass jit=False for it "
-                    "(ROADMAP.md, 'Learned θ as a compiled fit': the "
-                    "matrix build without a host sync). "
-                    f"The capture said: {exc}") from exc
-            if run.graph is not None:
-                continue  # the capture's warm-up was step 0
-        run()
+    with refine.build_checks():
+        for i in range(steps):
+            if draw is not None:
+                draw()
+            if i == 0 and jit:
+                try:
+                    run = graphs.capture(step, device=device)
+                except RuntimeError as exc:
+                    raise RuntimeError(
+                        "map_fit/advi_fit(jit=True): the step could not be "
+                        "captured as one CUDA graph. A matrix build with "
+                        "families above 32 points takes torch.linalg, and "
+                        "a forward of the caller's own may sync with the "
+                        "host: pass jit=False for such a step, which runs "
+                        f"it op by op. The capture said: {exc}") from exc
+                if run.graph is not None:
+                    continue  # the capture's warm-up was step 0
+            run()
     return losses
+
+
+def per_draw(forward: Callable) -> Callable:
+    """A forward of one ξ as ``advi_fit``'s forward of ``n_mc`` draws (a
+    leading draw axis on every leaf): one call per draw, stacked, as the
+    JAX package's ``vmap`` over draws. A forward that learns θ (a latent
+    leaf of it) then builds one set of matrices per draw."""
+
+    def run(xi):
+        n = tree_leaves(xi)[0].shape[0]
+        return torch.stack([forward(_tree_map(lambda x, i=i: x[i], xi))
+                            for i in range(n)])
+
+    return run
 
 
 def map_fit(log_likelihood, forward, xi0: Tree, y, steps: int = 300,
@@ -126,10 +148,12 @@ def map_fit(log_likelihood, forward, xi0: Tree, y, steps: int = 300,
     losses (steps,) taken before each update.
 
     ``jit=True`` is the JAX package's compiled scan: on a CUDA device one
-    step is captured as a CUDA graph and replayed (``_fit``); the forward
-    must then not sync with the host, so a forward that learns θ
-    (rebuilding the matrices, whose eigh syncs) raises and takes
-    ``jit=False``, which runs the same step op by op."""
+    step is captured as a CUDA graph and replayed (``_fit``), a forward
+    that learns θ with it (the matrices rebuilt inside the step, without
+    a host sync). The forward must not sync with the host itself; a
+    matrix build with families above 32 points does (torch.linalg), and
+    its capture raises, naming the size. ``jit=False`` runs the same step
+    op by op."""
     loss_fn = neg_log_joint(log_likelihood, forward)
     xi = _trainable(xi0)
     losses = _fit(lambda p: loss_fn(p, y), xi, steps, lr, jit=jit)
@@ -148,7 +172,9 @@ def advi_fit(gen: torch.Generator, log_likelihood, forward, xi0: Tree, y,
     Compiled on a CUDA device as the JAX package's scan is (``_fit``): ε
     is drawn from `gen` into static buffers before each replay, leaf by
     leaf, so the fit equals the eager one (inside ``graphs.eager()``)
-    bit for bit from the same generator state.
+    bit for bit from the same generator state. A forward that learns θ is
+    compiled with its matrix builds, one per draw as the JAX package's
+    ``vmap`` builds them (``per_draw`` maps a one-draw forward so).
     """
     mean = _trainable(xi0)
     log_std = _tree_map(

@@ -48,11 +48,20 @@ SIGNATURES = {
     "nd_fused": {
         "refine_nd_fused_fwd": [_I] + [_P] * 7 + [_I] * 16 + _PLAN
         + [_I, _P]},
+    "sym_eig": {
+        "sym_eig_launch": [_I] * 3 + [_P] * 4 + _PLAN + [_I, _P]},
+    "dense_eigh": {
+        "dense_eigh_workspace": [_I] + [_P] * 4 + [_I],
+        "dense_eigh_run": [_I] + [_P] * 4 + [ctypes.c_longlong, _I, _P]},
     "pyramid": {
         "refine_pyramid_fwd":
             [_I, _P] + [_I] * 4 + [_P] * 4 + [_I, _P] + _PLAN + [_I, _P],
         "refine_pyramid_resident": [_I] * 6 + [_P]},
 }
+# link flags beyond NVCC_FLAGS, by library: the level-0 probe's binding
+# calls the toolkit's cuSOLVER (found again at load time through an rpath
+# to the toolkit's libraries, ``_link_flags``)
+LINK = {"dense_eigh": ("-lcusolver",)}
 # what a C entry returns when the grid or shared memory it derives differs
 # from the plan it was handed (csrc/common.cuh, kPlanMismatch)
 PLAN_MISMATCH = 10000
@@ -80,8 +89,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _link_flags(name: str) -> list:
+    flags = list(LINK.get(name, ()))
+    if flags:
+        lib = Path(nvcc()).resolve().parents[1] / "lib64"
+        flags += ["-Xlinker", f"-rpath,{lib}"]
+    return flags
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK.get(name, ())).encode())
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -99,7 +116,8 @@ def build(names=None) -> dict:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *_link_flags(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)

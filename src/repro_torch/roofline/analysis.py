@@ -32,7 +32,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _DEMANGLED = re.compile(
     r"(refine_1d_stationary_adj_kernel|refine_1d_charted_adj_kernel|"
     r"refine_1d_stationary_kernel|refine_1d_charted_kernel|"
-    r"refine_nd_fused_kernel|refine_pyramid_kernel)"
+    r"refine_nd_fused_kernel|refine_pyramid_kernel|sym_eig_thread_kernel|"
+    r"sym_eig_warp_kernel)"
     r"<(?:float|__nv_bfloat16)(?:, (true|false|1|0))?")
 
 
@@ -40,7 +41,8 @@ def kernel_of_event(name: str) -> str | None:
     """The ``build.LAUNCHES`` name of a port kernel's event, mangled or
     demangled (``repro::refine_1d_charted_kernel<float, true, ...>``), or
     None for any other event."""
-    from repro_torch.core.graphs import _WRAPPER_OF, wrapper_of_kernel
+    from repro_torch.core.graphs import (_ONE_INSTANCE, _WRAPPER_OF,
+                                         wrapper_of_kernel)
 
     w = wrapper_of_kernel(name)
     if w is not None:
@@ -49,7 +51,7 @@ def kernel_of_event(name: str) -> str | None:
     if m is None:
         return None
     stem = _WRAPPER_OF[m.group(1)]
-    if stem in ("refine_nd_fused", "refine_pyramid"):
+    if stem in _ONE_INSTANCE:
         return stem
     return stem + ("" if m.group(2) in ("true", "1") else "_nn")
 

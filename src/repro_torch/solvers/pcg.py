@@ -354,8 +354,11 @@ def _settle(matvec, precond, c: dict, restart: bool,
     ``A x`` is itself rounded: ``f`` (``matvec_rounding``) estimates how
     far a computed ``A x`` lies from the exact one. A ``converged`` column
     stays so if ``t + f <= _TRUE_SLACK · tol``. With a `cap`
-    (``CGConfig.floor_cap``) ``tol`` rises to ``min(f, cap·‖b‖)``, and a
-    ``stalled`` column within that bar is ``converged`` too. Otherwise a
+    (``CGConfig.floor_cap``) ``tol`` rises to ``min(f, cap·‖b‖)``, a
+    ``stalled`` column within that bar is ``converged`` too, and a held
+    column whose true residual is above ``rtol`` restarts once from its
+    iterate all the same (f is measured at a random vector, whose
+    rounding can exceed the iterate's tenfold). Otherwise a
     converged column restarts from its
     iterate (r = b − A x, p = M⁻¹r) if iterations are left (`restart`),
     ``t`` is above ``f`` and the restart is its first or its last one
@@ -376,13 +379,19 @@ def _settle(matvec, precond, c: dict, restart: bool,
     if cap > 0:
         status = torch.where((status == STALLED) & held, CONVERGED, status)
     short = (status == CONVERGED) & ~held
-    again = (short & (tn > floor) & (tn < _RESTART_GAIN * c["true"])
-             & restart)
+    # with a cap, a held column whose true residual is still above its
+    # own tolerance takes one restart from its iterate (a step of
+    # iterative refinement): f, measured at a random vector, can lie an
+    # order of magnitude above the rounding at the iterate itself
+    polish = ((status == CONVERGED) & held & torch.isinf(c["true"])
+              & (tn > c["tol"]) & (cap > 0))
+    again = (((short & (tn > floor)) | polish)
+             & (tn < _RESTART_GAIN * c["true"]) & restart)
     z = precond(r) if precond is not None else r
     rz = _rowdot(r, z)
     go = again & torch.isfinite(rz) & (rz > 0)
     status = torch.where(short & ~again, STALLED, status)
-    status = torch.where(again & ~go, BREAKDOWN, status)
+    status = torch.where(again & ~go & ~polish, BREAKDOWN, status)
     status = torch.where(go, ACTIVE, status).to(torch.int32)
     live = (status != NONFINITE) & (status != DIVERGED)
     m = go[:, None]

@@ -632,8 +632,11 @@ def test_cuda_served_slab_is_one_graph_equal_to_eager(cuda, case, pol):
     m = srv.metrics()
     assert (m["graph_captures"], m["cache_misses"], m["cache_hits"]) \
         == (1, 1, 2)
-    # the capture's eager warm-up, then one replay per slab attempt
+    # the capture's eager warm-up, then one replay per slab attempt; the
+    # posterior's matrix build, before, launched the eigensolver
     runs = 1 + m["slabs_attempted"]
+    built = build.LAUNCHES.pop("sym_eig", 0)
+    assert built > 0
     assert +build.LAUNCHES == {k: n * runs for k, n in want.items() if n}
     assert m["mode"] == "single:cuda-graph"
     graph = entry["fn"]().clone()
@@ -815,14 +818,11 @@ def test_cuda_fits_as_graphs_equal_eager(cuda, case):
         assert _same_bits(graphed, advi())
 
 
-@pytest.mark.cuda
-def test_cuda_learned_theta_fit_refuses_a_graph(cuda):
-    """A forward that rebuilds the matrices from θ syncs with the host
-    (eigh): ``map_fit(jit=True)`` raises and names ``jit=False``; the
-    card stays usable."""
-    from repro_torch import StandardizedModel, lognormal_prior, map_fit
+def _learned_theta(icr, device):
+    """A forward that learns ρ under a lognormal prior, rebuilding the
+    matrices from θ, and its initial latents."""
+    from repro_torch import StandardizedModel, lognormal_prior
 
-    icr, _, ll, y = _fit_problem(0, cuda)
     priors = StandardizedModel({"rho": lognormal_prior(8.0, 4.0)})
 
     def fwd(latent):
@@ -830,10 +830,77 @@ def test_cuda_learned_theta_fit_refuses_a_graph(cuda):
         theta["sigma"] = 1.0
         return icr(latent[0], theta)
 
-    latent0 = (icr.zero_xi(), priors.zero_xi(device=cuda))
-    with pytest.raises(RuntimeError, match="jit=False"):
+    return fwd, (icr.zero_xi(), priors.zero_xi(device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1, 2],
+                         ids=["regular", "dust", "log_polar"])
+def test_cuda_learned_theta_fit_refuses_a_graph(cuda, case):
+    """(Once: the capture refused a forward that rebuilds the matrices.)
+    A learned-θ step now captures with its matrix build (the Jacobi
+    kernel, the float64 Cholesky root): ``map_fit(jit=True)`` equals
+    ``jit=False`` and the learned-θ ``advi_fit`` (one build per draw)
+    its eager twin, bit for bit; the eigensolver launches in the
+    replays."""
+    from repro_torch import advi_fit, map_fit, per_draw
+
+    icr, _, ll, y = _fit_problem(case, cuda)
+    fwd, latent0 = _learned_theta(icr, cuda)
+    build.LAUNCHES.clear()
+    compiled = map_fit(ll, fwd, latent0, y, steps=4)
+    assert build.LAUNCHES["sym_eig"] > 0
+    assert _same_bits(compiled, map_fit(ll, fwd, latent0, y, steps=4,
+                                        jit=False))
+
+    def advi():
+        return advi_fit(torch.Generator(device=cuda).manual_seed(5), ll,
+                        per_draw(fwd), latent0, y, steps=3)
+
+    compiled = advi()
+    with graphs.eager():
+        assert _same_bits(compiled, advi())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 3), (256, 3), (16, 5), (65536, 4),
+                                     (65536, 5), (4096, 2), (37, 1),
+                                     (300, 8), (300, 32)])
+def test_cuda_sym_eig_equals_its_plain_version(cuda, batch, n):
+    """The batched Jacobi against its plain version on the card, one
+    launch for the whole batch (65,536 4x4 matrices too, which cuSOLVER's
+    batched eigh refuses): eigenpairs bit for bit (both round every
+    product and sum on its own, in the same order), the status under its
+    bound, through a plan."""
+    from repro_torch.kernels import launch, sym_eig
+
+    gen = torch.Generator(device=cuda).manual_seed(batch + n)
+    a = torch.randn((batch, n, n), generator=gen, device=cuda)
+    a = a + a.mT
+    build.LAUNCHES.clear()
+    with launch.recording() as plans:
+        got = sym_eig.sym_eig(a)
+    want = sym_eig.sym_eig_plain(a)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sym_eig"] == 1 and len(plans) == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[2].max()) <= sym_eig.BOUND
+    assert rel(got[2], want[2]) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_nan_theta_raises_after_the_fit(cuda):
+    """A NaN in θ: the captured fit runs its steps, then the statuses
+    read once after the last one raise, naming the level."""
+    from repro_torch import map_fit
+
+    icr, _, ll, y = _fit_problem(0, cuda)
+    fwd, (xi0, _) = _learned_theta(icr, cuda)
+    latent0 = (xi0, {"rho": torch.tensor(float("nan"), device=cuda)})
+    with pytest.raises(trefine.BuildError, match="level-0 root"):
         map_fit(ll, fwd, latent0, y, steps=3)
-    _, losses = map_fit(ll, fwd, latent0, y, steps=3, jit=False)
+    _, losses = map_fit(ll, fwd, (xi0, {"rho": torch.zeros((), device=cuda)}),
+                        y, steps=3)
     assert bool(torch.isfinite(losses).all())
 
 

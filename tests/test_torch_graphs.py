@@ -15,8 +15,11 @@ on the card:
   1e-3: per-step gradients agree to 1e-5 and 30 float32 steps compound);
   ADVI compiled against eager bit for bit;
 * the fit's capture branch through a stub of ``capture`` that fails
-  where the card's capture fails (a step that calls eigh syncs with the
-  host): the warm-up is the real step 0, and a learned-θ forward raises;
+  where the card's capture fails (an op that syncs with the host): the
+  warm-up is the real step 0, a learned-θ forward (MAP and ADVI, the
+  matrices rebuilt in the step) captures and equals ``jit=False`` bit for
+  bit, and a joint N-D build whose families exceed 32 points raises,
+  naming their size;
 * the static-carry segment loop against the dict-carry loop it replaced,
   bit for bit, and against the JAX package's ``pcg_iterate``;
 * the default config, whose bar rises to the matvec's rounding at the
@@ -38,9 +41,10 @@ from repro.core import vi as jvi
 from repro.optim import adamw as jadamw
 from repro.optim import linear_warmup_cosine as jschedule
 from repro.solvers import pcg as jpcg
-from repro_torch import (ICR, StandardizedModel, advi_fit, cg_posterior,
-                         gaussian_log_likelihood, lognormal_prior, map_fit,
-                         matern32, regular_chart)
+from repro_torch import (ICR, Chart, StandardizedModel, advi_fit,
+                         cg_posterior, gaussian_log_likelihood,
+                         lognormal_prior, map_fit, matern32, per_draw,
+                         regular_chart)
 from repro_torch.convert import matrices_to_torch
 from repro_torch.core import graphs
 from repro_torch.kernels.policy import cast_tree, tree_leaves
@@ -139,25 +143,47 @@ def test_map_fit_jit_equals_eager_and_the_jax_package(problem):
         assert _same_bits(compiled, advi())
 
 
-def _failing_capture(fn, *buffers, device):
+# the ops that sync with the host (or read host memory) in a captured
+# region on the card
+_SYNCING = [(torch.linalg, "eigh"), (torch.linalg, "solve"),
+            (torch.linalg, "cholesky"), (torch.Tensor, "item"),
+            (torch.Tensor, "cpu"), (torch.Tensor, "tolist")]
+
+
+def _syncing_capture(fn, *buffers, device):
     """``graphs.capture`` as the card behaves, on the CPU: the eager
-    warm-up runs (the fit's step 0); a call that reaches eigh, which syncs
-    with the host, fails to capture; otherwise each replay is one more
-    call."""
-    real, calls = torch.linalg.eigh, []
+    warm-up runs (the fit's step 0); a call that reaches an op that syncs
+    with the host (``_SYNCING``, or a tensor made from a numpy array on a
+    non-CPU device) fails to capture there, as the card's capture fails;
+    otherwise each replay is one more call."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in _SYNCING]
 
-    def spy(*args, **kw):
-        calls.append(1)
-        return real(*args, **kw)
+    def fail(what):
+        raise RuntimeError(f"CUDA error: operation not permitted when "
+                           f"stream is capturing ({what})")
 
-    torch.linalg.eigh = spy
+    for owner, name, _ in saved:
+        setattr(owner, name, lambda *a, _n=name, **k: fail(_n))
+    makers = [(name, getattr(torch, name)) for name in ("as_tensor",
+                                                        "tensor")]
+
+    def maker(real, name):
+        def make(data, *a, **k):
+            if (isinstance(data, np.ndarray) and k.get("device") is not None
+                    and torch.device(k["device"]).type != "cpu"):
+                fail(f"torch.{name} of a numpy array")
+            return real(data, *a, **k)
+        return make
+
+    for name, real in makers:
+        setattr(torch, name, maker(real, name))
     try:
         fn(*buffers)
     finally:
-        torch.linalg.eigh = real
-    if calls:
-        raise RuntimeError("CUDA error: operation not permitted when stream "
-                           "is capturing")
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+        for name, real in makers:
+            setattr(torch, name, real)
 
     def replay(*new):
         return fn(*buffers)
@@ -168,26 +194,46 @@ def _failing_capture(fn, *buffers, device):
 
 def test_fit_capture_branch_and_learned_theta(problem, monkeypatch):
     """Through the stub: a fixed-θ fit equals ``jit=False`` bit for bit
-    (the warm-up is step 0, not a step lost), and a learned-θ forward
-    raises, naming ``jit=False`` and the ROADMAP item."""
+    (the warm-up is step 0, not a step lost); a learned-θ forward syncs
+    with nothing, so its MAP fit and its ADVI fit (one build per draw)
+    capture and equal their eager twins bit for bit; a plain-route joint
+    3-D build, whose 64-point families take torch.linalg, raises and
+    names the size."""
     icr, mats, *_, obs_idx, y = problem
     ll = gaussian_log_likelihood(0.05, obs_idx)
     eager = map_fit(ll, lambda x: icr.apply_sqrt(mats, x), icr.zero_xi(), y,
                     steps=12, jit=False)
-    monkeypatch.setattr(graphs, "capture", _failing_capture)
+    monkeypatch.setattr(graphs, "capture", _syncing_capture)
     got = map_fit(ll, lambda x: icr.apply_sqrt(mats, x), icr.zero_xi(), y,
                   steps=12)
     assert _same_bits(got, eager)
     priors = StandardizedModel({"rho": lognormal_prior(8.0, 4.0)})
 
-    def fwd(latent):
+    def fwd(latent, icr=icr):
         theta = dict(priors(latent[1]))
         theta["sigma"] = 1.0
         return icr(latent[0], theta)
 
     latent0 = (icr.zero_xi(), priors.zero_xi(device="cpu"))
-    with pytest.raises(RuntimeError, match="jit=False.*ROADMAP"):
-        map_fit(ll, fwd, latent0, y, steps=3)
+    compiled = map_fit(ll, fwd, latent0, y, steps=4)
+    assert _same_bits(compiled, map_fit(ll, fwd, latent0, y, steps=4,
+                                        jit=False))
+
+    def advi():
+        return advi_fit(torch.Generator().manual_seed(5), ll, per_draw(fwd),
+                        latent0, y, steps=3)
+
+    compiled = advi()
+    with graphs.eager():
+        assert _same_bits(compiled, advi())
+
+    # 27 level-0 points and a 27-point K_cc take the Jacobi; D is 64×64
+    joint = ICR(Chart(shape0=(3, 3, 3), n_levels=1, n_csz=3, n_fsz=4),
+                matern32.with_defaults(rho=2.0), device="cpu")
+    y3 = torch.zeros(64)
+    with pytest.raises(RuntimeError, match="64×64"):
+        map_fit(gaussian_log_likelihood(0.05), lambda x: fwd(x, joint),
+                (joint.zero_xi(), latent0[1]), y3, steps=2)
 
 
 # -- the CG segment loop ------------------------------------------------------------------
