@@ -197,6 +197,31 @@ Phases (any failure ends the run with a non-zero exit code):
    ``torch.linalg.eigh`` (its line in ``kernels`` carries them under
    ``per_batch``, headed by log_polar_theta's).
 
+9. lm      — LM serving (``repro_torch.models``, ``launch/serve.py``;
+   plain torch ops, no kernel of the port), with float32 GEMM
+   accumulation throughout (TF32 off, no reduced-precision split-K): the
+   ten reduced architectures at float32, each with ``prefill_fn`` and 16
+   steps of ``BatchedServer``'s captured decode step on the card against
+   the same model and parameters on the CPU (<= 1e-4 of the largest
+   |logit|), the middle step against ``Model.serve_step`` op by op from
+   the same cache (logits and cache bit for bit), and decode against
+   teacher forcing (argmax equal, normalized logits within 5e-2; one
+   ``lm_reduced`` line); then gemma3-4b at full width and depth (34
+   layers, 3.88 B parameters, bfloat16) drawn from a seeded generator on
+   the card and served by ``BatchedServer`` with 4 slots and s_max 2048:
+   one step with every slot live, graph against eager bit for bit; the
+   step's ms replayed and op by op (CUDA events after a flush), the host
+   enqueue of each, its kernels under ``torch.profiler``, the logits'
+   device-to-host ms, decode tok/s at 4 slots, ``prefill_fn`` ms for
+   1,100 tokens, the weight-read and cache-read bounds at the card's
+   bandwidth; 8 seeded requests (prompts of 16-1,200 tokens, two past
+   the 1,024 window, so the local layers' ring buffers wrap; 32 new
+   tokens each) served to the end with the token accounting checked; and
+   1,100 tokens decoded one by one against ``prefill_fn`` (argmax equal,
+   normalized logits within 5e-2): in bfloat16, and where bfloat16
+   misses, the same weights widened to float32, which must meet it (the
+   bfloat16 figure is recorded). One ``lm_serve`` line.
+
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 
@@ -207,6 +232,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -545,6 +571,12 @@ def time_ms(fn, flush) -> float:
 def enqueue_ms(fn) -> float:
     """Median host milliseconds to enqueue `fn` on an idle card: where it
     is near `fn`'s device time, the card waits on the host."""
+    return enqueue_spread(fn)["median"]
+
+
+def enqueue_spread(fn) -> dict:
+    """Median, min and max host milliseconds to enqueue `fn` on an idle
+    card, over ``REPS`` calls."""
     import torch
 
     times = []
@@ -554,7 +586,8 @@ def enqueue_ms(fn) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    return statistics.median(times)
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times)}
 
 
 def host_ms_per_call(fn, calls: int = 200, blocks: int = 5) -> float:
@@ -3148,6 +3181,317 @@ def check_analysis(models, problems, gen, sharded_plans) -> float:
     return time.perf_counter() - t_phase
 
 
+# -- phase 9: LM serving (models/, launch/serve.py) ---------------------------
+# the full-width model phase 9 serves, its server and its traffic
+LM_ARCH = "gemma3-4b"
+LM_SLOTS, LM_S_MAX, LM_REQUESTS, LM_MAX_NEW = 4, 2048, 8, 32
+LM_PROMPTS = (16, 1200)      # prompt lengths drawn in this range
+LM_SEED = 1                  # its 8 lengths: 1,142 and 1,140 pass the window
+LM_WINDOW = 1024             # gemma3-4b's sliding window
+LM_DECODE_LEN = 1100         # decode against prefill, past the window
+LM_TF_TOL = 5e-2             # normalized logits (tests/test_decode_consistency)
+LM_CARD_TOL = 1e-4           # reduced archs: card against CPU, of max |logit|
+LM_STEPS = 16                # reduced archs: decode steps
+
+
+def lm_tf_agreement(got, full) -> dict:
+    """Decode's last logits against teacher forcing, as the JAX package's
+    decode-consistency test holds them: argmax equal, and the normalized
+    logits within ``assert_allclose(rtol=5e-2, atol=5e-2)``."""
+    def norm(x):
+        x = x.double()
+        return (x - x.mean(-1, keepdim=True)) / (x.std(-1, keepdim=True)
+                                                 + 1e-6)
+
+    g, f = norm(got), norm(full)
+    diff = (g - f).abs()
+    argmax = bool((got.argmax(-1) == full.argmax(-1)).all())
+    return {"argmax_equal": argmax, "max_norm_diff": diff.max().item(),
+            "ok": argmax and bool((diff <= LM_TF_TOL
+                                   + LM_TF_TOL * f.abs()).all())}
+
+
+def lm_step_bits(srv, tokens, positions) -> tuple:
+    """One captured step against ``Model.serve_step`` op by op from the
+    same cache. Returns (logits and every cache leaf equal bit for bit,
+    the eager step's logits); the cache is left as the eager step wrote
+    it."""
+    import torch
+
+    from repro_torch.models.tree import tree_map, tree_store
+
+    before = tree_map(torch.clone, srv.cache)
+    graph_logits = srv.decode(tokens, positions).clone()
+    graph_cache = tree_map(torch.clone, srv.cache)
+    tree_store(srv.cache, before)
+    del before
+    eager_logits = srv.model.serve_step(srv.params, srv.cache, tokens,
+                                        positions)
+    return (torch.equal(graph_logits, eager_logits)
+            and same_bits(graph_cache, srv.cache)), eager_logits
+
+
+def lm_reduced_case(name) -> dict:
+    """A reduced architecture at float32: ``prefill_fn`` and 16 captured
+    steps on the card against the same model and parameters on the CPU
+    (<= 1e-4 of the largest |logit|), the middle step graph = eager bit
+    for bit, and decode against teacher forcing on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_map
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg)
+    b = 2
+    params = model.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, LM_STEPS), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks}
+    if cfg.encoder is not None:
+        batch["enc_embeds"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.d_model), generator=gen)
+    full_cpu = model.prefill_fn(params, batch)
+    srv = BatchedServer(cfg, batch_slots=b, s_max=LM_STEPS,
+                        params=tree_map(lambda t: t.cuda(), params))
+    card_batch = tree_map(lambda t: t.cuda(), batch)
+    full = model.prefill_fn(srv.params, card_batch)
+    cache = model.init_cache(b, LM_STEPS, device="cpu")
+    if cfg.encoder is not None:
+        model.prepare_cross_cache(params, cache, batch["enc_embeds"])
+        model.prepare_cross_cache(srv.params, srv.cache,
+                                  card_batch["enc_embeds"])
+    step_err, bits = 0.0, None
+    for i in range(LM_STEPS):
+        pos = torch.full((b,), i, dtype=torch.int32)
+        want = model.serve_step(params, cache, toks[:, i:i + 1], pos)
+        tok_d, pos_d = toks[:, i:i + 1].cuda(), pos.cuda()
+        if i == LM_STEPS // 2:
+            bits, got = lm_step_bits(srv, tok_d, pos_d)
+        else:
+            got = srv.decode(tok_d, pos_d)
+        step_err = max(step_err, rel_err(got.cpu(), want)[1])
+    return {"prefill_rel_err": rel_err(full.cpu(), full_cpu)[1],
+            "step_rel_err": step_err, "graph_equals_eager": bits,
+            "teacher_forcing": lm_tf_agreement(got.cpu(), full.cpu())}
+
+
+def lm_decode_vs_prefill(cfg, params, tokens) -> dict:
+    """`tokens` (1, n) decoded one by one through a captured step (one
+    slot) against ``prefill_fn`` at the last position."""
+    import torch
+
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import build_model
+
+    n = tokens.shape[1]
+    full = build_model(cfg).prefill_fn(params, {"tokens": tokens})
+    srv = BatchedServer(cfg, batch_slots=1, s_max=LM_S_MAX, params=params)
+    positions = torch.arange(n, dtype=torch.int32, device="cuda")
+    for i in range(n):
+        got = srv.decode(tokens[:, i:i + 1], positions[i:i + 1])
+    out = lm_tf_agreement(got, full)
+    del srv, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_requests(srv, vocab) -> dict:
+    """LM_REQUESTS seeded requests through `srv`'s slots: every one done,
+    every token in the vocab, the prefill/decode accounting; the ring
+    buffers wrap on the prompts past the window."""
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, LM_REQUESTS)
+    if lens.max() <= LM_WINDOW:
+        raise RuntimeError(f"no prompt past the window: {lens.tolist()}")
+    reqs = [Request(prompt=rng.integers(0, vocab, int(n)), max_new=LM_MAX_NEW)
+            for n in lens]
+    steps0 = srv.prefill_tokens + srv.decode_tokens
+    t0 = time.perf_counter()
+    srv.run(reqs)
+    wall = time.perf_counter() - t0
+    want_prefill = int(sum(n - 1 for n in lens))
+    ok = (all(r.done and r.error is None and len(r.out) == LM_MAX_NEW
+              for r in reqs)
+          and all(0 <= t < vocab for r in reqs for t in r.out)
+          and srv.prefill_tokens == want_prefill
+          and srv.decode_tokens == LM_REQUESTS * LM_MAX_NEW)
+    if not ok:
+        raise RuntimeError(
+            f"serving failed: prefill {srv.prefill_tokens} (want "
+            f"{want_prefill}), decode {srv.decode_tokens}, "
+            f"{[(r.done, r.error, len(r.out)) for r in reqs]}")
+    return {"requests": LM_REQUESTS, "prompt_lens": lens.tolist(),
+            "prefill_tokens": srv.prefill_tokens,
+            "decode_tokens": srv.decode_tokens,
+            "token_steps": srv.prefill_tokens + srv.decode_tokens - steps0,
+            "wall_s": wall}
+
+
+def lm_step_profile(fn, calls: int = 5) -> dict:
+    """The kernels of `calls` calls of `fn` under ``torch.profiler``: per
+    call their count and summed device ms, and the eight names that take
+    the most device time."""
+    from repro_torch.roofline.analysis import profile
+
+    kernels = [e for e in profile(fn, calls=calls)
+               if e.get("cat") == "kernel"]
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"kernels_per_call": len(kernels) / calls,
+            "kernel_ms": sum(e["dur"] for e in kernels) / calls / 1e3,
+            "top": [{"name": n[:100], "per_call": c / calls,
+                     "ms": d / calls / 1e3} for n, (c, d) in top]}
+
+
+def check_lm(card) -> dict:
+    """Phase 9: the ten reduced architectures on the card against the
+    CPU, then gemma3-4b at full width and depth in bfloat16 served
+    through ``BatchedServer`` (4 slots, s_max 2048). Returns the
+    ``lm_serve`` record; a failed check raises."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.tree import tree_leaves, tree_map
+
+    record = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    t_phase = time.perf_counter()
+    reduced = {name: lm_reduced_case(name) for name in sorted(ARCHS)}
+    record["reduced"] = reduced
+    bad = [n for n, r in reduced.items()
+           if not (r["prefill_rel_err"] <= LM_CARD_TOL
+                   and r["step_rel_err"] <= LM_CARD_TOL
+                   and r["graph_equals_eager"]
+                   and r["teacher_forcing"]["ok"])]
+    print("lm_reduced: " + json.dumps(reduced), flush=True)
+    if bad:
+        raise RuntimeError(f"reduced architectures failed on the card: {bad}")
+    record["reduced_s"] = time.perf_counter() - t_phase
+
+    # -- gemma3-4b at full width and depth, bfloat16 --------------------------
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    srv = BatchedServer(cfg, batch_slots=LM_SLOTS, s_max=LM_S_MAX, seed=0)
+    torch.cuda.synchronize()
+    record["build_s"] = time.perf_counter() - t0
+    leaves = tree_leaves(srv.params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(srv.cache))
+    if n_params != srv.model.param_count():
+        raise RuntimeError("param_count differs from the drawn tree")
+    # the step reads every weight and, at most, every cache row once
+    name = torch.cuda.get_device_name(0)
+    bandwidth = next(bw for key, bw in BANDWIDTH if key in name)
+    record.update(param_count=n_params, param_bytes=param_bytes,
+                  cache_bytes=cache_bytes, bandwidth=bandwidth,
+                  weight_bound_ms=param_bytes / bandwidth * 1e3,
+                  cache_bound_ms=cache_bytes / bandwidth * 1e3)
+
+    # one step with every slot live, at staggered positions
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for i in range(4):
+        srv.decode(torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32),
+                   torch.full((LM_SLOTS,), i, dtype=torch.int32,
+                              device="cuda"))
+    tok = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    pos = torch.tensor([4, 4, 2, 4], dtype=torch.int32, device="cuda")
+    bits, _ = lm_step_bits(srv, tok, pos)
+    record["graph_equals_eager"] = bits
+    if not bits:
+        raise RuntimeError(f"{LM_ARCH}: the captured step differs from "
+                           "serve_step op by op")
+
+    # times: the step replayed and op by op (the same write each time)
+    flush = torch.empty(256 * 2**20, dtype=torch.float32, device="cuda")
+
+    def graph_step():
+        return srv.decode(tok, pos)
+
+    def eager_step():
+        return srv.model.serve_step(srv.params, srv.cache, tok, pos)
+
+    def copy_in():
+        srv._tokens.copy_(tok)
+        srv._positions.copy_(pos)
+
+    record["step_graph_ms"] = time_ms(graph_step, flush)
+    record["step_eager_ms"] = time_ms(eager_step, flush)
+    # host ms: one call on an idle card (median, min and max of 25), and
+    # per call of back-to-back blocks (median of 5); the graph step split
+    # into its copy-in and its replay
+    record["enqueue"] = {
+        key: {"idle": enqueue_spread(fn),
+              "back_to_back": host_ms_per_call(fn, calls=20, blocks=5)}
+        for key, fn in (("graph", graph_step), ("eager", eager_step),
+                        ("copy_in", copy_in),
+                        ("replay", srv._step.graph.replay))}
+    record["enqueue_graph_ms"] = record["enqueue"]["graph"]["idle"]["median"]
+    record["enqueue_eager_ms"] = record["enqueue"]["eager"]["idle"]["median"]
+    logits = graph_step()
+    torch.cuda.synchronize()
+    d2h = []
+    for _ in range(REPS):
+        t1 = time.perf_counter()
+        logits.cpu()
+        d2h.append((time.perf_counter() - t1) * 1e3)
+    record["logits_d2h_ms"] = statistics.median(d2h)
+    record["step_profile"] = lm_step_profile(graph_step)
+    record["decode_tok_s"] = LM_SLOTS / (host_ms_per_call(
+        lambda: graph_step().cpu(), calls=50, blocks=3) / 1e3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, LM_DECODE_LEN),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    record["prefill_1100_ms"] = time_ms(
+        lambda: srv.model.prefill_fn(srv.params, {"tokens": prompt}), flush)
+    del flush
+
+    # serving: 8 requests through the 4 slots
+    record["serve"] = lm_serve_requests(srv, cfg.vocab_size)
+    print(f"lm: served at {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # decode against prefill over 1,100 tokens: bf16, then (where bf16
+    # misses) the same weights widened to float32
+    params = srv.params
+    del srv, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf = {"bfloat16": lm_decode_vs_prefill(cfg, params, prompt)}
+    if not tf["bfloat16"]["ok"]:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    act_dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        tf["float32"] = lm_decode_vs_prefill(cfg32, params32, prompt)
+        if not tf["float32"]["ok"]:
+            raise RuntimeError(f"{LM_ARCH}: decode differs from prefill at "
+                               f"float32: {tf}")
+    record["decode_vs_prefill"] = tf
+    record["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -3344,6 +3688,12 @@ def main() -> int:
     with build_checks():
         steps = train_step_times(problems, flush)
     print("train_step: " + json.dumps(steps), flush=True)
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 9. LM serving: ten reduced archs, gemma3-4b at full width ----------
+    del flush
+    print("lm_serve: " + json.dumps(check_lm(card)), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))

@@ -10,7 +10,10 @@ default to the ``cuda`` device; pass ``device="cpu"`` to run the
 kernels' plain versions instead. ``cg_posterior`` conditions the prior on
 data exactly by guarded batched CG (``solvers``), each matvec one ``Sᵀ``
 and one ``S`` on the kernels; ``exact`` and ``KissGP`` are the paper's
-§5.1 and §5.2 references.
+§5.1 and §5.2 references. ``configs``, ``models`` and ``launch.serve``
+hold the LM substrate's serving half: the ten architectures' forward
+pass and one-token decode, and the batched server whose decode step is
+one CUDA graph on the card.
 """
 from .core import (
     ICR,

@@ -9,6 +9,13 @@ through float32, which holds every bfloat16 value exactly.
 A fit carries across the same way: ``posterior_to_torch`` turns a JAX
 ``Posterior``'s ``mean``/``log_std`` lists and θ dict, as numpy arrays,
 into the port's ``Posterior``.
+
+The LM port's trees carry across leaf for leaf: ``lm_params_to_torch``
+takes the JAX package's ``Model.init_params`` tree and
+``lm_cache_to_torch`` its ``init_cache`` / ``serve_step`` cache tree (as
+numpy arrays) to the port's, keeping the nesting: dicts, the head and
+tail lists, the groups stacked on their leading axis, the recurrent
+states' tuples.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import torch
 from repro_torch.dtypes import as_dtype
 
 __all__ = ["to_torch", "matrices_to_torch", "xi_to_torch",
-           "posterior_to_torch"]
+           "posterior_to_torch", "lm_params_to_torch", "lm_cache_to_torch"]
 
 
 def to_torch(tree, *, device="cuda", dtype=None):
@@ -66,3 +73,15 @@ def posterior_to_torch(icr, mean, log_std=None, theta=None, *, dtype=None):
         log_std=None if log_std is None else xi_to_torch(log_std, **kw),
         theta=None if theta is None else to_torch(
             dict(theta), device=icr.device, dtype=torch.float32))
+
+
+def lm_params_to_torch(params, *, device="cuda"):
+    """The JAX package's LM parameter tree, as numpy arrays, as the
+    port's (each leaf in its own dtype)."""
+    return to_torch(params, device=device)
+
+
+def lm_cache_to_torch(cache, *, device="cuda"):
+    """The JAX package's LM decode cache, as numpy arrays, as the port's
+    (each leaf in its own dtype)."""
+    return to_torch(cache, device=device)

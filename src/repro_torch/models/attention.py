@@ -1,0 +1,274 @@
+"""Attention variants: GQA (full / sliding-window banded), MLA, cross.
+
+The JAX package's ``repro.models.attention`` in PyTorch. The training
+path is query-chunked: scores for one (B, H, Cq, K) tile at a time, so
+the (S x S) score matrix is never materialized; static sliding windows
+take the banded path that reads only the (window + Cq) key slice of a
+chunk. Scores and softmax are float32; GQA groups the query heads as
+(B, Q, Hkv, rep, Dh), and masked scores take ``NEG_INF``.
+
+The decode path scores one new token against the cache and writes the
+new K/V (or MLA latent) into the cache IN PLACE, at a slot computed on
+the device: local layers keep a ring buffer of ``window`` slots (slot =
+pos % window), others write at pos. Nothing in it reads a tensor on the
+host, so one decode step can be captured as a CUDA graph.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .layers import (Init, _dense_init, apply_rope, einsum_f32, matmul,
+                     qk_norm)
+from .shard_ctx import constrain
+
+Tensor = torch.Tensor
+NEG_INF = -1e30
+
+
+# -- parameter init -------------------------------------------------------------
+def init_gqa(init: Init, d_model: int, n_heads: int, n_kv: int, d_head: int,
+             dtype, *, use_bias: bool = False) -> dict:
+    p = {
+        "wq": _dense_init(init, (d_model, n_heads * d_head), dtype),
+        "wk": _dense_init(init, (d_model, n_kv * d_head), dtype),
+        "wv": _dense_init(init, (d_model, n_kv * d_head), dtype),
+        "wo": _dense_init(init, (n_heads * d_head, d_model), dtype),
+    }
+    if use_bias:
+        p["bq"] = init.zeros((n_heads * d_head,), dtype)
+        p["bk"] = init.zeros((n_kv * d_head,), dtype)
+        p["bv"] = init.zeros((n_kv * d_head,), dtype)
+        p["bo"] = init.zeros((d_model,), dtype)
+    return p
+
+
+def init_mla(init: Init, d_model: int, n_heads: int, mla, dtype) -> dict:
+    qk = mla.qk_nope_dim + mla.qk_rope_dim
+    return {
+        "w_dq": _dense_init(init, (d_model, mla.q_lora_rank), dtype),
+        "w_uq": _dense_init(init, (mla.q_lora_rank, n_heads * qk), dtype),
+        "w_dkv": _dense_init(
+            init, (d_model, mla.kv_lora_rank + mla.qk_rope_dim), dtype),
+        "w_uk": _dense_init(
+            init, (mla.kv_lora_rank, n_heads * mla.qk_nope_dim), dtype),
+        "w_uv": _dense_init(
+            init, (mla.kv_lora_rank, n_heads * mla.v_dim), dtype),
+        "wo": _dense_init(init, (n_heads * mla.v_dim, d_model), dtype),
+    }
+
+
+# -- shared helpers ---------------------------------------------------------------
+def _split_heads(x: Tensor, n: int) -> Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def _proj_qkv(params, x, x_kv, n_heads, n_kv):
+    q = matmul(x, params["wq"])
+    k = matmul(x_kv, params["wk"])
+    v = matmul(x_kv, params["wv"])
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    spec = ("data", None, "model", None)  # heads over TP when divisible
+    return (constrain(_split_heads(q, n_heads), spec),
+            constrain(_split_heads(k, n_kv), spec),
+            constrain(_split_heads(v, n_kv), spec))
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: (B, Q, H, Dh); k/v: (B, K, Hkv, Dh); mask: (B, Q, K) bool or None.
+    GQA via head grouping; scores float32."""
+    b, cq, h, dh = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, cq, hkv, rep, dh)
+    s = einsum_f32("bqhrd,bkhd->bhrqk", qg, k) * scale
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = einsum_f32("bhrqk,bkhd->bqhrd", p.to(v.dtype), v)
+    # note: v's head dim may differ from q/k's (MLA: qk=192, v=128)
+    return o.reshape(b, cq, h, v.shape[-1]).to(q.dtype)
+
+
+def _chunks(s: int, q_chunk: int) -> tuple:
+    """(chunk length, chunk count): ``q_chunk`` where it divides s, else
+    one chunk."""
+    cq = min(q_chunk, s)
+    nch = s // cq if s % cq == 0 else 1
+    return s // nch, nch
+
+
+def attention_train(params: dict, x: Tensor, positions: Tensor, *,
+                    n_heads: int, n_kv: int, d_head: int,
+                    rope_theta: float | None, causal: bool = True,
+                    window: int | None = None, use_qk_norm: bool = False,
+                    q_chunk: int = 512, x_kv: Optional[Tensor] = None,
+                    kv_positions: Optional[Tensor] = None) -> Tensor:
+    """Full-sequence attention (training / prefill), query-chunked.
+
+    window: static int for banded sliding-window attention, None for full.
+    x_kv/kv_positions: cross-attention source (whisper decoder).
+    """
+    b, s, _ = x.shape
+    cross = x_kv is not None
+    src = x_kv if cross else x
+    kv_pos = kv_positions if cross else positions
+    q, k, v = _proj_qkv(params, x, src, n_heads, n_kv)
+    if use_qk_norm:
+        q, k = qk_norm(q), qk_norm(k)
+    if rope_theta is not None and not cross:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, kv_pos, rope_theta)
+    scale = 1.0 / np.sqrt(d_head)
+    cq, nch = _chunks(s, q_chunk)
+    sk = src.shape[1]
+    outs = []
+    for idx in range(nch):
+        start = idx * cq
+        qs = q[:, start:start + cq]
+        qp = positions[:, start:start + cq]
+        if window is not None and not cross:
+            # banded: only the (window + cq) key slice can be visible
+            band = min(window + cq, sk)
+            kstart = max(start + cq - band, 0)
+            ks = k[:, kstart:kstart + band]
+            vs = v[:, kstart:kstart + band]
+            kp = kv_pos[:, kstart:kstart + band]
+            m = (qp[:, :, None] >= kp[:, None, :]) & (
+                qp[:, :, None] - kp[:, None, :] < window)
+        else:
+            ks, vs = k, v
+            if causal and not cross:
+                m = qp[:, :, None] >= kv_pos[:, None, :]
+            else:
+                m = None
+        outs.append(_sdpa(qs, ks, vs, m, scale))
+    out = torch.cat(outs, dim=1).reshape(b, s, n_heads * d_head)
+    out = matmul(out, params["wo"])
+    if "bo" in params:
+        out = out + params["bo"]
+    return out
+
+
+def _write_rows(cache: Tensor, new: Tensor, slot: Tensor) -> None:
+    """cache[b, slot[b]] = new[b] for every batch row, in place; the slot
+    clamped into the cache as ``dynamic_update_slice`` clamps it."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot.long().clamp(0, cache.shape[1] - 1)] = new
+
+
+def attention_decode(params: dict, cache: dict, x: Tensor,
+                     positions: Tensor, *, n_heads: int, n_kv: int,
+                     d_head: int, rope_theta: float | None,
+                     window: int | None = None,
+                     use_qk_norm: bool = False) -> tuple:
+    """One-token decode against a (B, S_max, Hkv, Dh) cache.
+
+    cache: {"k": ..., "v": ...}, written in place; positions: (B,)
+    write/attend index. Returns (out (B, 1, D), cache). Sliding-window
+    layers use a ring-buffer cache of size `window` (slot = pos % window).
+    """
+    b = x.shape[0]
+    q, k_new, v_new = _proj_qkv(params, x, x, n_heads, n_kv)
+    if use_qk_norm:
+        q, k_new = qk_norm(q), qk_norm(k_new)
+    if rope_theta is not None:
+        q = apply_rope(q, positions[:, None], rope_theta)
+        k_new = apply_rope(k_new, positions[:, None], rope_theta)
+    s_max = cache["k"].shape[1]
+    slot = positions % s_max if window is not None else positions
+    _write_rows(cache["k"], k_new[:, 0], slot)
+    _write_rows(cache["v"], v_new[:, 0], slot)
+
+    # visibility: cache slot j holds absolute position pos_j
+    idx = torch.arange(s_max, device=x.device)[None, :]
+    cur = positions[:, None].long()
+    if window is not None:
+        # ring buffer: slot j holds position p with p % s_max == j, the
+        # largest such p <= current position
+        p_j = cur - ((cur - idx) % s_max)
+        visible = (p_j >= 0) & (cur - p_j < window) & (p_j <= cur)
+    else:
+        visible = idx <= cur
+    scale = 1.0 / np.sqrt(d_head)
+    out = _sdpa(q, cache["k"], cache["v"], visible[:, None, :], scale)
+    out = matmul(out.reshape(b, 1, n_heads * d_head), params["wo"])
+    if "bo" in params:
+        out = out + params["bo"]
+    return out, cache
+
+
+# -- MLA (deepseek-v2) -------------------------------------------------------------
+def mla_train(params: dict, x: Tensor, positions: Tensor, *, n_heads: int,
+              mla, q_chunk: int = 512) -> Tensor:
+    b, s, _ = x.shape
+    nope, rope, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_dim
+    qk = nope + rope
+    cq_lat = matmul(x, params["w_dq"])
+    q = _split_heads(matmul(cq_lat, params["w_uq"]), n_heads)  # (B,S,H,qk)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = apply_rope(q_pe, positions, 10_000.0)
+
+    ckv = matmul(x, params["w_dkv"])
+    c_kv, k_pe = ckv[..., : mla.kv_lora_rank], ckv[..., mla.kv_lora_rank:]
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, 10_000.0)  # (B,S,1,rope)
+    k_nope = _split_heads(matmul(c_kv, params["w_uk"]), n_heads)
+    v = _split_heads(matmul(c_kv, params["w_uv"]), n_heads)
+
+    k = torch.cat([k_nope, k_pe.expand(b, s, n_heads, rope)], dim=-1)
+    qq = torch.cat([q_nope, q_pe], dim=-1)
+    scale = 1.0 / np.sqrt(qk)
+    cqs, nch = _chunks(s, q_chunk)
+    outs = []
+    for idx in range(nch):
+        start = idx * cqs
+        qs = qq[:, start:start + cqs]
+        qp = positions[:, start:start + cqs]
+        m = qp[:, :, None] >= positions[:, None, :]
+        outs.append(_sdpa(qs, k, v, m, scale))
+    out = torch.cat(outs, dim=1).reshape(b, s, n_heads * vd)
+    return matmul(out, params["wo"])
+
+
+def mla_decode(params: dict, cache: dict, x: Tensor, positions: Tensor, *,
+               n_heads: int, mla) -> tuple:
+    """Absorbed-matrix MLA decode: the cache holds only the latent
+    (kv_lora + rope) per token, written in place at each row's position.
+
+    cache: {"ckv": (B, S, kv_lora), "kpe": (B, S, rope)}.
+    """
+    b = x.shape[0]
+    nope, rope, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_dim
+    lat = mla.kv_lora_rank
+    cq_lat = matmul(x, params["w_dq"])
+    q = _split_heads(matmul(cq_lat, params["w_uq"]), n_heads)  # (B,1,H,qk)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = apply_rope(q_pe, positions[:, None], 10_000.0)
+
+    ckv_new = matmul(x, params["w_dkv"])
+    c_new, kpe_new = ckv_new[..., :lat], ckv_new[..., lat:]
+    kpe_new = apply_rope(kpe_new[:, :, None, :], positions[:, None],
+                         10_000.0)[:, :, 0, :]
+    _write_rows(cache["ckv"], c_new[:, 0], positions)
+    _write_rows(cache["kpe"], kpe_new[:, 0], positions)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+
+    # absorb W_uk into q: q_lat (B,1,H,lat)
+    w_uk = params["w_uk"].reshape(lat, n_heads, nope)
+    q_lat = einsum_f32("bqhn,lhn->bqhl", q_nope, w_uk).to(x.dtype)
+    s_max = ckv.shape[1]
+    scores = (einsum_f32("bqhl,bkl->bhqk", q_lat, ckv)
+              + einsum_f32("bqhr,bkr->bhqk", q_pe, kpe)) / np.sqrt(nope + rope)
+    visible = torch.arange(s_max, device=x.device)[None, None, None, :] <= \
+        positions[:, None, None, None]
+    scores = torch.where(visible, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    o_lat = einsum_f32("bhqk,bkl->bqhl", p.to(x.dtype), ckv).to(x.dtype)
+    w_uv = params["w_uv"].reshape(lat, n_heads, vd)
+    o = einsum_f32("bqhl,lhv->bqhv", o_lat, w_uv).to(x.dtype)
+    out = matmul(o.reshape(b, 1, n_heads * vd), params["wo"])
+    return out, cache

@@ -1,0 +1,190 @@
+"""Shared layers: norms, rotary embeddings, MLPs, embedding tables.
+
+Plain functions over nested dicts of tensors, as in the JAX package's
+``repro.models.layers``: ``init_*`` returns a params dict, the matching
+apply is a plain function. Every matmul runs in the activation dtype with
+float32 accumulation and casts back (``matmul``); norms and softmax run in
+float32. Parameters are drawn from an explicit ``torch.Generator`` on the
+device given by ``Init``; on the ``meta`` device nothing is drawn or
+allocated (``Model.param_count``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class Init:
+    """Where parameters are drawn: a generator (None: the device's
+    default) and a device (``meta`` draws nothing)."""
+
+    generator: Optional[torch.Generator]
+    device: torch.device
+
+    def empty(self, shape, dtype) -> Tensor:
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def zeros(self, shape, dtype) -> Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def full(self, shape, value, dtype) -> Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+
+def _dense_init(init: Init, shape, dtype, scale=None) -> Tensor:
+    """Truncated normal on [-2, 2] times ``scale`` (default 1/sqrt(fan_in),
+    fan_in = shape[0]), drawn in float32 and cast to `dtype`."""
+    fan_in = shape[0]
+    scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    if init.device.type == "meta":
+        return init.empty(shape, dtype)
+    w = torch.empty(shape, dtype=torch.float32, device=init.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                generator=init.generator)
+    return (w.mul_(float(scale))).to(dtype)
+
+
+def matmul(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` accumulated in float32 and cast back to x's dtype, as
+    ``jnp.dot(..., preferred_element_type=float32).astype(x.dtype)``:
+    the float32 result keeps every partial sum, split-K's included, in
+    float32 whatever cuBLAS's reduced-precision setting."""
+    return dot_f32(x, w).to(x.dtype)
+
+
+def dot_f32(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` accumulated in float32 and returned in float32, as
+    ``jnp.dot(..., preferred_element_type=float32)``. On the card the
+    bfloat16 operands stay bfloat16 in memory (``torch.mm(out_dtype=)``);
+    elsewhere they are widened, which is exact."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda and x.dtype == w.dtype:
+        lead = x.shape[:-1]
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*lead, w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def einsum_f32(eq: str, *ops: Tensor) -> Tensor:
+    """``jnp.einsum(..., preferred_element_type=float32)``: the operands
+    widened to float32 (exact), the result float32; callers cast it back
+    where the JAX package does (``.astype(x.dtype)``)."""
+    return torch.einsum(eq, *(o.float() for o in ops))
+
+
+# -- norms ---------------------------------------------------------------------
+def init_rmsnorm(init: Init, d: int, dtype) -> dict:
+    return {"scale": init.zeros((d,), dtype)}  # gemma-style (1 + scale)
+
+
+def rmsnorm(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def qk_norm(x: Tensor, eps: float = 1e-6) -> Tensor:
+    """Parameter-free RMS over the head dim (gemma3-style qk-norm, sans
+    learned scale for simplicity of the stacked layout)."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+# -- rotary --------------------------------------------------------------------
+def rope_freqs(dim: int, theta: float, device=None) -> Tensor:
+    """Inverse frequencies (float32)."""
+    exponents = torch.arange(0, dim, 2, dtype=torch.float32,
+                             device=device) / dim
+    return 1.0 / torch.pow(float(theta), exponents)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int. Half-rotation convention."""
+    dh = x.shape[-1]
+    inv = rope_freqs(dh, theta, x.device)                 # (Dh/2,)
+    ang = positions.float()[..., None] * inv              # (B, S, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP -----------------------------------------------------------------------
+def init_mlp(init: Init, d_model: int, d_ff: int, dtype, *, glu: bool,
+             use_bias: bool) -> dict:
+    p = {}
+    if glu:
+        p["gate"] = _dense_init(init, (d_model, d_ff), dtype)
+    p["down"] = _dense_init(init, (d_ff, d_model), dtype)
+    p["up"] = _dense_init(init, (d_model, d_ff), dtype)
+    if use_bias:
+        p["b_up"] = init.zeros((d_ff,), dtype)
+        p["b_down"] = init.zeros((d_model,), dtype)
+    return p
+
+
+def _gelu(x: Tensor) -> Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def mlp(params: dict, x: Tensor, *, act: str, glu: bool) -> Tensor:
+    from .shard_ctx import constrain
+
+    actfn = F.silu if act == "silu" else _gelu
+    up = matmul(x, params["up"])
+    if "b_up" in params:
+        up = up + params["b_up"]
+    h = actfn(matmul(x, params["gate"])) * up if glu else actfn(up)
+    h = constrain(h, ("data", None, "model"))  # d_ff over TP
+    out = matmul(h, params["down"])
+    if "b_down" in params:
+        out = out + params["b_down"]
+    return out
+
+
+# -- embeddings ------------------------------------------------------------------
+def init_embedding(init: Init, vocab: int, d_model: int, dtype) -> dict:
+    # GPT-2-style small init: keeps tied-embedding logits O(1) at init
+    return {"table": _dense_init(init, (vocab, d_model), dtype, scale=0.02)}
+
+
+def embed(params: dict, tokens: Tensor) -> Tensor:
+    return F.embedding(tokens, params["table"])
+
+
+def unembed_chunked(table: Tensor, h: Tensor, labels: Tensor,
+                    chunk: int, mask: Optional[Tensor] = None) -> Tensor:
+    """Mean cross-entropy WITHOUT materializing full (B, S, V) logits: the
+    sequence in ``chunk``-sized slices, (B, chunk, V) logits at a time
+    (forward value; positions past the last whole chunk are dropped, as
+    in the JAX package)."""
+    b, s, d = h.shape
+    nchunk = max(s // chunk, 1)
+    chunk = s // nchunk
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    table_t = table.t()
+    for c in range(nchunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = dot_f32(h[:, sl], table_t)              # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, sl, None].long())[..., 0]
+        mm = mask[:, sl]
+        tot = tot + ((lse - gold) * mm).sum()
+        cnt = cnt + mm.sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,0 +1,114 @@
+"""Mixture-of-Experts with capacity-based dispatch (GShard/Switch style).
+
+The JAX package's ``repro.models.moe`` in PyTorch. Top-k routing with
+softmax-renormalized gates and a per-expert capacity
+``C = ceil(g * k / E * capacity_factor)`` (at least 4) per sample and
+sequence chunk of ``router_group_size`` tokens. Each (token, choice)
+takes its place in its expert's buffer by a cumulative sum over one-hot
+rows, counted per sample; a choice past the capacity is dropped (its gate
+set to 0, so the token falls through to the residual path). Dispatch and
+combine are one-hot einsums; the capacity is static, so nothing reads a
+tensor on the host. Shared experts run densely for every token. The
+router's load-balance and z losses come back as values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .layers import Init, _dense_init, einsum_f32, init_mlp, matmul, mlp
+
+Tensor = torch.Tensor
+
+
+def init_moe(init: Init, d_model: int, moe_cfg, dtype) -> dict:
+    e, f = moe_cfg.n_experts, moe_cfg.d_ff_expert
+    p = {
+        "router": _dense_init(init, (d_model, e), dtype, scale=0.02),
+        # stacked expert GLU weights: (E, D, F) / (E, F, D)
+        "gate": _dense_init(init, (e, d_model, f), dtype),
+        "up": _dense_init(init, (e, d_model, f), dtype),
+        "down": _dense_init(init, (e, f, d_model), dtype),
+    }
+    if moe_cfg.n_shared:
+        p["shared"] = init_mlp(init, d_model, moe_cfg.n_shared * f, dtype,
+                               glu=True, use_bias=False)
+    return p
+
+
+def _one_hot(idx: Tensor, n: int, dtype) -> Tensor:
+    """One-hot rows by comparison: an index outside [0, n) gives a zero
+    row, and nothing is checked on the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
+    """One sequence chunk: x (B, g, D) -> (out (B, g, D), (lb, z))."""
+    e, k = moe_cfg.n_experts, moe_cfg.top_k
+    b, g, d = x.shape
+    logits = matmul(x, params["router"]).float()               # (B, g, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)       # (B, g, k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # position of each (token, choice) in its expert's capacity buffer,
+    # counted independently per sample
+    onehot = _one_hot(expert_idx, e, torch.int32)              # (B, g, k, E)
+    flat = onehot.reshape(b, g * k, e)
+    pos_in_expert = (torch.cumsum(flat, dim=1) - flat).reshape(b, g, k, e)
+    pos = (pos_in_expert * onehot).sum(-1)                     # (B, g, k)
+    keep = pos < capacity
+    gate_vals = gate_vals * keep
+
+    cap_oh = _one_hot(torch.where(keep, pos, capacity), capacity,
+                      x.dtype)                                 # (B, g, k, C)
+    disp = (onehot.to(x.dtype)[..., None]
+            * cap_oh[..., None, :]).sum(2)                     # (B, g, E, C)
+    comb = ((onehot.float() * gate_vals[..., None]
+             ).to(x.dtype)[..., None] * cap_oh[..., None, :]).sum(2)
+
+    xin = einsum_f32("bgec,bgd->becd", disp, x).to(x.dtype)
+    h = F.silu(einsum_f32("becd,edf->becf", xin, params["gate"])
+               ).to(x.dtype) * einsum_f32("becd,edf->becf", xin,
+                                          params["up"]).to(x.dtype)
+    xout = einsum_f32("becf,efd->becd", h, params["down"]).to(x.dtype)
+    out = einsum_f32("bgec,becd->bgd", comb, xout).to(x.dtype)
+
+    # aux: load-balance (Switch) + router z-loss
+    density = onehot.sum(2).float().mean(dim=(0, 1))
+    prob_mass = probs.mean(dim=(0, 1))
+    lb = e * (density / k * prob_mass).sum()
+    z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    return out, (lb, z)
+
+
+def moe_apply(params: dict, x: Tensor, moe_cfg) -> tuple:
+    """x: (B, S, D) -> (out, aux_loss); sequence chunks one after another."""
+    b, s, d = x.shape
+    g = min(moe_cfg.router_group_size, s)
+    nch = s // g
+    if nch * g != s:
+        raise ValueError(f"seq {s} not divisible by router group {g}")
+    capacity = int(np.ceil(g * moe_cfg.top_k / moe_cfg.n_experts
+                           * moe_cfg.capacity_factor))
+    capacity = max(capacity, 4)
+
+    if nch == 1:
+        out, (lb, z) = _dispatch_chunk(params, x, moe_cfg, capacity)
+        aux = (lb - 1.0) * 1e-2 + z * 1e-3
+    else:
+        lb = torch.zeros((), dtype=torch.float32, device=x.device)
+        z = torch.zeros((), dtype=torch.float32, device=x.device)
+        outs = []
+        for c in range(nch):
+            o, (lb_c, z_c) = _dispatch_chunk(
+                params, x[:, c * g:(c + 1) * g], moe_cfg, capacity)
+            lb, z = lb + lb_c, z + z_c
+            outs.append(o)
+        out = torch.cat(outs, dim=1)
+        aux = (lb / nch - 1.0) * 1e-2 + (z / nch) * 1e-3
+    if "shared" in params:
+        out = out + mlp(params["shared"], x, act="silu", glu=True)
+    return out, aux

@@ -1130,3 +1130,93 @@ def test_cuda_launch_refuses_a_plan_it_does_not_match(cuda):
     torch.cuda.synchronize()
     want = icr_refine.refine_stationary_plain(coarse, xi, r, d)
     assert rel(out, want) < TOL["float32"]
+
+
+# -- the LM port: the decode step as one CUDA graph --------------------------------
+def _lm_server(name, device, slots=4, s_max=32, params=None):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import BatchedServer
+
+    return BatchedServer(get_arch(name).reduced(), batch_slots=slots,
+                         s_max=s_max, seed=0, device=device, params=params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma3-4b", "xlstm-1.3b"])
+def test_cuda_lm_graph_step_equals_eager(cuda, name):
+    """The server's captured decode step against ``Model.serve_step`` op
+    by op from the same cache, every slot live at its own position: the
+    logits and every cache leaf bit for bit."""
+    from repro_torch.models.tree import tree_leaves, tree_map, tree_store
+
+    srv = _lm_server(name, cuda)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vocab = srv.cfg.vocab_size
+    for i in range(10):   # past the reduced window of 8
+        srv.decode(torch.randint(0, vocab, (4, 1), generator=gen,
+                                 device=cuda, dtype=torch.int32),
+                   torch.full((4,), i, dtype=torch.int32, device=cuda))
+    tok = torch.randint(0, vocab, (4, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    pos = torch.tensor([10, 3, 10, 0], dtype=torch.int32, device=cuda)
+    before = tree_map(torch.clone, srv.cache)
+    graph = srv.decode(tok, pos).clone()
+    graph_cache = [t.clone() for t in tree_leaves(srv.cache)]
+    tree_store(srv.cache, before)
+    eager = srv.model.serve_step(srv.params, srv.cache, tok, pos)
+    assert torch.equal(graph, eager)
+    assert all(torch.equal(a, b)
+               for a, b in zip(graph_cache, tree_leaves(srv.cache)))
+
+
+@pytest.mark.cuda
+def test_cuda_lm_moe_matches_the_cpu(cuda):
+    """Reduced llama4 (interleaved MoE) on the card at float32, TF32 off:
+    prefill and 16 captured decode steps within 1e-4 of the same model
+    and parameters on the CPU."""
+    from repro_torch.models.tree import tree_map
+
+    cpu = _lm_server("llama4-maverick-400b-a17b", "cpu", slots=2, s_max=16)
+    card = _lm_server("llama4-maverick-400b-a17b", cuda, slots=2, s_max=16,
+                      params=tree_map(lambda t: t.to(cuda), cpu.params))
+    toks = torch.randint(0, cpu.cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    want = cpu.model.prefill_fn(cpu.params, {"tokens": toks})
+    got = card.model.prefill_fn(card.params, {"tokens": toks.to(cuda)})
+    assert rel(got.cpu(), want) <= 1e-4
+    for i in range(16):
+        pos = torch.full((2,), i, dtype=torch.int32)
+        w = cpu.decode(toks[:, i:i + 1], pos)
+        g = card.decode(toks[:, i:i + 1].to(cuda), pos.to(cuda))
+        assert rel(g.cpu(), w) <= 1e-4, i
+
+
+@pytest.mark.cuda
+def test_cuda_lm_bf16_matmul_accumulates_in_float32(cuda):
+    """``layers.dot_f32`` in bfloat16 at gemma3-4b's decode shape (4 rows,
+    the MLP's 10240 -> 2560 down projection, where cuBLAS splits K) with
+    cuBLAS allowed reduced-precision reductions: the float32 product of
+    the widened operands up to float32's summation order (2^-14 of the
+    largest value; a partial sum rounded to bfloat16 errs by ~2^-9 of
+    it), and ``matmul`` that product rounded once to bfloat16."""
+    from repro_torch.models.layers import dot_f32, matmul
+
+    flag = torch.backends.cuda.matmul
+    before = flag.allow_bf16_reduced_precision_reduction
+    flag.allow_bf16_reduced_precision_reduction = True
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((4, 1, 10240), generator=gen,
+                        device=cuda).bfloat16()
+        w = (torch.randn((10240, 2560), generator=gen, device=cuda)
+             / 100).bfloat16()
+        acc = dot_f32(x, w)
+        got = matmul(x, w)
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = before
+    want = x.float() @ w.float()
+    assert acc.dtype == torch.float32 and acc.shape == want.shape
+    assert float((acc - want).abs().max()) <= \
+        2.0 ** -14 * float(want.abs().max())
+    assert got.dtype == torch.bfloat16 and torch.equal(got, acc.bfloat16())

@@ -32,7 +32,10 @@ def _run(args, timeout=300):
     ("examples/torch_dust_map_3d.py", ["--quick", "--shards", "8"],
      ["route=nd-fused", "fused VJP", "distributed over 8 slots",
       "rel-err vs unsharded", "corr(shell0, shell1)"]),
-], ids=["quickstart", "gp_regression_cg", "gp_regression_vi", "dust_map_3d"])
+    ("examples/torch_serve_lm.py", ["--arch", "gemma3-4b"],
+     ["req5: prompt=", "decode tok/s, gemma3-4b reduced, cpu"]),
+], ids=["quickstart", "gp_regression_cg", "gp_regression_vi", "dust_map_3d",
+        "serve_lm"])
 def test_torch_example_runs_on_the_cpu(script, args, expect):
     out = _run([script, "--device", "cpu", *args])
     for line in expect:

@@ -10,17 +10,24 @@
   in float32, so the bound is 1e-4 relative (measured: <= 3e-5 on these
   charts); eigh's arbitrary column signs cancel in the covariance. At
   float64 (the JAX package under x64) both build in float64: 1e-10.
+* ``ICRArchConfig.build``: the paper's configurations, cut to a small
+  chart, build the JAX package's model (the same ``apply_sqrt_batch`` on
+  the JAX package's matrices, 1e-5).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ICR_ARCHS as JICR_ARCHS
 from repro.core import ICR as JICR
 from repro.core import charts as jcharts
 from repro.core import kernels as jkernels
 from repro_torch import ICR
+from repro_torch.configs.registry import ICR_ARCHS
 from repro_torch.convert import matrices_to_torch, xi_to_torch
 from repro_torch.core import charts as tcharts
 from repro_torch.core import kernels as tkernels
@@ -201,3 +208,21 @@ def test_defaults_target_the_card_and_refuse_the_pyramid():
     assert ICR(c, tkernels.matern32).device == "cuda"
     assert ICR(c, tkernels.matern32).use_pyramid
     assert ICR(c, tkernels.matern32, use_pyramid=False).use_pyramid is False
+
+
+@pytest.mark.parametrize("name,cut", [
+    ("icr-log1d", dict(shape0=(12,), n_levels=3)),
+    ("icr-dust-pod", dict(shape0=(6, 8, 8), n_levels=2)),
+])
+def test_icr_arch_config_builds_the_jax_model(name, cut):
+    jicr = dataclasses.replace(JICR_ARCHS[name], **cut).build()
+    ticr = dataclasses.replace(ICR_ARCHS[name], **cut).build(device="cpu")
+    assert ticr.device == "cpu" and ticr.xi_shapes() == jicr.xi_shapes()
+    mats = jax.jit(jicr.matrices)()
+    xi = _xi(jicr, 2)
+    want = jax.jit(jicr.apply_sqrt_batch)(mats, xi)
+    got = ticr.apply_sqrt_batch(
+        matrices_to_torch(jax.tree.map(np.asarray, mats), device="cpu"),
+        xi_to_torch([np.asarray(x) for x in xi], device="cpu"))
+    assert tuple(got.shape) == tuple(want.shape) == (2,) + ticr.out_shape
+    assert rel(t2n(got), np.asarray(want)) < TOL[None]
