@@ -222,6 +222,35 @@ Phases (any failure ends the run with a non-zero exit code):
    misses, the same weights widened to float32, which must meet it (the
    bfloat16 figure is recorded). One ``lm_serve`` line.
 
+10. lm_train — LM training (the models' backward with remat, ``optim/``,
+   ``launch/steps.py``, ``launch/train.py``, ``data/pipeline.py``; plain
+   torch ops, none of the port's kernels): (a) the ten reduced
+   architectures at float32, 4 rows × 32 tokens of ``SyntheticLMData``:
+   the loss and every gradient leaf on the card against the CPU (<= 1e-4
+   of the leaf's largest entry; a leaf zero in exact arithmetic, whisper's
+   key biases, within 1e-6 of the largest entry of all), ``remat=True``
+   against off on the card (<= 1e-6), one step of sgd (momentum 0.9),
+   adamw and adafactor from the CPU's gradients on both (<= 1e-6), an
+   ``accum = 2`` SGD train step on both (<= 1e-4), and first, on the MoE
+   architectures, the top-k routes on both (equal, with their smallest
+   margin); one ``lm_train_reduced`` line. (b) gemma3-4b at full width
+   and depth, bf16, remat, ``train_4k``'s 4,096 tokens at global batch 2
+   (the cell's 256 cut to one card's time): one forward and backward with
+   the stacked group leaves' rows taken by ``x[g]`` (the code) and by
+   ``unbind``, twice each in turns (peak memory and s each); the bf16
+   gradients of the tied table, the first group's rows, the last tail
+   layer and the final norm against the same from a float32 copy of the
+   weights (cosine >= 0.99, relative error per leaf); ``train_loop`` for
+   8 steps (AdamW from ``select_optimizer``): finite losses, step 0's
+   batch lower after the last step, step ms by CUDA events (median of
+   steps 3–8), enqueue ms, tokens/s, MFU (6·N·D over the step and 989
+   TFLOP/s), peak memory allocated and reserved; one more step under
+   ``torch.profiler`` and one under CUDA's sync debug mode. (c) the
+   ``fail_at`` drill (one restart, the unfailed run's parameters and
+   optimizer state bit for bit) and a resume from a checkpoint (the
+   uninterrupted run's losses and parameters bit for bit) on reduced
+   starcoder2 on the card. One ``lm_train`` line.
+
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 
@@ -3492,6 +3521,492 @@ def check_lm(card) -> dict:
     return record
 
 
+# -- phase 10: LM training (the models' backward, optim/, launch/steps.py,
+# launch/train.py) --------------------------------------------------------------
+LMT_SEQ, LMT_BATCH, LMT_STEPS = 4096, 2, 8   # train_4k's length, batch 2
+LMT_REDUCED = (4, 32)        # reduced archs: batch, tokens (whisper's 32)
+LMT_CARD_TOL = 1e-4          # reduced: card against CPU, per leaf
+LMT_REMAT_TOL = 1e-6         # reduced: remat on against off, on the card
+LMT_OPT_TOL = 1e-6           # one optimizer step, card against CPU
+LMT_COS_MIN = 0.99           # gemma3-4b: bf16 gradients against float32
+LMT_LR = 1e-3                # the optimizers' step in 10a
+BF16_PEAK = 989e12           # H100 SXM dense bf16 FLOP/s, data sheet
+
+
+def lmt_grads(model, params, batch) -> tuple:
+    """(loss, gradient leaves) of ``model.loss_fn``; a leaf the loss does
+    not reach gets zeros, as ``jax.grad`` gives it."""
+    import torch
+
+    from repro_torch.models.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), [g.detach() for g in grads]
+
+
+def lmt_leaf_errs(got, want) -> tuple:
+    """(max over leaves of max|got - want| / max|want|, max level of the
+    leaves whose reference is zero in exact arithmetic). A leaf whose
+    reference is below 1e-6 of the largest entry of all leaves (whisper's
+    key biases: the softmax cancels them) is held by its level, both
+    sides, relative to that largest entry."""
+    top = max(float(w.abs().max()) for w in want)
+    worst, zero = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        scale = float(w.abs().max())
+        if scale <= 1e-6 * top:
+            zero = max(zero, float(g.abs().max()) / top, scale / top)
+        else:
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst, zero
+
+
+class RouteRecorder:
+    """Wraps ``moe._dispatch_chunk`` and records each call's top-k experts
+    and its routing margin (the k-th largest router probability minus the
+    (k+1)-th)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.inner = moe, moe._dispatch_chunk
+        self.routes, self.margins = [], []
+
+    def __call__(self, params, x, moe_cfg, capacity):
+        import torch
+
+        from repro_torch.models.layers import matmul
+
+        with torch.no_grad():
+            probs = torch.softmax(matmul(x, params["router"]).float(), -1)
+            top = torch.topk(probs, moe_cfg.top_k + 1, dim=-1)
+            self.routes.append(top.indices[..., :-1].cpu())
+            self.margins.append(float((top.values[..., -2]
+                                       - top.values[..., -1]).min()))
+        return self.inner(params, x, moe_cfg, capacity)
+
+    def __enter__(self):
+        self.moe._dispatch_chunk = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch_chunk = self.inner
+
+
+def lmt_reduced_batch(cfg, device) -> dict:
+    """A seeded ``SyntheticLMData`` batch (and the frontends' inputs)."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+
+    b, s = LMT_REDUCED
+    host = SyntheticLMData(cfg.vocab_size, s, b, seed=3).batch(0)
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    gen = torch.Generator().manual_seed(4)
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+    if cfg.encoder is not None:
+        batch["enc_embeds"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.d_model), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def lmt_reduced_case(name, device="cuda") -> dict:
+    """Phase 10a on one reduced architecture at float32: loss and every
+    gradient leaf on `device` against the CPU; remat on against off on
+    `device`; one step of sgd (momentum 0.9), adamw and adafactor from the
+    CPU's gradients on both; an ``accum = 2`` SGD train step on both; on
+    the MoE architectures, first, the top-k routes on both."""
+    import dataclasses
+    import unittest.mock
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.optim import constant, optimizers
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg)
+    p_cpu = model.init_params(torch.Generator().manual_seed(0))
+    p_dev = tree_map(lambda t: t.detach().to(device), p_cpu)
+    b_cpu, b_dev = lmt_reduced_batch(cfg, "cpu"), lmt_reduced_batch(
+        cfg, device)
+    rec = {}
+    if cfg.moe:
+        with RouteRecorder() as r_cpu:
+            model.loss_fn(p_cpu, b_cpu)
+        with RouteRecorder() as r_dev:
+            model.loss_fn(p_dev, b_dev)
+        rec["routes_agree"] = all(
+            torch.equal(a, b) for a, b in zip(r_cpu.routes, r_dev.routes))
+        rec["min_route_margin"] = min(r_cpu.margins)
+        if not rec["routes_agree"]:
+            raise RuntimeError(f"{name}: top-k routes differ between the "
+                               f"CPU and the card: {rec}")
+    l_cpu, g_cpu = lmt_grads(model, p_cpu, b_cpu)
+    l_dev, g_dev = lmt_grads(model, p_dev, b_dev)
+    rec["loss"] = float(l_cpu)
+    rec["loss_rel_err"] = abs(float(l_dev) - float(l_cpu)) / max(
+        abs(float(l_cpu)), 1e-30)
+    rec["grad_rel_err"], rec["grad_zero_level"] = lmt_leaf_errs(g_dev,
+                                                                g_cpu)
+    remat = build_model(dataclasses.replace(cfg, remat=True))
+    l_rm, g_rm = lmt_grads(remat, p_dev, b_dev)
+    rec["remat_loss_equal"] = bool(torch.equal(l_rm, l_dev))
+    rec["remat_rel_err"], rec["remat_zero_level"] = lmt_leaf_errs(g_rm,
+                                                                  g_dev)
+
+    # one optimizer step on both, from the CPU's gradients
+    g_tree = [g.clone() for g in g_cpu]
+    opts = {"sgd": lambda: optimizers.sgd(constant(LMT_LR), 0.9),
+            "adamw": lambda: optimizers.adamw(constant(LMT_LR),
+                                              weight_decay=0.1),
+            "adafactor": lambda: optimizers.adafactor(constant(LMT_LR))}
+    rec["opt_rel_err"] = {}
+    for oname, make in opts.items():
+        outs = []
+        for dev in ("cpu", device):
+            params = [t.detach().to(dev).clone() for t in tree_leaves(p_cpu)]
+            opt = make()
+            state = opt.init(params)
+            new, state = opt.update([g.to(dev) for g in g_tree], state,
+                                    params)
+            outs.append(tree_leaves(new) + tree_leaves(state.inner))
+        rec["opt_rel_err"][oname] = lmt_leaf_errs(outs[1], outs[0])[0]
+
+    # an accum = 2 step of SGD at a fixed rate on both
+    sgd = (optimizers.sgd(constant(LMT_LR * 100)), "sgd")
+    with unittest.mock.patch.object(steps, "select_optimizer",
+                                    lambda model, total_steps=0: sgd):
+        outs = []
+        for dev, batch in (("cpu", b_cpu), (device, b_dev)):
+            ts = steps.make_train_step(
+                cfg, make_host_mesh(devices=[dev]), accum=2)
+            params = tree_map(lambda t: t.detach().to(dev).clone(), p_cpu)
+            new, _, metrics = ts.fn(params, ts.optimizer.init(params),
+                                    batch)
+            outs.append((float(metrics["loss"]), tree_leaves(new)))
+    rec["accum2_loss_rel_err"] = abs(outs[1][0] - outs[0][0]) / abs(
+        outs[0][0])
+    rec["accum2_param_rel_err"] = lmt_leaf_errs(outs[1][1], outs[0][1])[0]
+    rec["ok"] = (rec["loss_rel_err"] <= LMT_CARD_TOL
+                 and rec["grad_rel_err"] <= LMT_CARD_TOL
+                 and rec["grad_zero_level"] <= 1e-6
+                 and rec["remat_rel_err"] <= LMT_REMAT_TOL
+                 and rec["remat_zero_level"] <= 1e-6
+                 and max(rec["opt_rel_err"].values()) <= LMT_OPT_TOL
+                 and rec["accum2_loss_rel_err"] <= LMT_CARD_TOL
+                 and rec["accum2_param_rel_err"] <= LMT_CARD_TOL)
+    return rec
+
+
+def lmt_subset(params) -> dict:
+    """The gradient check's named leaves: the tied table, the first
+    group's rows of the stacked leaves, the last tail layer, the final
+    norm (name -> (leaf, row or None))."""
+    def named(tree, prefix):
+        if isinstance(tree, dict):
+            return {n: v for k in sorted(tree)
+                    for n, v in named(tree[k], f"{prefix}.{k}").items()}
+        return {prefix: tree}
+
+    out = {"embed.table": (params["embed"]["table"], None),
+           "final_norm.scale": (params["final_norm"]["scale"], None)}
+    out.update({n: (t, 0) for n, t in named(params["groups"],
+                                            "groups").items()})
+    out.update({n: (t, None) for n, t in named(params["tail"][-1],
+                                               "tail[-1]").items()})
+    return out
+
+
+def lmt_subset_grads(model, params, batch) -> dict:
+    """Gradients of the named subset only (every other leaf frozen), as
+    float32, each stacked leaf's first row."""
+    import torch
+
+    from repro_torch.models.tree import tree_leaves
+
+    for t in tree_leaves(params):
+        t.requires_grad_(False)
+    subset = lmt_subset(params)
+    leaves = [t for t, _ in subset.values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    out = {n: (g if row is None else g[row]).float()
+           for (n, (_, row)), g in zip(subset.items(), grads)}
+    for t in leaves:
+        t.requires_grad_(False)
+    return float(loss.detach()), out
+
+
+def lmt_backward_cost(model, params, batch, sync) -> dict:
+    """Peak memory and time of one forward and backward of every leaf."""
+    import torch
+
+    if sync:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _, grads = lmt_grads(model, params, batch)
+    out = {"s": None, "peak_gb": None}
+    if sync:
+        torch.cuda.synchronize()
+        out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out["s"] = time.perf_counter() - t0
+    del grads
+    return out
+
+
+def lmt_sync_points(step) -> dict:
+    """The operations of one call of `step` that wait for the card, as
+    CUDA's sync debug mode reports them: their count and the distinct
+    messages and call sites."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return {"count": len(syncs),
+            "sites": sorted({f"{w.filename}:{w.lineno}" for w in syncs}),
+            "messages": sorted({str(w.message).splitlines()[0][:160]
+                                for w in syncs})}
+
+
+def lmt_full(cfg, seq, batch_rows, device="cuda", steps_n=LMT_STEPS) -> dict:
+    """Phase 10b: `cfg` at full width with remat: the stacked leaves'
+    gradient through ``x[g]`` (the code) against ``unbind``, the bf16
+    gradient check against float32 on the named subset, ``train_loop``
+    for `steps_n` steps, step 0's batch re-evaluated, one step profiled
+    and its host syncs listed."""
+    import dataclasses
+    import unittest.mock
+
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import active_param_count, make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.tree import tree_map
+    from repro_torch.roofline.analysis import model_flops_train
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(cfg, remat=True)
+    model = build_model(cfg)
+    rec = {"arch": cfg.name, "seq_len": seq, "global_batch": batch_rows,
+           "steps": steps_n, "remat": True}
+    data = SyntheticLMData(cfg.vocab_size, seq, batch_rows, seed=0)
+    batch0 = {k: torch.from_numpy(v).to(device)
+              for k, v in data.batch(0).items()}
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+
+    # the stacked leaves' gradient: rows by x[g] (the code) against unbind
+    def unbind_rows(groups, n):
+        rows = [{} for _ in range(n)]
+
+        def split(tree, outs):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    split(v, [o.setdefault(k, {}) for o in outs])
+                else:
+                    for o, r in zip(outs, v.unbind(0)):
+                        o[k] = r
+
+        split(groups, rows)
+        return rows
+
+    variants = {"select": transformer.group_rows, "unbind": unbind_rows}
+    lmt_backward_cost(model, params, batch0, cuda)      # warm-up
+    rec["stacked_grad"] = {k: [] for k in variants}
+    for name in ("select", "unbind", "unbind", "select"):
+        with unittest.mock.patch.object(transformer, "group_rows",
+                                        variants[name]):
+            rec["stacked_grad"][name].append(
+                lmt_backward_cost(model, params, batch0, cuda))
+
+    # bf16 gradients of the subset against a float32 copy of the weights
+    loss16, g16 = lmt_subset_grads(model, params, batch0)
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    loss32, g32 = lmt_subset_grads(build_model(cfg32), params32, batch0)
+    del params32
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    a = torch.cat([g.flatten().double() for g in g16.values()])
+    b = torch.cat([g.flatten().double() for g in g32.values()])
+    rec["grad_check"] = {
+        "cosine": float(a @ b / (a.norm() * b.norm())),
+        "loss_bf16": loss16, "loss_f32": loss32,
+        "leaves": len(g16),
+        "rel_err": {n: float((g16[n].double() - g32[n].double()).norm()
+                             / g32[n].double().norm().clamp_min(1e-30))
+                    for n in g16}}
+    del a, b, g16, g32
+    gc.collect()
+
+    # the training: train_loop, AdamW from select_optimizer
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_loop(cfg, steps=steps_n, global_batch=batch_rows,
+                     seq_len=seq, seed=0, log_every=1, device=device)
+    rec["loop_s"] = time.perf_counter() - t0
+    if cuda:
+        rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["max_memory_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    params, opt_state = res.state
+    rec["losses"] = res.losses
+    rec["step_ms_all"] = res.step_ms
+    rec["enqueue_ms_all"] = res.enqueue_ms
+    rec["step_ms"] = statistics.median(res.step_ms[2:8])
+    rec["enqueue_ms"] = statistics.median(res.enqueue_ms[2:8])
+    tokens = seq * batch_rows
+    active = active_param_count(model)
+    rec["active_params"] = active
+    rec["tokens_per_s"] = tokens / (rec["step_ms"] / 1e3)
+    rec["model_flops"] = model_flops_train(active, tokens)
+    rec["mfu"] = rec["model_flops"] / (rec["step_ms"] / 1e3) / BF16_PEAK
+    with torch.no_grad():
+        rec["loss_step0_after"] = float(model.loss_fn(params, batch0)[0])
+    rec["loss_step0_before"] = res.losses[0]
+
+    # one more step under torch.profiler: its kernels by device time
+    if cuda:
+        ts = make_train_step(cfg, make_host_mesh(devices=[device]),
+                             total_steps=steps_n)
+        state = [params, opt_state]
+
+        def step():
+            state[0], state[1], _ = ts.fn(state[0], state[1], batch0)
+
+        rec["step_profile"] = lm_step_profile(step, calls=1)
+        rec["step_syncs"] = lmt_sync_points(step)
+    rec["ok"] = (all(math.isfinite(x) for x in res.losses)
+                 and rec["loss_step0_after"] < rec["loss_step0_before"]
+                 and rec["grad_check"]["cosine"] >= LMT_COS_MIN
+                 and len(res.losses) == steps_n)
+    del res, params, opt_state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def lmt_drill(name, device="cuda") -> dict:
+    """Phase 10c on one reduced architecture: the ``fail_at`` drill (one
+    restart, the unfailed run's final parameters bit for bit) and a
+    resume from a checkpoint (the uninterrupted run's losses and final
+    parameters bit for bit), with checkpoints in a temporary directory."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.tree import tree_leaves
+
+    cfg = get_arch(name).reduced()
+    kw = dict(steps=6, global_batch=2, seq_len=64, ckpt_every=2,
+              log_every=100, device=device)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train_loop(cfg, ckpt_dir=os.path.join(tmp, "a"), **kw)
+        failed = train_loop(cfg, ckpt_dir=os.path.join(tmp, "b"), fail_at=4,
+                            **kw)
+        for s in (4, 6):
+            shutil.rmtree(os.path.join(tmp, "a", f"step_{s}"))
+        resumed = train_loop(cfg, ckpt_dir=os.path.join(tmp, "a"), **kw)
+    rec = {"arch": name, "restarts": failed.restarts,
+           "drill_params_equal": same(failed.state[0], full.state[0]),
+           "drill_opt_state_equal": same(failed.state[1].inner,
+                                         full.state[1].inner),
+           "resumed_losses_equal": resumed.losses == full.losses[2:],
+           "resumed_params_equal": same(resumed.state[0], full.state[0]),
+           "losses": full.losses}
+    rec["ok"] = (rec["restarts"] == 1 and full.restarts == 0
+                 and rec["drill_params_equal"]
+                 and rec["drill_opt_state_equal"]
+                 and rec["resumed_losses_equal"]
+                 and rec["resumed_params_equal"])
+    return rec
+
+
+def check_lm_train(card) -> dict:
+    """Phase 10: 10a the ten reduced architectures on the card against
+    the CPU; 10b gemma3-4b trained at full width and depth; 10c the fault
+    drill and the resume on the card. Returns the ``lm_train`` record; a
+    failed check raises."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    t_phase = time.perf_counter()
+    reduced = {name: lmt_reduced_case(name) for name in sorted(ARCHS)}
+    print("lm_train_reduced: " + json.dumps(reduced), flush=True)
+    bad = [n for n, r in reduced.items() if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"phase 10a failed on {bad}")
+    record["reduced_s"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    full = lmt_full(get_arch(LM_ARCH), LMT_SEQ, LMT_BATCH)
+    full["phase_s"] = time.perf_counter() - t0
+    record["full"] = full
+    if not full["ok"]:
+        print("lm_train: " + json.dumps(record), flush=True)
+        raise RuntimeError(f"phase 10b failed: {full}")
+
+    t0 = time.perf_counter()
+    drill = lmt_drill("starcoder2-15b")
+    drill["s"] = time.perf_counter() - t0
+    record["drill"] = drill
+    if not drill["ok"]:
+        print("lm_train: " + json.dumps(record), flush=True)
+        raise RuntimeError(f"phase 10c failed: {drill}")
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -3694,6 +4209,11 @@ def main() -> int:
     # -- 9. LM serving: ten reduced archs, gemma3-4b at full width ----------
     del flush
     print("lm_serve: " + json.dumps(check_lm(card)), flush=True)
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 10. LM training: ten reduced archs, gemma3-4b at full width -------
+    print("lm_train: " + json.dumps(check_lm_train(card)), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))

@@ -13,7 +13,8 @@ The counterpart of the JAX package's ``checkpoint/checkpointer.py``:
 
 Format: one ``.npy`` per leaf (named by its path in the tree) and a JSON
 manifest with each leaf's kind, dtype and shape. A tree is a tensor, a
-numpy array or a Python number, or a dict, list or tuple of trees.
+numpy array or a Python number, or a dict, list, tuple or NamedTuple of
+trees; None is an empty subtree.
 bfloat16 tensors are stored as float32 (numpy has no bfloat16) and cast
 back on restore. The JAX package also records each leaf's PartitionSpec;
 here every tensor lands on one device.
@@ -35,7 +36,10 @@ _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
 def _leaves(tree, path=()):
-    """(path, leaf) pairs in a fixed order (dicts by sorted key)."""
+    """(path, leaf) pairs in a fixed order (dicts by sorted key); None is
+    an empty subtree, as in a JAX pytree."""
+    if tree is None:
+        return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
@@ -56,8 +60,13 @@ def _rebuild(like, values, path=()):
         return {k: _rebuild(like[k], values, path + (str(k),))
                 for k in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, values, path + (str(i),))
-                          for i, v in enumerate(like))
+        items = [_rebuild(v, values, path + (str(i),))
+                 for i, v in enumerate(like)]
+        # a NamedTuple (an optimizer's OptState) takes its fields apart
+        return type(like)(*items) if hasattr(like, "_fields") \
+            else type(like)(items)
+    if like is None:
+        return None
     return values[_name(path)]
 
 
@@ -68,7 +77,10 @@ def _host(leaf) -> tuple:
         dtype = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy(), {"kind": "tensor", "dtype": dtype}
+        # a copy: the caller may update the tensor in place (an optimizer
+        # step) while the snapshot is being written
+        return t.to("cpu", copy=True).numpy(), {"kind": "tensor",
+                                                 "dtype": dtype}
     if isinstance(leaf, np.ndarray):
         return leaf.copy(), {"kind": "ndarray", "dtype": str(leaf.dtype)}
     if isinstance(leaf, (bool, int, float)):

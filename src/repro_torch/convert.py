@@ -15,7 +15,10 @@ takes the JAX package's ``Model.init_params`` tree and
 ``lm_cache_to_torch`` its ``init_cache`` / ``serve_step`` cache tree (as
 numpy arrays) to the port's, keeping the nesting: dicts, the head and
 tail lists, the groups stacked on their leading axis, the recurrent
-states' tuples.
+states' tuples. ``lm_opt_state_to_torch`` carries an optimizer state
+(``OptState(step, inner)``: AdamW's ``m``/``v``, Adafactor's per-leaf
+``v`` or ``vr``/``vc``, SGD's velocity or None) to the port's
+``optim.OptState``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 from repro_torch.dtypes import as_dtype
 
 __all__ = ["to_torch", "matrices_to_torch", "xi_to_torch",
-           "posterior_to_torch", "lm_params_to_torch", "lm_cache_to_torch"]
+           "posterior_to_torch", "lm_params_to_torch", "lm_cache_to_torch",
+           "lm_opt_state_to_torch"]
 
 
 def to_torch(tree, *, device="cuda", dtype=None):
@@ -85,3 +89,15 @@ def lm_cache_to_torch(cache, *, device="cuda"):
     """The JAX package's LM decode cache, as numpy arrays, as the port's
     (each leaf in its own dtype)."""
     return to_torch(cache, device=device)
+
+
+def lm_opt_state_to_torch(state, *, device="cuda"):
+    """The JAX package's ``OptState`` (its leaves as numpy arrays) as the
+    port's: the step an int32 0-d tensor, ``inner`` leaf for leaf in its
+    own dtype (None stays None)."""
+    from repro_torch.optim import OptState
+
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        inner=to_torch(state.inner, device=device))

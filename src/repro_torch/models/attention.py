@@ -12,6 +12,9 @@ new K/V (or MLA latent) into the cache IN PLACE, at a slot computed on
 the device: local layers keep a ring buffer of ``window`` slots (slot =
 pos % window), others write at pos. Nothing in it reads a tensor on the
 host, so one decode step can be captured as a CUDA graph.
+
+Each query chunk's body is rematerialized (``layers.remat``): its scores
+and softmax are recomputed in the backward, not kept per chunk.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from .layers import (Init, _dense_init, apply_rope, einsum_f32, matmul,
-                     qk_norm)
+                     qk_norm, remat)
 from .shard_ctx import constrain
 
 Tensor = torch.Tensor
@@ -126,27 +129,30 @@ def attention_train(params: dict, x: Tensor, positions: Tensor, *,
     scale = 1.0 / np.sqrt(d_head)
     cq, nch = _chunks(s, q_chunk)
     sk = src.shape[1]
+
+    def chunk_body(qs, qp, ks, vs, kp):
+        if window is not None and not cross:
+            m = (qp[:, :, None] >= kp[:, None, :]) & (
+                qp[:, :, None] - kp[:, None, :] < window)
+        elif causal and not cross:
+            m = qp[:, :, None] >= kp[:, None, :]
+        else:
+            m = None
+        return _sdpa(qs, ks, vs, m, scale)
+
     outs = []
     for idx in range(nch):
         start = idx * cq
-        qs = q[:, start:start + cq]
-        qp = positions[:, start:start + cq]
+        keys = slice(None)
         if window is not None and not cross:
             # banded: only the (window + cq) key slice can be visible
             band = min(window + cq, sk)
             kstart = max(start + cq - band, 0)
-            ks = k[:, kstart:kstart + band]
-            vs = v[:, kstart:kstart + band]
-            kp = kv_pos[:, kstart:kstart + band]
-            m = (qp[:, :, None] >= kp[:, None, :]) & (
-                qp[:, :, None] - kp[:, None, :] < window)
-        else:
-            ks, vs = k, v
-            if causal and not cross:
-                m = qp[:, :, None] >= kv_pos[:, None, :]
-            else:
-                m = None
-        outs.append(_sdpa(qs, ks, vs, m, scale))
+            keys = slice(kstart, kstart + band)
+        # remat: scores and softmax are recomputed in the backward
+        outs.append(remat(chunk_body, q[:, start:start + cq],
+                          positions[:, start:start + cq], k[:, keys],
+                          v[:, keys], kv_pos[:, keys]))
     out = torch.cat(outs, dim=1).reshape(b, s, n_heads * d_head)
     out = matmul(out, params["wo"])
     if "bo" in params:
@@ -223,13 +229,13 @@ def mla_train(params: dict, x: Tensor, positions: Tensor, *, n_heads: int,
     qq = torch.cat([q_nope, q_pe], dim=-1)
     scale = 1.0 / np.sqrt(qk)
     cqs, nch = _chunks(s, q_chunk)
-    outs = []
-    for idx in range(nch):
-        start = idx * cqs
-        qs = qq[:, start:start + cqs]
-        qp = positions[:, start:start + cqs]
-        m = qp[:, :, None] >= positions[:, None, :]
-        outs.append(_sdpa(qs, k, v, m, scale))
+
+    def chunk_body(qs, qp):
+        return _sdpa(qs, k, v, qp[:, :, None] >= positions[:, None, :],
+                     scale)
+
+    outs = [remat(chunk_body, qq[:, i * cqs:(i + 1) * cqs],
+                  positions[:, i * cqs:(i + 1) * cqs]) for i in range(nch)]
     out = torch.cat(outs, dim=1).reshape(b, s, n_heads * vd)
     return matmul(out, params["wo"])
 

@@ -7,6 +7,12 @@ float32 accumulation and casts back (``matmul``); norms and softmax run in
 float32. Parameters are drawn from an explicit ``torch.Generator`` on the
 device given by ``Init``; on the ``meta`` device nothing is drawn or
 allocated (``Model.param_count``).
+
+Everything here is differentiable by autograd. On the card the bfloat16
+products carry their own backward (``_DotF32``, ``_MatmulCast``): the
+transpose of ``dot_general(preferred_element_type=float32)``, each product
+accumulated in float32. ``remat`` is ``jax.checkpoint``: the activations
+of its body are recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Tensor = torch.Tensor
 
@@ -51,26 +58,138 @@ def _dense_init(init: Init, shape, dtype, scale=None) -> Tensor:
     return (w.mul_(float(scale))).to(dtype)
 
 
+def _records(*args) -> bool:
+    """Whether autograd records an op on `args`: grad mode on and a
+    tensor among them (in dicts, lists and tuples too) requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(a):
+        if isinstance(a, Tensor):
+            return a.requires_grad
+        if isinstance(a, dict):
+            return any(any_grad(v) for v in a.values())
+        if isinstance(a, (list, tuple)):
+            return any(any_grad(v) for v in a)
+        return False
+
+    return any_grad(args)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward rather
+    than kept (``jax.checkpoint``). Only where autograd records through
+    `args`: elsewhere (prefill, the decode step and its captured graph)
+    ``fn`` runs as it is. Non-reentrant, so that checkpoints nest (a
+    chunk's inside a layer group's) and tensors ``fn`` closes over get
+    their gradients; the model draws no random numbers, so no RNG state
+    is stashed for the recompute."""
+    if not _records(*args):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _mm_f32(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` of 2-D low-precision operands, accumulated and returned
+    in float32 (cuBLAS; the operands stay in their dtype)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def bf16_terms(g: Tensor, dtype) -> tuple:
+    """A float32 tensor as two terms of `dtype`, ``hi = dtype(g)`` and
+    ``lo = dtype(g - hi)``: 16 of float32's 24 significand bits."""
+    hi = g.to(dtype)
+    return hi, (g - hi.float()).to(dtype)
+
+
+def dot_vjp_f32(x2: Tensor, w: Tensor, parts, need=(True, True)) -> tuple:
+    """(dx, dw) of ``x2 @ w`` in float32, for the cotangent given as the
+    sum of `parts` (each exact in the operands' dtype): ``parts @ w.T``
+    and ``x2.T @ parts``, each product accumulated in float32 and the
+    products summed. ``need`` skips a gradient (None)."""
+    dx = sum(_mm_f32(g, w.t()) for g in parts) if need[0] else None
+    dw = sum(_mm_f32(x2.t(), g) for g in parts) if need[1] else None
+    return dx, dw
+
+
+def _dot_backward(ctx, x2, w, parts) -> tuple:
+    """The operands' gradients: ``dot_vjp_f32`` cast to their dtypes.
+    (`x2`, `w`: the saved tensors, unpacked once by the caller, as a
+    checkpointed region allows.)"""
+    dx, dw = dot_vjp_f32(x2, w, parts, ctx.needs_input_grad[:2])
+    return (None if dx is None else dx.to(x2.dtype).reshape(ctx.x_shape),
+            None if dw is None else dw.to(w.dtype))
+
+
+class _DotF32(torch.autograd.Function):
+    """``x @ w`` in float32 from low-precision operands on the card. Its
+    cotangent is a true float32 (the logits'), so the backward takes it
+    as two terms of the operands' dtype (``bf16_terms``), one product
+    each, where widening the (vocab x d_model) table would copy it in
+    float32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x.reshape(-1, x.shape[-1]), w)
+        ctx.x_shape = x.shape
+        return _mm_f32_nd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1]).float()
+        return _dot_backward(ctx, x2, w, bf16_terms(g, w.dtype))
+
+
+class _MatmulCast(torch.autograd.Function):
+    """``matmul`` on the card: ``x @ w`` accumulated in float32 and cast
+    to x's dtype. The cotangent arrives in that dtype, so the backward's
+    products take it as it is (JAX widens it to float32, exactly)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x.reshape(-1, x.shape[-1]), w)
+        ctx.x_shape = x.shape
+        return _mm_f32_nd(x, w).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        return _dot_backward(ctx, x2, w, (g.reshape(-1, g.shape[-1]),))
+
+
+def _low_on_card(x: Tensor, w: Tensor) -> bool:
+    """Low-precision operands of one dtype on the card."""
+    return x.is_cuda and x.dtype == w.dtype and x.dtype != torch.float32
+
+
+def _mm_f32_nd(x: Tensor, w: Tensor) -> Tensor:
+    """``_mm_f32`` over x's leading dims (no autograd of its own)."""
+    out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def matmul(x: Tensor, w: Tensor) -> Tensor:
     """``x @ w`` accumulated in float32 and cast back to x's dtype, as
     ``jnp.dot(..., preferred_element_type=float32).astype(x.dtype)``:
     the float32 result keeps every partial sum, split-K's included, in
     float32 whatever cuBLAS's reduced-precision setting."""
+    if _low_on_card(x, w) and _records(x, w):
+        return _MatmulCast.apply(x, w)
     return dot_f32(x, w).to(x.dtype)
 
 
 def dot_f32(x: Tensor, w: Tensor) -> Tensor:
     """``x @ w`` accumulated in float32 and returned in float32, as
     ``jnp.dot(..., preferred_element_type=float32)``. On the card the
-    bfloat16 operands stay bfloat16 in memory (``torch.mm(out_dtype=)``);
-    elsewhere they are widened, which is exact."""
+    bfloat16 operands stay bfloat16 in memory (``torch.mm(out_dtype=)``,
+    its backward ``_DotF32``); elsewhere they are widened, which is
+    exact."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda and x.dtype == w.dtype:
-        lead = x.shape[:-1]
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
-        return out.reshape(*lead, w.shape[-1])
+    if _low_on_card(x, w):
+        return _DotF32.apply(x, w) if _records(x, w) else _mm_f32_nd(x, w)
     return torch.matmul(x.float(), w.float())
 
 
@@ -167,24 +286,28 @@ def embed(params: dict, tokens: Tensor) -> Tensor:
 def unembed_chunked(table: Tensor, h: Tensor, labels: Tensor,
                     chunk: int, mask: Optional[Tensor] = None) -> Tensor:
     """Mean cross-entropy WITHOUT materializing full (B, S, V) logits: the
-    sequence in ``chunk``-sized slices, (B, chunk, V) logits at a time
-    (forward value; positions past the last whole chunk are dropped, as
-    in the JAX package)."""
+    sequence in ``chunk``-sized slices, (B, chunk, V) logits at a time,
+    each slice's recomputed in the backward rather than kept (V up to
+    262k: the big-vocab guard); positions past the last whole chunk are
+    dropped, as in the JAX package."""
     b, s, d = h.shape
     nchunk = max(s // chunk, 1)
     chunk = s // nchunk
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=h.device)
+    table_t = table.t()
+
+    def body(hm, lm, mm):
+        logits = dot_f32(hm, table_t)                    # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lm[..., None].long())[..., 0]
+        return ((lse - gold) * mm).sum()
+
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    table_t = table.t()
     for c in range(nchunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        logits = dot_f32(h[:, sl], table_t)              # (B, C, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, sl, None].long())[..., 0]
-        mm = mask[:, sl]
-        tot = tot + ((lse - gold) * mm).sum()
-        cnt = cnt + mm.sum()
+        tot = tot + remat(body, h[:, sl], labels[:, sl], mask[:, sl])
+        cnt = cnt + mask[:, sl].sum()
     return tot / torch.clamp(cnt, min=1.0)

@@ -1,7 +1,8 @@
 """Public model API: build_model(cfg) -> Model.
 
 The JAX package's ``repro.models.model`` in PyTorch. ``Model`` bundles
-parameter init, the training loss (forward value), prefill and one-token
+parameter init, the training loss (differentiable by autograd, with
+``cfg.remat``'s group checkpoints), prefill and one-token
 decode for any ArchConfig, including the whisper enc-dec special case and
 the VLM stub frontend. Vocab is padded to a multiple of 128.
 
@@ -145,7 +146,9 @@ class Model:
 
     # ---------------- train loss ----------------------------------------------
     def loss_fn(self, params, batch) -> tuple:
-        """(loss, {"nll", "aux"}): the forward value."""
+        """(loss, {"nll", "aux"}): the mean next-token NLL plus the MoE
+        aux term; ``torch.autograd.grad`` of the loss gives the gradients
+        of ``jax.value_and_grad(loss_fn, has_aux=True)``."""
         cfg = self.cfg
         if cfg.encoder is not None:
             return self._whisper_loss(params, batch)

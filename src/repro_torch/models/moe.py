@@ -9,7 +9,9 @@ rows, counted per sample; a choice past the capacity is dropped (its gate
 set to 0, so the token falls through to the residual path). Dispatch and
 combine are one-hot einsums; the capacity is static, so nothing reads a
 tensor on the host. Shared experts run densely for every token. The
-router's load-balance and z losses come back as values.
+router's load-balance and z losses come back as values. Gradients flow
+through the gates and the aux loss; the routing and the drops are
+discrete.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import Init, _dense_init, einsum_f32, init_mlp, matmul, mlp
+from .layers import (Init, _dense_init, einsum_f32, init_mlp, matmul, mlp,
+                     remat)
 
 Tensor = torch.Tensor
 
@@ -103,8 +106,11 @@ def moe_apply(params: dict, x: Tensor, moe_cfg) -> tuple:
         z = torch.zeros((), dtype=torch.float32, device=x.device)
         outs = []
         for c in range(nch):
-            o, (lb_c, z_c) = _dispatch_chunk(
-                params, x[:, c * g:(c + 1) * g], moe_cfg, capacity)
+            # remat: the dispatch one-hots and the expert buffers are
+            # recomputed in the backward
+            o, (lb_c, z_c) = remat(_dispatch_chunk, params,
+                                   x[:, c * g:(c + 1) * g], moe_cfg,
+                                   capacity)
             lb, z = lb + lb_c, z + z_c
             outs.append(o)
         out = torch.cat(outs, dim=1)

@@ -3,7 +3,9 @@ sLSTM), as in the JAX package's ``repro.models.ssm``.
 
 Chunkwise scans (Mamba2 and mLSTM): within a chunk the recurrence is
 unrolled as small matmuls, across chunks a loop carries the O(1) state;
-sLSTM steps token by token. States are float32. Each ``*_decode`` is one
+sLSTM steps token by token. States are float32. Each chunk body (each
+sLSTM step) is rematerialized (``layers.remat``): only the carried state
+is kept between chunks for the backward. Each ``*_decode`` is one
 step of the recurrence and returns the new state; the caller stores it
 into the cache.
 """
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import Init, _dense_init, matmul
+from .layers import Init, _dense_init, matmul, remat
 
 Tensor = torch.Tensor
 
@@ -53,11 +55,8 @@ def _ssd_chunk_scan(xh, bmat, cmat, dt, a, chunk):
     cum = torch.cumsum(dtc * a[None, None, None, :], dim=2)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=xh.device))
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
-    ys = []
-    for c in range(nc):
-        xcb, bcb, ccb, dtb, cumb = (xc[:, c], bc[:, c], cc[:, c], dtc[:, c],
-                                    cum[:, c])
+
+    def chunk_body(state, xcb, bcb, ccb, dtb, cumb):
         # intra-chunk (triangular) term
         li = cumb[:, :, None, :] - cumb[:, None, :, :]      # (B,c,c,H)
         gamma = torch.where(causal[None, :, :, None], torch.exp(li), 0.0)
@@ -72,6 +71,15 @@ def _ssd_chunk_scan(xh, bmat, cmat, dt, a, chunk):
         upd = torch.einsum("bkn,bkhp,bkh,bkh->bhpn", bcb, xcb, dtb,
                            decay_out)
         state = state * torch.exp(cumb[:, -1, :])[:, :, None, None] + upd
+        return state, y
+
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+    ys = []
+    for c in range(nc):
+        # remat: the (B, c, c, H) intra-chunk decay and attention tensors
+        # are recomputed in the backward
+        state, y = remat(chunk_body, state, xc[:, c], bc[:, c], cc[:, c],
+                         dtc[:, c], cum[:, c])
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(b, s, h, p)
 
@@ -163,16 +171,8 @@ def mlstm_train(params: dict, x: Tensor, n_heads: int,
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
 
-    cstate = torch.zeros((b, n_heads, dh, dh), dtype=torch.float32,
-                         device=x.device)
-    nstate = torch.zeros((b, n_heads, dh), dtype=torch.float32,
-                         device=x.device)
-    mstate = torch.full((b, n_heads), -1e30, dtype=torch.float32,
-                        device=x.device)
-    ys = []
-    for c in range(nc):
-        qb, kb, vb, ib, cfb = qc[:, c], kc[:, c], vc[:, c], ic[:, c], \
-            cumf[:, c]
+
+    def chunk_body(cstate, nstate, mstate, qb, kb, vb, ib, cfb):
         # log weights of source k at target q within chunk
         lw = cfb[:, :, None, :] - cfb[:, None, :, :] + ib[:, None, :, :]
         lw = torch.where(causal[None, :, :, None], lw, -torch.inf)
@@ -187,7 +187,7 @@ def mlstm_train(params: dict, x: Tensor, n_heads: int,
             "bqhd,bhde->bqhe", qb, cstate)
         den = scores.sum(2) + wstate * torch.einsum(
             "bqhd,bhd->bqh", qb, nstate)
-        ys.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
+        y = num / torch.clamp(den.abs(), min=1.0)[..., None]
         # state update to end of chunk
         lw_out = cfb[:, -1:, :] - cfb + ib                   # (B,c,H)
         m_up = torch.maximum(lw_out.amax(dim=1),
@@ -198,7 +198,20 @@ def mlstm_train(params: dict, x: Tensor, n_heads: int,
             "bkh,bkhd,bkhe->bhde", wout, kb, vb)
         nstate = wcarry[..., None] * nstate + torch.einsum(
             "bkh,bkhd->bhd", wout, kb)
-        mstate = m_up
+        return cstate, nstate, m_up, y
+
+    cstate = torch.zeros((b, n_heads, dh, dh), dtype=torch.float32,
+                         device=x.device)
+    nstate = torch.zeros((b, n_heads, dh), dtype=torch.float32,
+                         device=x.device)
+    mstate = torch.full((b, n_heads), -1e30, dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c in range(nc):
+        cstate, nstate, mstate, y = remat(
+            chunk_body, cstate, nstate, mstate, qc[:, c], kc[:, c],
+            vc[:, c], ic[:, c], cumf[:, c])
+        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
     y = y * F.silu(matmul(x, params["wo_gate"]))
     return matmul(y, params["wo"])
@@ -273,7 +286,7 @@ def slstm_train(params: dict, x: Tensor, n_heads: int) -> Tensor:
                                  dtype=torch.float32, device=x.device))
     hs = []
     for t in range(s):
-        carry = _slstm_step(params, carry, xg[:, t])
+        carry = remat(_slstm_step, params, carry, xg[:, t])
         hs.append(carry[2])
     y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
     return matmul(y, params["wo"])

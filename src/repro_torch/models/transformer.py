@@ -13,6 +13,11 @@ The cache mirrors the plan: one stacked leaf per slot per group, plus
 head/tail entries. Local-attention slots use ring buffers of size
 ``sliding_window``. ``decode_hidden`` writes every new K/V, latent and
 recurrent state into the cache in place.
+
+With ``cfg.remat`` each layer group of the training forward is
+rematerialized (``layers.remat``, the JAX package's ``jax.checkpoint`` of
+the scan body): only the group's input is kept for the backward, and the
+chunk checkpoints of its attention, MoE and scans nest inside.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
-from .layers import Init, init_mlp, init_rmsnorm, mlp, rmsnorm
+from .layers import Init, init_mlp, init_rmsnorm, mlp, remat, rmsnorm
 from .shard_ctx import gather_fsdp
 from .tree import tree_index, tree_store
 
@@ -201,15 +206,32 @@ def forward_hidden(cfg: ArchConfig, params: dict, h: Tensor,
     for i, slot in enumerate(head):
         h, aux = _slot_train(cfg, slot, gather_fsdp(params["head"][i]),
                              shared, h, positions, aux)
-    for g in range(n_groups):
-        gp = gather_fsdp(tree_index(params["groups"], g))
+
+    def group_body(gp, hh, au):
+        gp = gather_fsdp(gp)
         for j, slot in enumerate(period):
-            h, aux = _slot_train(cfg, slot, gp[f"slot{j}"], shared, h,
-                                 positions, aux)
+            hh, au = _slot_train(cfg, slot, gp[f"slot{j}"], shared, hh,
+                                 positions, au)
+        return hh, au
+
+    for gp in group_rows(params["groups"], n_groups):
+        if cfg.remat:
+            h, aux = remat(group_body, gp, h, aux)
+        else:
+            h, aux = group_body(gp, h, aux)
     for i, slot in enumerate(tail):
         h, aux = _slot_train(cfg, slot, gather_fsdp(params["tail"][i]),
                              shared, h, positions, aux)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
+
+
+def group_rows(groups, n_groups: int) -> list:
+    """One tree per layer group: row g of every stacked leaf (views). The
+    backward of ``x[g]`` gives each group's gradient as a zeroed tensor
+    of the whole stacked leaf; on gemma3-4b at full width that costs no
+    peak memory and no time that shows against ``unbind``'s rows
+    (``chip_smoke.py`` phase 10 measures both)."""
+    return [tree_index(groups, g) for g in range(n_groups)]
 
 
 # ============================ decode-path blocks ==================================

@@ -11,15 +11,19 @@ import torch
 from repro_torch.kernels.policy import tree_leaves
 
 __all__ = ["tree_index", "tree_leaves", "tree_map", "tree_stack",
-           "tree_store"]
+           "tree_store", "tree_unflatten"]
 
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` leaf by leaf over `tree` and any `rest` trees of its
+    structure (``jax.tree.map``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_stack(trees: list):
@@ -52,3 +56,18 @@ def tree_store(dst, src) -> None:
         return
     for d, s in zip(dst, src):
         tree_store(d, s)
+
+
+def tree_unflatten(like, leaves):
+    """`like`'s structure with its leaves, in ``tree_leaves`` order,
+    replaced by `leaves` (``jax.tree_util.tree_unflatten``)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(like)

@@ -24,6 +24,7 @@ import re
 import tempfile
 
 __all__ = ["HBM_BYTES_PER_S", "DEVICE_CATS", "kernel_of_event", "attribute",
+           "model_flops_train", "model_flops_decode",
            "roofline", "profile"]
 
 HBM_BYTES_PER_S = 3.35e12   # the H100 SXM's device-memory rate
@@ -147,3 +148,14 @@ def profile(fn, *, calls: int = 5, cuda: bool = True) -> list:
             return json.load(f)["traceEvents"]
     finally:
         os.remove(path)
+
+
+def model_flops_train(n_params_active: int, tokens: int) -> float:
+    """6·N·D (forward 2ND + backward 4ND), the JAX package's MFU
+    numerator for a train step."""
+    return 6.0 * n_params_active * tokens
+
+
+def model_flops_decode(n_params_active: int, tokens: int) -> float:
+    """2·N per generated token (forward only)."""
+    return 2.0 * n_params_active * tokens

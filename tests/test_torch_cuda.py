@@ -1220,3 +1220,101 @@ def test_cuda_lm_bf16_matmul_accumulates_in_float32(cuda):
     assert float((acc - want).abs().max()) <= \
         2.0 ** -14 * float(want.abs().max())
     assert got.dtype == torch.bfloat16 and torch.equal(got, acc.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cotangent", ["through_matmul", "float32"])
+def test_cuda_lm_bf16_backward_accumulates_in_float32(cuda, cotangent):
+    """The bfloat16 products' backward at gemma3-4b's MLP down projection
+    (1,024 rows, 10240 -> 2560): the float32 gradients
+    (``dot_vjp_f32``) within the forward test's bound, 2^-14 of the
+    largest value, of the product of the widened operands, for a
+    cotangent that came through ``matmul``'s cast (bfloat16-exact, one
+    product) and for a true float32 one (the logits': two bfloat16 terms,
+    ``bf16_terms``); and autograd's gradients through ``matmul`` /
+    ``dot_f32`` are those, cast to bfloat16, bit for bit."""
+    from repro_torch.models.layers import (bf16_terms, dot_f32,
+                                           dot_vjp_f32, matmul)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((1024, 10240), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((10240, 2560), generator=gen, device=cuda)
+         / 100).bfloat16()
+    g = torch.randn((1024, 2560), generator=gen, device=cuda)
+    if cotangent == "through_matmul":
+        g = g.bfloat16().float()
+        parts = (g.bfloat16(),)
+    else:
+        parts = bf16_terms(g, torch.bfloat16)
+    dx, dw = dot_vjp_f32(x, w, parts)
+    want_dx = g @ w.float().t()
+    want_dw = x.float().t() @ g
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= \
+            2.0 ** -14 * float(want.abs().max())
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    if cotangent == "through_matmul":
+        matmul(xs, ws).backward(g.bfloat16())
+    else:
+        dot_f32(xs, ws).backward(g)
+    assert xs.grad.dtype == ws.grad.dtype == torch.bfloat16
+    assert torch.equal(xs.grad, dx.bfloat16())
+    assert torch.equal(ws.grad, dw.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_lm_remat_grads_equal_no_remat(cuda):
+    """Reduced gemma3-4b at float32 on the card, 1,024 tokens (two query
+    chunks, banded local layers): the gradients with ``remat=True`` (the
+    layer groups, and inside them the chunks, checkpointed) equal those
+    without, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_leaves
+
+    cfg = get_arch("gemma3-4b").reduced()
+    params = build_model(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 1025), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = []
+    for remat in (False, True):
+        loss, _ = build_model(dataclasses.replace(cfg, remat=remat)).loss_fn(
+            params, batch)
+        out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+@pytest.mark.cuda
+def test_cuda_lm_prefetched_batches_equal_host_batches(cuda):
+    """The prefetch iterator on the card (pinned host memory, a side
+    stream, an event the consumer's stream waits on): each batch, read at
+    once by a step on the current stream, equals the host batch; the
+    iterator's thread is joined by ``close``."""
+    from repro_torch.data import SyntheticLMData, make_batch_iterator
+
+    src = SyntheticLMData(vocab_size=262_144, seq_len=4096, global_batch=4,
+                          seed=2)
+    it = make_batch_iterator(src, start_step=5, device=cuda)
+    try:
+        for i in range(6):
+            b = next(it)
+            # the step: device work on the current stream, queued at once
+            got = {k: (v.long() * 3 + 1) for k, v in b.items()}
+            want = src.batch(5 + i)
+            for k in ("tokens", "labels"):
+                assert b[k].device.type == "cuda"
+                np.testing.assert_array_equal(
+                    ((got[k] - 1) // 3).cpu().numpy(), want[k])
+    finally:
+        it.close()
+    assert not it._thread.is_alive()

@@ -34,8 +34,12 @@ def _run(args, timeout=300):
       "rel-err vs unsharded", "corr(shell0, shell1)"]),
     ("examples/torch_serve_lm.py", ["--arch", "gemma3-4b"],
      ["req5: prompt=", "decode tok/s, gemma3-4b reduced, cpu"]),
+    ("examples/torch_lm_train.py",
+     ["--steps", "12", "--batch", "4", "--seq-len", "32"],
+     ["step 10: loss=", "starcoder2-15b (reduced, cpu): loss",
+      "over 12 steps"]),
 ], ids=["quickstart", "gp_regression_cg", "gp_regression_vi", "dust_map_3d",
-        "serve_lm"])
+        "serve_lm", "lm_train"])
 def test_torch_example_runs_on_the_cpu(script, args, expect):
     out = _run([script, "--device", "cpu", *args])
     for line in expect:

@@ -71,9 +71,9 @@ def shared_params(cfg, seed=0):
     return tree_map(shift, params)
 
 
-def batch_np(cfg, seed=1):
+def batch_np(cfg, seed=1, s=S):
     rng = np.random.default_rng(seed)
-    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tok = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
     lab = np.roll(tok, -1, axis=1)
     lab[:, -1] = -1                       # a masked label
     batch = {"tokens": tok, "labels": lab}
