@@ -220,7 +220,8 @@ Phases (any failure ends the run with a non-zero exit code):
    1,100 tokens decoded one by one against ``prefill_fn`` (argmax equal,
    normalized logits within 5e-2): in bfloat16, and where bfloat16
    misses, the same weights widened to float32, which must meet it (the
-   bfloat16 figure is recorded). One ``lm_serve`` line.
+   bfloat16 figure is recorded, with each dtype's gap after 1, 16 and 128
+   tokens against the prefill of that prefix). One ``lm_serve`` line.
 
 10. lm_train — LM training (the models' backward with remat, ``optim/``,
    ``launch/steps.py``, ``launch/train.py``, ``data/pipeline.py``; plain
@@ -250,6 +251,38 @@ Phases (any failure ends the run with a non-zero exit code):
    optimizer state bit for bit) and a resume from a checkpoint (the
    uninterrupted run's losses and parameters bit for bit) on reduced
    starcoder2 on the card. One ``lm_train`` line.
+
+11. lm_shard — the sharded LM executor (``distributed/sharding.py``,
+   ``distributed/executor.py``, ``distributed/compression.py``, the mesh
+   branches of ``models/``, ``launch/steps.py`` and ``launch/train.py`` on
+   a mesh; plain torch ops, none of the port's kernels), on virtual
+   meshes of slots of the one card: (a) the ten reduced architectures at
+   float32 on (data 2, model 2) ("head", the kv heads split), (1, 4)
+   ("head", the kv heads repeated) and (1, 8) ("key"): the loss and every
+   gradient leaf against the card's one-slot step (<= 1e-5 of the leaf's
+   largest entry), one update of sgd, adamw and adafactor (factored) from
+   the one-slot gradients placed on (2, 2) and (1, 8) (<= 1e-5), an
+   accum-2 SGD step on (2, 2) (<= 1e-5), the collective counts of each
+   mesh; one ``lm_shard_reduced`` line; ``compressed_psum`` on 8 slots
+   within the JAX package's test bounds. (b) gemma3-4b at full width and
+   depth, bf16, remat, AdamW at a constant 3e-4, phase 10's parameters
+   and 2 × 4,096-token batch on (2, 4): one sharded step against the
+   one-slot step: loss within 1e-3, gradient cosine >= 0.999 over all
+   leaves and >= 0.99 leaf by leaf, and the sharded step's own updated
+   parameters against the one-slot step's, leaf by leaf, within 5e-2·lr
+   plus one bf16 rounding, on the entries whose two gradients agree
+   within 2^-6 (a near-zero gradient's sign noise turns AdamW's first
+   update into a full-size difference; at least a quarter of the entries
+   must be held); the sharded step's gradients and update each timed by
+   CUDA events with their host enqueue, then one more whole step timed
+   (warm), the peak memory allocated and the step's collective calls
+   and bytes; then one whole sharded step on (1, 16), the production
+   model axis ("key"), timed, its loss held to the one-slot loss.
+   (c) on reduced starcoder2, SGD: the loop on (2, 2)
+   against the one-slot loop, the ``fail_at`` drill on (2, 2) (the
+   uninterrupted run's parameters bit for bit) and a resume from a
+   checkpoint onto (1, 2), the survivors of ``shrink_mesh`` (<= 1e-5).
+   One ``lm_shard`` line.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -3219,6 +3252,7 @@ LM_SEED = 1                  # its 8 lengths: 1,142 and 1,140 pass the window
 LM_WINDOW = 1024             # gemma3-4b's sliding window
 LM_DECODE_LEN = 1100         # decode against prefill, past the window
 LM_TF_TOL = 5e-2             # normalized logits (tests/test_decode_consistency)
+LM_GAP_ROWS = (1, 16, 128)   # decode against the prefill of these prefixes too
 LM_CARD_TOL = 1e-4           # reduced archs: card against CPU, of max |logit|
 LM_STEPS = 16                # reduced archs: decode steps
 
@@ -3310,19 +3344,27 @@ def lm_reduced_case(name) -> dict:
 
 def lm_decode_vs_prefill(cfg, params, tokens) -> dict:
     """`tokens` (1, n) decoded one by one through a captured step (one
-    slot) against ``prefill_fn`` at the last position."""
+    slot) against ``prefill_fn`` at the last position; ``by_rows``: the
+    normalized gap after each of ``LM_GAP_ROWS`` tokens against the
+    prefill of that prefix (a prefill GEMM of that many rows)."""
     import torch
 
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import build_model
 
     n = tokens.shape[1]
-    full = build_model(cfg).prefill_fn(params, {"tokens": tokens})
+    model = build_model(cfg)
+    full = model.prefill_fn(params, {"tokens": tokens})
     srv = BatchedServer(cfg, batch_slots=1, s_max=LM_S_MAX, params=params)
     positions = torch.arange(n, dtype=torch.int32, device="cuda")
+    by_rows = {}
     for i in range(n):
         got = srv.decode(tokens[:, i:i + 1], positions[i:i + 1])
+        if i + 1 in LM_GAP_ROWS:
+            by_rows[i + 1] = lm_tf_agreement(got, model.prefill_fn(
+                params, {"tokens": tokens[:, :i + 1]}))["max_norm_diff"]
     out = lm_tf_agreement(got, full)
+    out["by_rows"] = by_rows
     del srv, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -4007,6 +4049,461 @@ def check_lm_train(card) -> dict:
     return record
 
 
+# -- phase 11: the sharded LM executor (distributed/sharding.py,
+# distributed/executor.py, distributed/compression.py, the mesh branches of
+# models/, launch/steps.py and launch/train.py on a mesh) --------------------
+LMS_MESHES = {"2x2": (2, 2), "1x4": (1, 4), "1x8": (1, 8)}
+LMS_TOL = 1e-5             # 11a: sharded against one slot, float32
+LMS_FULL_MESH = (2, 4)     # 11b: gemma3-4b, "head" with the kv heads split
+LMS_KEY_MESH = (1, 16)     # 11b: the production model axis, "key"
+LMS_LOSS_TOL = 1e-3        # 11b: bf16, relative
+LMS_COS_MIN = 0.999        # 11b: sharded bf16 gradients against one slot's
+LMS_LEAF_COS_MIN = 0.99    # 11b: the same, leaf by leaf
+LMS_UPD_TOL = 5e-2         # 11b: the repo's bf16 tolerance, in units of lr
+LMS_UPD_REL = 2.0 ** -6    # 11b: entries whose two gradients agree this
+#                            closely (relative) have their updates held
+LMS_UPD_SHARE_MIN = 0.25   # 11b: the share of entries held, at least
+LMS_LR = 3e-4              # 11b: AdamW's peak rate, held constant (the
+#                            schedule's rate at step 0 is 0: no update)
+LMS_CHUNK = 1 << 26        # 11b: entries compared at a time
+
+
+def lms_mesh(shape, device="cuda"):
+    """A virtual (data, model) mesh of `shape` slots of `device`."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"),
+                     devices=[device] * int(math.prod(shape)))
+
+
+def lms_whole(tree) -> list:
+    """The whole tensors of a placed tree's leaves, in tree order."""
+    from repro_torch.distributed import elastic
+
+    return [elastic.gather(x) for x in elastic.placed_leaves(tree)]
+
+
+def lms_optimizer(opt, name):
+    """``select_optimizer`` giving `opt` (the steps built inside)."""
+    import unittest.mock
+
+    from repro_torch.launch import steps
+
+    return unittest.mock.patch.object(
+        steps, "select_optimizer", lambda model, total_steps=0: (opt, name))
+
+
+def lms_counts(ex) -> dict:
+    return {k: dict(v) for k, v in ex.counts.items()}
+
+
+def lms_reduced_case(name, device="cuda") -> dict:
+    """Phase 11a on one reduced architecture at float32: the sharded
+    loss and gradients on the three meshes against the card's one-slot
+    ones; one update of sgd (momentum 0.9), adamw and adafactor (its
+    statistics factored: the size rule lowered to 32) from the one-slot
+    gradients, placed on (2, 2) and (1, 8), against the one-slot update;
+    an accum-2 SGD step on (2, 2) against the one-slot step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.optim import constant, optimizers
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    batch = lmt_reduced_batch(cfg, device)
+    l1, g1 = lmt_grads(model, params, batch)
+    params = tree_map(lambda t: t.detach(), params)
+    rec = {"loss_rel_err": {}, "grad_rel_err": {}, "grad_zero_level": {},
+           "collectives": {}}
+    for mname, shape in LMS_MESHES.items():
+        ts = steps.make_train_step(cfg, lms_mesh(shape, device))
+        placed = ts.params_sh.place(tree_map(torch.clone, params))
+        loss, _, grads = ts.executor.grads(model.loss_fn, placed, batch)
+        rec["loss_rel_err"][mname] = abs(float(loss) - float(l1)) / abs(
+            float(l1))
+        rec["grad_rel_err"][mname], rec["grad_zero_level"][mname] = \
+            lmt_leaf_errs(lms_whole(grads), g1)
+        rec["collectives"][mname] = lms_counts(ts.executor)
+
+    opts = {"sgd": lambda: optimizers.sgd(constant(LMT_LR), 0.9),
+            "adamw": lambda: optimizers.adamw(constant(LMT_LR),
+                                              weight_decay=0.1),
+            "adafactor": lambda: optimizers.adafactor(
+                constant(LMT_LR), min_dim_size_to_factor=32)}
+    g_tree = tree_unflatten(params, [g.clone() for g in g1])
+    rec["opt_rel_err"] = {}
+    for oname, make in opts.items():
+        o = make()
+        p = tree_map(torch.clone, params)
+        p, st = o.update(g_tree, o.init(p), p)
+        want = tree_leaves(p) + tree_leaves(st.inner)
+        for mname in ("2x2", "1x8"):
+            with lms_optimizer(make(), oname):
+                ts = steps.make_train_step(
+                    cfg, lms_mesh(LMS_MESHES[mname], device))
+            start = tree_map(torch.clone, params)
+            p = ts.params_sh.place(start)
+            st = ts.opt_sh.place(ts.optimizer.init(start))
+            p, st = ts.optimizer.update(ts.params_sh.place(g_tree), st, p)
+            rec["opt_rel_err"][f"{oname}@{mname}"] = lmt_leaf_errs(
+                lms_whole(p) + lms_whole(st.inner), want)[0]
+
+    outs = []
+    for mesh in (make_host_mesh(devices=[device]), lms_mesh((2, 2), device)):
+        with lms_optimizer(optimizers.sgd(constant(LMT_LR * 100)), "sgd"):
+            ts = steps.make_train_step(cfg, mesh, accum=2)
+        p = tree_map(torch.clone, params)
+        st = ts.optimizer.init(p)
+        if ts.params_sh is not None:
+            p, st = ts.params_sh.place(p), ts.opt_sh.place(st)
+        new, _, metrics = ts.fn(p, st, batch)
+        outs.append((float(metrics["loss"]),
+                     lms_whole(new) if ts.params_sh is not None
+                     else tree_leaves(new)))
+    rec["accum2_loss_rel_err"] = abs(outs[1][0] - outs[0][0]) / abs(
+        outs[0][0])
+    rec["accum2_param_rel_err"] = lmt_leaf_errs(outs[1][1], outs[0][1])[0]
+    rec["ok"] = (max(rec["loss_rel_err"].values()) <= LMS_TOL
+                 and max(rec["grad_rel_err"].values()) <= LMS_TOL
+                 and max(rec["grad_zero_level"].values()) <= 1e-6
+                 and max(rec["opt_rel_err"].values()) <= LMS_TOL
+                 and rec["accum2_loss_rel_err"] <= LMS_TOL
+                 and rec["accum2_param_rel_err"] <= LMS_TOL)
+    return rec
+
+
+def lms_compression(device="cuda") -> dict:
+    """Phase 11a's ``compressed_psum`` over 8 slots on the card: equal
+    gradients within max|g|/127 of themselves (x1.01) and two steps of
+    them averaging within 0.75 of that, the JAX package's test bounds;
+    distinct gradients within scale/2 of the plain mean."""
+    import torch
+
+    from repro_torch.distributed.compression import (
+        compressed_psum, make_error_feedback_state)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    per = [{"w": torch.randn((1024, 1024), generator=gen, device=device)}
+           for _ in range(8)]
+    err = [make_error_feedback_state(per[0]) for _ in range(8)]
+    g = per[0]["w"]
+    bound = float(g.abs().max()) / 127.0 + 1e-9
+    one, err2 = compressed_psum([per[0]] * 8, err)
+    two, _ = compressed_psum([per[0]] * 8, err2)
+    mean, _ = compressed_psum(per, err)
+    stack = torch.stack([p["w"] for p in per])
+    scale = float(stack.abs().max()) / 127.0 + 1e-12
+    rec = {"equal_over_bound": float((one["w"] - g).abs().max()) / bound,
+           "two_step_over_bound": float(((one["w"] + two["w"]) / 2
+                                         - g).abs().max()) / bound,
+           "distinct_over_half_scale": float(
+               (mean["w"] - stack.mean(0)).abs().max()) / (scale / 2)}
+    rec["ok"] = (rec["equal_over_bound"] <= 1.01
+                 and rec["two_step_over_bound"] <= 0.75
+                 and rec["distinct_over_half_scale"] <= 1.0 + 1e-5)
+    return rec
+
+
+def lms_leaf_check(gs, g1, ps, p1, lr) -> dict:
+    """Phase 11b's comparison of one leaf, the sharded step's gradient
+    `gs` and updated parameter `ps` against the one-slot step's `g1` and
+    `p1` (whole tensors on the card), in chunks of ``LMS_CHUNK`` entries:
+    the gradients' dot and norms; and where the two gradients agree within
+    ``LMS_UPD_REL`` (relative), the updated entries' difference less one
+    rounding of the parameter's dtype, over `lr` (AdamW's first update
+    there differs by under 0.004·lr before rounding)."""
+    import torch
+
+    eps = torch.finfo(p1.dtype).eps
+    out = {"dot": 0.0, "n_s": 0.0, "n_1": 0.0, "held": 0, "numel": 0,
+           "err_over_lr": 0.0}
+    gs, g1, ps, p1 = (t.reshape(-1) for t in (gs, g1, ps, p1))
+    for i in range(0, g1.numel(), LMS_CHUNK):
+        a, b = gs[i:i + LMS_CHUNK].float(), g1[i:i + LMS_CHUNK].float()
+        out["dot"] += float(torch.dot(a, b))
+        out["n_s"] += float(torch.dot(a, a))
+        out["n_1"] += float(torch.dot(b, b))
+        held = (a - b).abs() <= LMS_UPD_REL * b.abs()
+        del a, b
+        x, y = ps[i:i + LMS_CHUNK].float(), p1[i:i + LMS_CHUNK].float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(x.abs(), y.abs())))) * eps
+        err = ((x - y).abs() - ulp).clamp_(min=0.0)[held]
+        out["held"] += int(held.sum())
+        out["numel"] += held.numel()
+        if err.numel():
+            out["err_over_lr"] = max(out["err_over_lr"],
+                                     float(err.max()) / lr)
+        del x, y, ulp, err, held
+    return out
+
+
+def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
+             timed=0) -> dict:
+    """Phase 11b: `cfg` at full width and depth (bf16, remat, AdamW at a
+    constant ``LMS_LR``) on a virtual mesh of `shape` slots of the card,
+    phase 10's parameters (seed 0) and batch (step 0). Without `ref`: the
+    one-slot step first (its gradients and its updated parameters kept on
+    the host), then the sharded step's two calls, each timed by CUDA
+    events with its host enqueue (the first sharded step:
+    ``first_step_ms``): its gradients, then the update from them. Held
+    to the one-slot step: its loss; its gradients' cosine, over all
+    leaves and leaf by leaf; and its updated parameters, leaf by leaf
+    (``lms_leaf_check``). Then `timed` whole sharded steps, timed
+    (``step_ms``, ``enqueue_ms``: the last); the peak memory and a step's
+    collective counts. With `ref` (the one-slot loss), the first timed
+    step's loss is held to it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import elastic
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import _StepClock
+    from repro_torch.models import attention, build_model, shard_ctx
+    from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.optim import constant, optimizers
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(cfg, remat=True)
+    model = build_model(cfg)
+    data = SyntheticLMData(cfg.vocab_size, seq, rows, seed=0)
+    batch0 = {k: torch.from_numpy(v).to(device)
+              for k, v in data.batch(0).items()}
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+
+    def adamw():
+        return optimizers.adamw(constant(LMS_LR), weight_decay=0.1)
+
+    mesh = lms_mesh(shape, device)
+    shard_ctx.set_axes(mesh, ("data",), ("model",))
+    try:
+        layout = ("head" if attention.head_tp_available(
+            cfg.n_heads, cfg.n_kv_heads) else "key")
+    finally:
+        shard_ctx.clear()
+    rec = {"arch": cfg.name, "mesh": list(shape), "seq_len": seq,
+           "global_batch": rows, "remat": True, "layout": layout,
+           "lr": LMS_LR}
+    g1_host = p1_host = None
+    if ref is None:
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss1, _ = model.loss_fn(params, batch0)
+        g1 = torch.autograd.grad(loss1, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        ref = float(loss1)
+        del loss1
+        o = adamw()
+        p1 = tree_map(torch.clone, params)
+        p1, st = o.update(tree_unflatten(params, list(g1)), o.init(p1), p1)
+        del st
+        g1_host = [g.cpu() for g in g1]
+        p1_host = [t.cpu() for t in tree_leaves(p1)]
+        del g1, p1
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    rec["loss_one_slot"] = ref
+
+    with lms_optimizer(adamw(), "adamw"):
+        ts = make_train_step(cfg, mesh)
+    state = ts.opt_sh.place(ts.optimizer.init(params))
+    placed = ts.params_sh.place(params)      # views: updated in place
+    del params
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    if g1_host is not None:
+        # the sharded step's two calls, each timed: the gradients, then
+        # the update on the blocks from them
+        clock = _StepClock(torch.device(device))
+        clock.start()
+        loss2, _, g2 = ts.executor.grads(model.loss_fn, placed, batch0)
+        grads_enq = clock.enqueued()
+        rec["loss"] = float(loss2)
+        rec["grads_ms"] = clock.elapsed()
+        rec["collectives"] = lms_counts(ts.executor)
+        clock.start()
+        placed, state = ts.optimizer.update(g2, state, placed)
+        update_enq = clock.enqueued()
+        if cuda:
+            torch.cuda.synchronize()      # nothing read back: wait here
+        rec["update_ms"] = clock.elapsed()
+        rec["first_step_ms"] = rec["grads_ms"] + rec["update_ms"]
+        rec["first_enqueue_ms"] = grads_enq + update_enq
+        dot = n_s = n_1 = 0.0
+        held = numel = 0
+        cos, shares, err = [], [], 0.0
+        for i, (pg, pp, g1, p1) in enumerate(zip(
+                elastic.placed_leaves(g2), elastic.placed_leaves(placed),
+                g1_host, p1_host)):
+            c = lms_leaf_check(elastic.gather(pg), g1.to(device),
+                               elastic.gather(pp), p1.to(device), LMS_LR)
+            dot, n_s, n_1 = dot + c["dot"], n_s + c["n_s"], n_1 + c["n_1"]
+            held, numel = held + c["held"], numel + c["numel"]
+            err = max(err, c["err_over_lr"])
+            # a leaf whose two gradients are both zero agrees
+            cos.append((c["dot"] / math.sqrt(c["n_s"] * c["n_1"])
+                        if c["n_s"] * c["n_1"] > 0
+                        else float(c["n_s"] == c["n_1"]), i))
+            shares.append(c["held"] / c["numel"])
+        del g2, g1_host, p1_host
+        gc.collect()
+        rec["grad_cosine"] = dot / math.sqrt(n_s * n_1)
+        rec["grad_leaf_cosine_min"], rec["grad_leaf_cosine_min_leaf"] = \
+            min(cos)
+        rec["update_err_over_lr"] = err
+        rec["update_held_share"] = held / numel
+        rec["update_held_share_leaf_min"] = min(shares)
+
+    for _ in range(timed):
+        clock = _StepClock(torch.device(device))
+        clock.start()
+        placed, state, metrics = ts.fn(placed, state, batch0)
+        rec["enqueue_ms"] = clock.enqueued()
+        rec.setdefault("losses", []).append(float(metrics["loss"]))
+        rec["step_ms"] = clock.elapsed()
+        rec["collectives"] = lms_counts(ts.executor)
+    rec.setdefault("loss", rec.get("losses", [None])[0])
+    rec["loss_rel_err"] = abs(rec["loss"] - ref) / abs(ref)
+    if cuda:
+        rec["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                          / 1e9)
+    rec["ok"] = (rec["loss_rel_err"] <= LMS_LOSS_TOL
+                 and all(math.isfinite(x) for x in rec.get("losses", []))
+                 and rec.get("grad_cosine", 1.0) >= LMS_COS_MIN
+                 and rec.get("grad_leaf_cosine_min", 1.0) >= LMS_LEAF_COS_MIN
+                 and rec.get("update_err_over_lr", 0.0) <= LMS_UPD_TOL
+                 and rec.get("update_held_share", 1.0) >= LMS_UPD_SHARE_MIN)
+    del placed, state, ts
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def lms_drill(name, device="cuda") -> dict:
+    """Phase 11c on one reduced architecture, SGD at a fixed rate: the
+    loop on (2, 2) against the one-slot loop; the ``fail_at`` drill on
+    (2, 2) (one restart onto the mesh, the uninterrupted run's parameters
+    bit for bit); a resume from step 2 onto (1, 2), the surviving slots
+    of ``shrink_mesh`` (the losses and parameters of the uninterrupted
+    run within 1e-5)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.elastic import shrink_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.optim import constant, optimizers
+
+    cfg = get_arch(name).reduced()
+    kw = dict(steps=6, global_batch=2, seq_len=64, ckpt_every=2,
+              log_every=100, device=device)
+    mesh = lms_mesh((2, 2), device)
+    with lms_optimizer(optimizers.sgd(constant(0.05)), "sgd"), \
+            tempfile.TemporaryDirectory() as tmp:
+        one = train_loop(cfg, **kw)
+        full = train_loop(cfg, mesh, ckpt_dir=os.path.join(tmp, "a"), **kw)
+        failed = train_loop(cfg, mesh, ckpt_dir=os.path.join(tmp, "b"),
+                            fail_at=4, **kw)
+        for s in (4, 6):
+            shutil.rmtree(os.path.join(tmp, "a", f"step_{s}"))
+        live = shrink_mesh(mesh, [2, 3])
+        small = make_mesh((1, 2), ("data", "model"),
+                          devices=list(live.devices.flat[:2]))
+        resumed = train_loop(cfg, small, ckpt_dir=os.path.join(tmp, "a"),
+                             **kw)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    f_leaves = lms_whole(full.state[0])
+    rec = {"arch": name, "restarts": failed.restarts,
+           "mesh_vs_one_loss_rel_err": max(
+               rel(a, b) for a, b in zip(full.losses, one.losses)),
+           "mesh_vs_one_param_rel_err": lmt_leaf_errs(
+               f_leaves, tree_leaves(one.state[0]))[0],
+           "drill_params_equal": all(torch.equal(a, b) for a, b in zip(
+               lms_whole(failed.state[0]), f_leaves)),
+           "resumed_loss_rel_err": max(
+               rel(a, b) for a, b in zip(resumed.losses, full.losses[2:])),
+           "resumed_param_rel_err": lmt_leaf_errs(
+               lms_whole(resumed.state[0]), f_leaves)[0],
+           "losses": full.losses}
+    rec["ok"] = (rec["restarts"] == 1 and full.restarts == 0
+                 and len(resumed.losses) == 4
+                 and rec["drill_params_equal"]
+                 and rec["mesh_vs_one_loss_rel_err"] <= LMS_TOL
+                 and rec["mesh_vs_one_param_rel_err"] <= LMS_TOL
+                 and rec["resumed_loss_rel_err"] <= LMS_TOL
+                 and rec["resumed_param_rel_err"] <= LMS_TOL)
+    return rec
+
+
+def check_lm_shard(card) -> dict:
+    """Phase 11: 11a the ten reduced architectures sharded on virtual
+    meshes of the card against its one-slot step, and ``compressed_psum``
+    on 8 slots; 11b gemma3-4b at full width sharded on (2, 4) against the
+    one-slot step, timed, and on (1, 16);
+    11c the fault drill and a resume onto a smaller mesh. Returns the
+    ``lm_shard`` record; a failed check raises."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = {"card": card}
+    t_phase = time.perf_counter()
+    reduced = {name: lms_reduced_case(name) for name in sorted(ARCHS)}
+    print("lm_shard_reduced: " + json.dumps(reduced), flush=True)
+    bad = [n for n, r in reduced.items() if not r["ok"]]
+    record["compression"] = lms_compression()
+    if bad or not record["compression"]["ok"]:
+        raise RuntimeError(f"phase 11a failed on {bad}: "
+                           f"{record['compression']}")
+    record["reduced_s"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    full = lms_full(get_arch(LM_ARCH), LMS_FULL_MESH, LMT_SEQ, LMT_BATCH,
+                    timed=1)
+    full["s"] = time.perf_counter() - t0
+    record["full"] = full
+    if not full["ok"]:
+        print("lm_shard: " + json.dumps(record), flush=True)
+        raise RuntimeError(f"phase 11b failed: {full}")
+    t0 = time.perf_counter()
+    key = lms_full(get_arch(LM_ARCH), LMS_KEY_MESH, LMT_SEQ, LMT_BATCH,
+                   ref=full["loss_one_slot"], timed=1)
+    key["s"] = time.perf_counter() - t0
+    record["full_key"] = key
+    if not key["ok"]:
+        print("lm_shard: " + json.dumps(record), flush=True)
+        raise RuntimeError(f"phase 11b failed on {LMS_KEY_MESH}: {key}")
+
+    t0 = time.perf_counter()
+    drill = lms_drill("starcoder2-15b")
+    drill["s"] = time.perf_counter() - t0
+    record["drill"] = drill
+    if not drill["ok"]:
+        print("lm_shard: " + json.dumps(record), flush=True)
+        raise RuntimeError(f"phase 11c failed: {drill}")
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -4214,6 +4711,11 @@ def main() -> int:
 
     # -- 10. LM training: ten reduced archs, gemma3-4b at full width -------
     print("lm_train: " + json.dumps(check_lm_train(card)), flush=True)
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 11. the sharded LM executor: reduced archs, gemma3-4b sharded -----
+    print("lm_shard: " + json.dumps(check_lm_shard(card)), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))

@@ -16,8 +16,15 @@ manifest with each leaf's kind, dtype and shape. A tree is a tensor, a
 numpy array or a Python number, or a dict, list, tuple or NamedTuple of
 trees; None is an empty subtree.
 bfloat16 tensors are stored as float32 (numpy has no bfloat16) and cast
-back on restore. The JAX package also records each leaf's PartitionSpec;
-here every tensor lands on one device.
+back on restore.
+
+Sharded trees: a leaf placed on a mesh (``elastic.Placed``) is gathered
+whole on save, and each leaf's PartitionSpec is recorded in the manifest
+in the JAX package's JSON form (from ``spec_tree``, or the placed leaf's
+own). ``load_pytree(..., mesh=)`` places the leaves back by their
+recorded specs on the current mesh, which may have another shape; a spec
+it cannot honour degrades to replication on that dim
+(``elastic.remesh_report``, logged).
 """
 from __future__ import annotations
 
@@ -31,19 +38,25 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.elastic import Placed, gather, remesh
+from repro_torch.launch.mesh import P
+
 Tree = Any
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
+
 def _leaves(tree, path=()):
     """(path, leaf) pairs in a fixed order (dicts by sorted key); None is
-    an empty subtree, as in a JAX pytree."""
+    an empty subtree, as in a JAX pytree; a placed leaf and a
+    PartitionSpec are leaves."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple)) and not isinstance(tree, (Placed,
+                                                                  P)):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (str(i),))
     else:
@@ -59,7 +72,7 @@ def _rebuild(like, values, path=()):
     if isinstance(like, dict):
         return {k: _rebuild(like[k], values, path + (str(k),))
                 for k in like}
-    if isinstance(like, (list, tuple)):
+    if isinstance(like, (list, tuple)) and not isinstance(like, Placed):
         items = [_rebuild(v, values, path + (str(i),))
                  for i, v in enumerate(like)]
         # a NamedTuple (an optimizer's OptState) takes its fields apart
@@ -70,8 +83,37 @@ def _rebuild(like, values, path=()):
     return values[_name(path)]
 
 
+def _spec_to_json(spec) -> list:
+    if spec is None:
+        return []
+    out = []
+    for axes in spec:
+        if axes is None:
+            out.append(None)
+        elif isinstance(axes, str):
+            out.append(axes)
+        else:
+            out.append(list(axes))
+    return out
+
+
+def _spec_from_json(lst) -> P:
+    dims = []
+    for axes in lst:
+        if axes is None:
+            dims.append(None)
+        elif isinstance(axes, str):
+            dims.append(axes)
+        else:
+            dims.append(tuple(axes))
+    return P(*dims)
+
+
 def _host(leaf) -> tuple:
-    """(numpy array, manifest entry) of one leaf, copied to the host."""
+    """(numpy array, manifest entry) of one leaf, copied to the host (a
+    placed leaf gathered whole)."""
+    if isinstance(leaf, Placed):
+        leaf = gather(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         dtype = str(t.dtype).removeprefix("torch.")
@@ -96,15 +138,25 @@ def _write(path: str, write):
         os.fsync(f.fileno())
 
 
-def _snapshot(tree) -> list:
-    """``[(name, array, manifest entry), ...]``: the tree on the host."""
-    return [(_name(p), *_host(leaf)) for p, leaf in _leaves(tree)]
+def _snapshot(tree, spec_tree=None) -> list:
+    """``[(name, array, manifest entry), ...]``: the tree on the host,
+    each entry with its leaf's spec (from `spec_tree`, else a placed
+    leaf's own, else none)."""
+    specs = ({_name(p): s for p, s in _leaves(spec_tree)}
+             if spec_tree is not None else {})
+    out = []
+    for p, leaf in _leaves(tree):
+        arr, entry = _host(leaf)
+        spec = specs.get(_name(p), getattr(leaf, "spec", None))
+        out.append((_name(p), arr, {**entry,
+                                    "spec": _spec_to_json(spec)}))
+    return out
 
 
-def save_pytree(tree: Tree, directory: str):
+def save_pytree(tree: Tree, directory: str, spec_tree: Tree = None):
     """Blocking single-shot save (the manager's thread runs the same
     write on a snapshot)."""
-    _save_host(_snapshot(tree), directory)
+    _save_host(_snapshot(tree, spec_tree), directory)
 
 
 def _save_host(host: list, directory: str):
@@ -126,9 +178,11 @@ def _save_host(host: list, directory: str):
     os.rename(tmp, directory)  # atomic publish
 
 
-def load_pytree(directory: str, like: Tree, device=None) -> Tree:
+def load_pytree(directory: str, like: Tree, device=None,
+                mesh=None) -> Tree:
     """Restore into the structure of `like` (its values are ignored).
-    Tensors land on `device`, or on the device of `like`'s leaf."""
+    Tensors land on `device`, or on the device of `like`'s leaf; with
+    `mesh`, a leaf with a recorded spec is placed on it by that spec."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     values = {}
@@ -138,10 +192,19 @@ def load_pytree(directory: str, like: Tree, device=None) -> Tree:
         kind = meta["kind"]
         if kind == "tensor":
             ref = like_leaves.get(meta["name"])
-            dev = device if device is not None else (
+            # with a mesh: a leaf with a spec, or placed in `like` (a
+            # replicated one records P() as []), is placed on it
+            place = mesh is not None and (bool(meta.get("spec"))
+                                          or isinstance(ref, Placed))
+            if isinstance(ref, Placed):
+                ref = ref[0]
+            dev = "cpu" if place else device if device is not None else (
                 ref.device if isinstance(ref, torch.Tensor) else "cpu")
-            values[meta["name"]] = torch.from_numpy(arr).to(
-                device=dev, dtype=getattr(torch, meta["dtype"]))
+            t = torch.from_numpy(arr).to(device=dev,
+                                         dtype=getattr(torch, meta["dtype"]))
+            if place:
+                t = remesh(t, mesh, _spec_from_json(meta.get("spec", [])))
+            values[meta["name"]] = t
         elif kind == "ndarray":
             values[meta["name"]] = arr.astype(meta["dtype"])
         else:
@@ -162,9 +225,10 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
 
     # -- write ----------------------------------------------------------------
-    def save(self, step: int, tree: Tree, blocking: bool = False):
+    def save(self, step: int, tree: Tree, blocking: bool = False,
+             spec_tree: Tree = None):
         self.wait()  # one save in flight at a time
-        host = _snapshot(tree)
+        host = _snapshot(tree, spec_tree)
         target = os.path.join(self.root, f"step_{step}")
 
         def work():
@@ -202,13 +266,14 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, like: Tree, step: Optional[int] = None,
-                device=None) -> tuple:
-        """``(step, tree)`` of checkpoint `step` (default: the latest)."""
+                device=None, mesh=None) -> tuple:
+        """``(step, tree)`` of checkpoint `step` (default: the latest);
+        with `mesh`, the leaves placed on it by their recorded specs."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         return step, load_pytree(os.path.join(self.root, f"step_{step}"),
-                                 like, device)
+                                 like, device, mesh)
 
     # -- retention --------------------------------------------------------------
     def _gc(self):

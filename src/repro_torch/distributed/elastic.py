@@ -10,7 +10,10 @@ reported as a :class:`Degradation` (leaf path, requested spec, what was
 applied, why); it is never dropped silently.
 
 A placed leaf is a :class:`Placed` list of its per-slot blocks, in the
-mesh's flat slot order (``Mesh.shard``); :func:`slot_view` takes one
+mesh's flat slot order (``Mesh.shard``), which also knows its spec, its
+mesh and its whole shape: :func:`logical_blocks` lists its distinct
+blocks (each with the copies that hold it, one per device) and
+:func:`gather` rebuilds the whole tensor; :func:`slot_view` takes one
 slot's tree out of a placed tree.
 """
 from __future__ import annotations
@@ -27,13 +30,72 @@ Tree = Any
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Degradation", "Placed", "remesh", "remesh_report",
-           "replicated", "shrink_mesh", "slot_view", "surviving_devices",
+__all__ = ["Degradation", "Placed", "gather", "logical_blocks",
+           "placed_leaves", "remesh", "remesh_report", "replicated",
+           "shrink_mesh", "slot_view", "surviving_devices",
            "tree_map_with_path"]
 
 
 class Placed(list):
-    """One leaf placed on a mesh: its blocks, one per slot."""
+    """One leaf placed on a mesh: its blocks, one per slot (slots that
+    share a device and a block share one tensor). ``spec``, ``mesh`` and
+    ``shape`` (the whole leaf's) say how the blocks tile the leaf."""
+
+    def __init__(self, blocks=(), spec=None, mesh=None, shape=None):
+        super().__init__(blocks)
+        self.spec, self.mesh = spec, mesh
+        self.shape = None if shape is None else tuple(shape)
+
+    def like(self, blocks) -> "Placed":
+        """Other blocks laid out as these."""
+        return Placed(blocks, self.spec, self.mesh, self.shape)
+
+
+def logical_blocks(placed: Placed) -> list:
+    """``[(slices, copies), ...]``: each distinct block of the leaf, its
+    index into the whole leaf and the distinct tensors that hold it (one
+    per device holding it), in the order of the first slot holding
+    it."""
+    dims = tuple(placed.spec) + (None,) * (len(placed.shape)
+                                           - len(placed.spec))
+    found: dict = {}
+    for flat, t in enumerate(placed):
+        key, sl = [], []
+        for dim, axes in enumerate(dims):
+            if axes is None:
+                sl.append(slice(None))
+                continue
+            k, n = placed.mesh.block_index(
+                flat, (axes,) if isinstance(axes, str) else tuple(axes))
+            m = placed.shape[dim] // n
+            sl.append(slice(k * m, (k + 1) * m))
+            key.append((dim, k))
+        entry = found.setdefault(tuple(key), (tuple(sl), {}))
+        entry[1].setdefault(id(t), t)
+    return [(sl, list(ts.values())) for sl, ts in found.values()]
+
+
+def placed_leaves(tree) -> list:
+    """The Placed leaves of a tree, dicts in sorted key order."""
+    if isinstance(tree, Placed):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in placed_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in placed_leaves(v)]
+    return []
+
+
+def gather(placed: Placed, device=None):
+    """The whole tensor of a placed leaf, on `device` (default: its
+    first block's)."""
+    import torch
+
+    device = placed[0].device if device is None else device
+    out = torch.empty(placed.shape, dtype=placed[0].dtype, device=device)
+    for sl, copies in logical_blocks(placed):
+        out[sl] = copies[0].to(device)
+    return out
 
 
 def slot_view(tree: Tree, i: int) -> Tree:
@@ -75,16 +137,21 @@ class Degradation:
 def tree_map_with_path(fn: Callable, tree: Tree, *rest: Tree,
                        path: tuple = ()) -> Tree:
     """``fn(path, leaf, *rest_leaves)`` over the leaves of nested dicts,
-    lists and tuples (`rest` mirror `tree`); a PartitionSpec is a leaf."""
+    lists, tuples and NamedTuples (`rest` mirror `tree`); a
+    PartitionSpec and a ``Placed`` are leaves, None stays None."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
                                       path=path + (k,))
                 for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
-        return type(tree)(
-            tree_map_with_path(fn, v, *(r[i] for r in rest),
-                               path=path + (i,))
-            for i, v in enumerate(tree))
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, (P, Placed)):
+        items = [tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                    path=path + (i,))
+                 for i, v in enumerate(tree)]
+        # a NamedTuple (an optimizer's OptState) takes its fields apart
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    if tree is None:
+        return None
     return fn(path, tree, *rest)
 
 
@@ -134,7 +201,8 @@ def remesh_report(tree: Tree, new_mesh: Mesh,
             report.append(Degradation(
                 path=_path_str(path), requested=str(spec),
                 applied=str(applied), reason="; ".join(reasons)))
-        return Placed(new_mesh.shard(leaf, applied))
+        return Placed(new_mesh.shard(leaf, applied), applied, new_mesh,
+                      leaf.shape)
 
     return tree_map_with_path(one, tree, spec_tree), report
 

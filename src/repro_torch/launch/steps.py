@@ -2,12 +2,15 @@
 ``repro.launch.steps`` builds it for any architecture.
 
 The JAX package jits one step and shards it over a device mesh; the port
-runs it op by op on the one device of a one-slot mesh: autograd over the
-parameter tree (``Model.loss_fn``, with the model's checkpoints), then an
-optimizer update in place. A mesh of more than one slot raises: the
-port's executor of the FSDP and tensor-parallel shardings that GSPMD gives
-the JAX package (``distributed/sharding.py``) is not ported yet (ROADMAP.md
-queue 1).
+runs it op by op: autograd over the parameter tree (``Model.loss_fn``,
+with the model's checkpoints), then an optimizer update in place. On a
+one-slot mesh the tree is plain tensors on the slot's device. On a mesh of
+more than one slot the parameters and the optimizer state are placed by
+``param_specs`` / ``opt_state_specs`` (``TrainStep.params_sh`` /
+``opt_sh``, ``elastic.Placed`` leaves) and the step runs through the
+sharded executor (``distributed/executor.py``): FSDP gathers at use,
+tensor parallelism over the model axis, the optimizer on the blocks; the
+executor's ``counts`` hold the step's collective calls and bytes.
 
 The optimizer follows the JAX package's rule: AdamW under 100 B
 parameters, Adafactor above (its factored state keeps the 236 B and 400 B
@@ -95,12 +98,18 @@ class TrainStep:
     model: Any
     optimizer: Any
     device: torch.device
+    params_sh: Any = None    # on a mesh: the placements (sharding.Shardings)
+    opt_sh: Any = None
+    executor: Any = None     # on a mesh: the sharded executor
 
     def init_state(self, generator: torch.Generator):
         """(params, opt_state) drawn from `generator` on the step's
-        device."""
+        device, placed on the mesh where the step has one."""
         params = self.model.init_params(generator, device=self.device)
-        return params, self.optimizer.init(params)
+        opt_state = self.optimizer.init(params)
+        if self.params_sh is None:
+            return params, opt_state
+        return self.params_sh.place(params), self.opt_sh.place(opt_state)
 
 
 def choose_accum(model, cell: ShapeCell, mesh: Mesh) -> int:
@@ -145,19 +154,17 @@ def _grads(model, params, leaves, batch) -> tuple:
 
 def make_train_step(cfg: ArchConfig, mesh: Mesh, *, accum: int = 1,
                     total_steps: int = 10_000) -> TrainStep:
-    """The train step of `cfg` on `mesh`'s one slot. At ``accum`` 1 the
+    """The train step of `cfg` on `mesh` (see the module docstring for a
+    mesh of more than one slot). At ``accum`` 1 the
     gradients come in the parameters' dtype; above, the batch is split
     into ``accum`` microbatches of consecutive rows, the gradients are
     float32 sums divided by ``accum``, and the metrics are ``{"loss",
     "nll": loss, "aux": 0}``, as the JAX package's scan gives them."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"the train step runs on one slot; a mesh of {mesh.size} slots "
-            "needs the sharded executor, not ported yet (ROADMAP.md "
-            "queue 1)")
     device = mesh.devices.flat[0]
     model = build_model(cfg)
     opt, opt_name = select_optimizer(model, total_steps=total_steps)
+    if mesh.size != 1:
+        return _sharded_step(model, mesh, opt, opt_name, accum)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -189,3 +196,33 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, *, accum: int = 1,
 
     return TrainStep(fn=train_step, opt_name=opt_name, model=model,
                      optimizer=opt, device=device)
+
+
+def _sharded_step(model, mesh: Mesh, opt, opt_name: str,
+                  accum: int) -> TrainStep:
+    """The train step on a mesh of more than one slot: parameters and
+    optimizer state placed by their specs, the whole batch (on the mesh's
+    first device) split over the data slots by rows, microbatches of
+    consecutive rows at ``accum`` > 1 as the JAX package's ``micro_spec``
+    lays them out."""
+    from repro_torch.distributed.executor import Executor
+    from repro_torch.distributed.sharding import (opt_state_specs,
+                                                  param_specs, shardings_for)
+
+    data_axes, model_axes = data_model_axes(mesh)
+    ex = Executor(mesh, data_axes, model_axes)
+    p_meta = model.params_spec()
+    params_sh = shardings_for(
+        param_specs(p_meta, mesh, data_axes, model_axes), mesh)
+    opt_sh = shardings_for(
+        opt_state_specs(opt.init(p_meta), mesh, data_axes, model_axes), mesh)
+
+    def train_step(params, opt_state, batch):
+        ex.reset()
+        loss, metrics, grads = ex.grads(model.loss_fn, params, batch, accum)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, **metrics}
+
+    return TrainStep(fn=train_step, opt_name=opt_name, model=model,
+                     optimizer=opt, device=ex.home, params_sh=params_sh,
+                     opt_sh=opt_sh, executor=ex)

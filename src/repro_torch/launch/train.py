@@ -14,8 +14,16 @@ as the JAX package's ``repro.launch.train``.
   * ``fail_at``: one injected failure, the fault drill.
 
 The loop runs on the card unless the caller passes ``device="cpu"``; it
-does not fall back. ``python -m repro_torch.launch.train --arch X
---smoke`` trains the reduced config of X.
+does not fall back. On a mesh of more than one slot the step is the
+sharded executor's (``launch/steps.py``; it takes the batch whole on
+its first slot's device and splits it over the data slots), checkpoints
+record each leaf's spec, and a
+restore (the supervisor's, or a resume) places the leaves back by those
+specs on the loop's mesh, which may have another shape than the one that
+saved them. A mesh whose devices are not there raises; a mesh is never
+run as one slot. ``python -m repro_torch.launch.train --arch X --smoke``
+trains the reduced config of X (``--mesh 2x2`` on a virtual mesh of
+the device).
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeCell
 from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
 from repro_torch.distributed.fault import FaultSupervisor, StragglerMonitor
-from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh, make_mesh
 from repro_torch.launch.steps import choose_accum, make_train_step
 from repro_torch.models import build_model
 
@@ -83,32 +91,34 @@ def train_loop(cfg, mesh: Optional[Mesh] = None, *, steps: int,
                seed: int = 0, fail_at: Optional[int] = None,
                log_every: int = 10, device="cuda") -> TrainLoopResult:
     """Run `steps` optimizer steps of `cfg` on `mesh` (default: one slot
-    on `device`). `fail_at` injects one synthetic failure before that
-    step (the fault drill; recovered from only with a checkpoint
+    on `device`; a mesh of more than one slot runs the sharded step).
+    `fail_at` injects one synthetic failure before that step (the fault drill; recovered from only with a checkpoint
     directory)."""
     if mesh is None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA card: pass device='cpu' to train "
-                               "on the CPU")
-        mesh = make_host_mesh(devices=[device])
+        mesh = make_host_mesh(devices=[torch.device(device)])
+    _check_devices(mesh)
     cell = ShapeCell("train", seq_len, global_batch, "train")
     accum = choose_accum(build_model(cfg), cell, mesh)
     ts = make_train_step(cfg, mesh, accum=accum, total_steps=steps)
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq_len,
                            global_batch=global_batch, seed=seed)
+    spec_tree = on_mesh = None
+    if ts.params_sh is not None:
+        spec_tree = (ts.params_sh.spec_tree, ts.opt_sh.spec_tree)
+        on_mesh = mesh
 
     params, opt_state = ts.init_state(
         torch.Generator(device=ts.device).manual_seed(seed))
     start_step = 0
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if ckpt and ckpt.latest_step() is not None:
-        start_step, (params, opt_state) = ckpt.restore((params, opt_state))
+        start_step, (params, opt_state) = ckpt.restore((params, opt_state),
+                                                       mesh=on_mesh)
         print(f"resumed from checkpoint step {start_step}")
 
     def restore():
         ckpt.wait()   # a save in flight publishes first
-        return ckpt.restore((params, opt_state))
+        return ckpt.restore((params, opt_state), mesh=on_mesh)
 
     supervisor = FaultSupervisor(restore_fn=restore) if ckpt else None
     straggler = StragglerMonitor()
@@ -155,9 +165,9 @@ def train_loop(cfg, mesh: Optional[Mesh] = None, *, steps: int,
                 print(f"step {step}: loss={loss:.4f} "
                       f"({step_ms[-1]:.1f} ms/step)", flush=True)
             if ckpt and step % ckpt_every == 0:
-                ckpt.save(step, state)
+                ckpt.save(step, state, spec_tree=spec_tree)
         if ckpt:
-            ckpt.save(steps, state, blocking=True)
+            ckpt.save(steps, state, blocking=True, spec_tree=spec_tree)
     finally:
         it.close()
         if ckpt:
@@ -167,6 +177,21 @@ def train_loop(cfg, mesh: Optional[Mesh] = None, *, steps: int,
         losses=losses, restarts=supervisor.restarts if supervisor else 0,
         stragglers=straggler.stragglers, step_ms=step_ms,
         enqueue_ms=enqueue_ms, state=state)
+
+
+def _check_devices(mesh: Mesh) -> None:
+    """Raise unless every device of `mesh` is there."""
+    for dev in mesh.distinct_devices():
+        if dev.type != "cuda":
+            continue
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA card: pass device='cpu' (or a mesh "
+                               "of cpu slots) to train on the CPU")
+        index = 0 if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"the mesh names {dev} but only "
+                               f"{torch.cuda.device_count()} cards are "
+                               "visible")
 
 
 def main(argv=None):
@@ -179,14 +204,22 @@ def main(argv=None):
                     help="use the reduced config")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL: a virtual mesh of that many slots "
+                         "of --device")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    res = train_loop(cfg, steps=args.steps, global_batch=args.global_batch,
-                     seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
-                     device=args.device)
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(n) for n in args.mesh.split("x"))
+        mesh = make_mesh(shape, ("data", "model"),
+                         devices=[args.device] * (shape[0] * shape[1]))
+    res = train_loop(cfg, mesh, steps=args.steps,
+                     global_batch=args.global_batch, seq_len=args.seq_len,
+                     ckpt_dir=args.ckpt_dir, device=args.device)
     print(f"done: {res.steps_done} steps, final loss {res.final_loss:.4f}, "
           f"{res.restarts} restarts, {res.stragglers} stragglers")
 

@@ -15,6 +15,14 @@ host, so one decode step can be captured as a CUDA graph.
 
 Each query chunk's body is rematerialized (``layers.remat``): its scores
 and softmax are recomputed in the backward, not kept per chunk.
+
+On a bound mesh (``shard_ctx.set_axes``) the training path takes the JAX
+package's layout: "head" where the kv heads or the q heads divide the
+model axis (``head_tp_available``; each model slot runs its block of the
+heads, kv repeated group-wise when only the q heads divide), else "key"
+(the keys split over the model slots, the window folded into the mask,
+no banded slice). With no mesh the model axis is 1 and the path is the
+one-slot one above.
 """
 from __future__ import annotations
 
@@ -23,9 +31,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .layers import (Init, _dense_init, apply_rope, einsum_f32, matmul,
-                     qk_norm, remat)
-from .shard_ctx import constrain
+from .layers import (Init, _dense_init, apply_rope, dot_f32, einsum_f32,
+                     matmul, qk_norm, remat)
+from .shard_ctx import constrain, executor, model_size
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -81,9 +89,29 @@ def _proj_qkv(params, x, x_kv, n_heads, n_kv):
             constrain(_split_heads(v, n_kv), spec))
 
 
-def _sdpa(q, k, v, mask, scale):
+def head_tp_available(h: int, hkv: int) -> bool:
+    """Can attention shard over heads on the model axis? Either kv heads
+    divide it, or q heads do (then kv is repeated group-wise)."""
+    msz = model_size()
+    return (hkv % msz == 0 and hkv >= msz) or (h % msz == 0 and h >= msz)
+
+
+def _sdpa(q, k, v, mask, scale, *, train_layout: str | bool = False):
     """q: (B, Q, H, Dh); k/v: (B, K, Hkv, Dh); mask: (B, Q, K) bool or None.
-    GQA via head grouping; scores float32."""
+    GQA via head grouping; scores float32.
+
+    train_layout: False (decode) or "head" (one slot's heads: the
+    executor splits the heads before the projections, so this is the
+    single-slot product at local sizes), or "key" (KEY-dim parallel on a
+    bound mesh: each model slot scores its block of the keys and keeps
+    its max, sum-exp and P·V partial, combined as an online softmax over
+    the slots; the layout for few-head archs where heads do not divide
+    the model axis).
+    """
+    ex = executor()
+    if train_layout == "key" and ex is not None \
+            and k.shape[1] % ex.M == 0:
+        return _sdpa_keys(ex, q, k, v, mask, scale)
     b, cq, h, dh = q.shape
     hkv = k.shape[2]
     rep = h // hkv
@@ -97,12 +125,97 @@ def _sdpa(q, k, v, mask, scale):
     return o.reshape(b, cq, h, v.shape[-1]).to(q.dtype)
 
 
+def _sdpa_keys(ex, q, k, v, mask, scale):
+    """``_sdpa`` with the keys split over the model slots: slot (d, m)
+    scores its data block's queries against key block m; the slots' max,
+    sum-exp and P·V partials (float32) combine as an online softmax."""
+    b, cq, h, dh = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    kb = k.shape[1] // ex.M
+    xs = (q, k, v) if mask is None else (q, k, v, mask)
+
+    def slot(m, _dev, qs, ks, vs, ms=None):
+        keys = slice(m * kb, (m + 1) * kb)
+        qg = qs.reshape(qs.shape[0], cq, hkv, rep, dh)
+        s = einsum_f32("bqhrd,bkhd->bhrqk", qg, ks[:, keys]) * scale
+        if ms is not None:
+            s = torch.where(ms[:, None, None, :, keys], s, NEG_INF)
+        mx = s.amax(-1, keepdim=True)
+        e = torch.exp(s - mx)
+        pv = einsum_f32("bhrqk,bkhd->bqhrd", e.to(vs.dtype), vs[:, keys])
+        return mx, e.sum(-1, keepdim=True), pv
+
+    outs, stats = [], 0
+    for line in ex.per_slot(slot, xs):
+        top = torch.stack([mx for mx, _, _ in line]).amax(0)
+        den, num = 0.0, 0.0
+        for mx, l, pv in line:
+            w = torch.exp(mx - top)                       # (b, h, r, q, 1)
+            den = den + w * l
+            num = num + pv * w[..., 0].permute(0, 3, 1, 2)[..., None]
+        outs.append(num / den[..., 0].permute(0, 3, 1, 2)[..., None])
+        stats += 2 * top.numel()
+    o = ex.join(outs)
+    # the max, the sum-exp and the P·V partials, float32, over the slots
+    ex.count("all_reduce", ex.M * 4 * (stats + o.numel()), over=ex.M)
+    return o.reshape(b, cq, h, v.shape[-1]).to(q.dtype)
+
+
 def _chunks(s: int, q_chunk: int) -> tuple:
     """(chunk length, chunk count): ``q_chunk`` where it divides s, else
     one chunk."""
     cq = min(q_chunk, s)
     nch = s // cq if s % cq == 0 else 1
     return s // nch, nch
+
+
+def _attend(q, k, v, positions, kv_pos, *, scale, causal, window, cross,
+            q_chunk, mode):
+    """The query-chunked scores of (B, S, H, Dh) q against k/v: (B, S,
+    H * Dv). ``mode`` "head" takes the banded key slice on sliding-window
+    layers; "key" folds the window into the mask over every key (the key
+    split precludes the banded slice)."""
+    b, s = q.shape[:2]
+    cq, nch = _chunks(s, q_chunk)
+    sk = k.shape[1]
+    banded = window is not None and not cross and mode == "head"
+
+    def chunk_body(qs, qp, ks, vs, kp):
+        if window is not None and not cross:
+            m = (qp[:, :, None] >= kp[:, None, :]) & (
+                qp[:, :, None] - kp[:, None, :] < window)
+        elif causal and not cross:
+            m = qp[:, :, None] >= kp[:, None, :]
+        else:
+            m = None
+        return _sdpa(qs, ks, vs, m, scale, train_layout=mode)
+
+    outs = []
+    for idx in range(nch):
+        start = idx * cq
+        keys = slice(None)
+        if banded:
+            # banded: only the (window + cq) key slice can be visible
+            band = min(window + cq, sk)
+            kstart = max(start + cq - band, 0)
+            keys = slice(kstart, kstart + band)
+        # remat: scores and softmax are recomputed in the backward
+        outs.append(remat(chunk_body, q[:, start:start + cq],
+                          positions[:, start:start + cq], k[:, keys],
+                          v[:, keys], kv_pos[:, keys]))
+    return torch.cat(outs, dim=1).reshape(b, s, -1)
+
+
+def _qkv_heads(params, x, src, positions, kv_pos, *, n_heads, n_kv,
+               use_qk_norm, rope_theta, cross):
+    q, k, v = _proj_qkv(params, x, src, n_heads, n_kv)
+    if use_qk_norm:
+        q, k = qk_norm(q), qk_norm(k)
+    if rope_theta is not None and not cross:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, kv_pos, rope_theta)
+    return q, k, v
 
 
 def attention_train(params: dict, x: Tensor, positions: Tensor, *,
@@ -116,48 +229,76 @@ def attention_train(params: dict, x: Tensor, positions: Tensor, *,
     window: static int for banded sliding-window attention, None for full.
     x_kv/kv_positions: cross-attention source (whisper decoder).
     """
-    b, s, _ = x.shape
     cross = x_kv is not None
     src = x_kv if cross else x
     kv_pos = kv_positions if cross else positions
-    q, k, v = _proj_qkv(params, x, src, n_heads, n_kv)
-    if use_qk_norm:
-        q, k = qk_norm(q), qk_norm(k)
-    if rope_theta is not None and not cross:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, kv_pos, rope_theta)
     scale = 1.0 / np.sqrt(d_head)
-    cq, nch = _chunks(s, q_chunk)
-    sk = src.shape[1]
-
-    def chunk_body(qs, qp, ks, vs, kp):
-        if window is not None and not cross:
-            m = (qp[:, :, None] >= kp[:, None, :]) & (
-                qp[:, :, None] - kp[:, None, :] < window)
-        elif causal and not cross:
-            m = qp[:, :, None] >= kp[:, None, :]
-        else:
-            m = None
-        return _sdpa(qs, ks, vs, m, scale)
-
-    outs = []
-    for idx in range(nch):
-        start = idx * cq
-        keys = slice(None)
-        if window is not None and not cross:
-            # banded: only the (window + cq) key slice can be visible
-            band = min(window + cq, sk)
-            kstart = max(start + cq - band, 0)
-            keys = slice(kstart, kstart + band)
-        # remat: scores and softmax are recomputed in the backward
-        outs.append(remat(chunk_body, q[:, start:start + cq],
-                          positions[:, start:start + cq], k[:, keys],
-                          v[:, keys], kv_pos[:, keys]))
-    out = torch.cat(outs, dim=1).reshape(b, s, n_heads * d_head)
-    out = matmul(out, params["wo"])
+    # few-head archs (gemma3-4b: 8, llama4: 40, whisper: 8) cannot shard
+    # heads over a wide model axis: shard the KEY dim instead; with no
+    # mesh the model axis is 1 and the mode is "head"
+    mode = "head" if head_tp_available(n_heads, n_kv) else "key"
+    kw = dict(scale=scale, causal=causal, window=window, cross=cross,
+              q_chunk=q_chunk, mode=mode)
+    proj = dict(use_qk_norm=use_qk_norm, rope_theta=rope_theta, cross=cross)
+    ex = executor()
+    if ex is not None and mode == "head":
+        out = _attention_heads(ex, params, x, src, positions, kv_pos,
+                               n_heads=n_heads, n_kv=n_kv, d_head=d_head,
+                               proj=proj, kw=kw)
+    else:
+        if ex is not None:      # key mode: the projections replicated
+            params = ex.replicate_tree(params)
+        q, k, v = _qkv_heads(params, x, src, positions, kv_pos,
+                             n_heads=n_heads, n_kv=n_kv, **proj)
+        out = matmul(_attend(q, k, v, positions, kv_pos, **kw), params["wo"])
     if "bo" in params:
         out = out + params["bo"]
     return out
+
+
+def _attention_heads(ex, params, x, src, positions, kv_pos, *, n_heads,
+                     n_kv, d_head, proj, kw):
+    """Head-parallel attention on a bound mesh: model slot m projects its
+    block of the q heads (and the kv heads they read, repeated group-wise
+    where the kv heads do not divide the model axis: Megatron GQA), runs
+    the single-slot attention at local sizes, and multiplies by its row
+    block of ``wo``; the float32 partials are summed over the slots."""
+    hl = n_heads // ex.M
+    rep = n_heads // n_kv
+    split_kv = n_kv % ex.M == 0 and n_kv >= ex.M
+
+    def cols(name, first, count, dev):
+        w = ex.narrow(params[name], 1, first * d_head, count * d_head, dev)
+        b = None
+        if "b" + name[1:] in params:
+            b = ex.narrow(params["b" + name[1:]], 0, first * d_head,
+                          count * d_head, dev)
+        return w, b
+
+    def slot(m, dev, xs, ss, qp, kp):
+        if split_kv:
+            lo, nk = m * (n_kv // ex.M), n_kv // ex.M
+        else:
+            lo = m * hl // rep
+            nk = ((m + 1) * hl - 1) // rep + 1 - lo
+        local = {}
+        local["wq"], bq = cols("wq", m * hl, hl, dev)
+        local["wk"], bk = cols("wk", lo, nk, dev)
+        local["wv"], bv = cols("wv", lo, nk, dev)
+        if bq is not None:
+            local.update(bq=bq, bk=bk, bv=bv)
+        q, k, v = _qkv_heads(local, xs, ss, qp, kp, n_heads=hl, n_kv=nk,
+                             **proj)
+        if not split_kv:
+            # each local q head's kv head, repeated (rep 1 locally)
+            idx = (torch.arange(m * hl, (m + 1) * hl, device=dev) // rep
+                   - lo)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        o = _attend(q, k, v, qp, kp, **kw)
+        wo = ex.narrow(params["wo"], 0, m * hl * d_head, hl * d_head, dev)
+        return dot_f32(o, wo)
+
+    return ex.row_parallel(slot, (x, src, positions, kv_pos), x.dtype)
 
 
 def _write_rows(cache: Tensor, new: Tensor, slot: Tensor) -> None:

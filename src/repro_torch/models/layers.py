@@ -13,6 +13,10 @@ products carry their own backward (``_DotF32``, ``_MatmulCast``): the
 transpose of ``dot_general(preferred_element_type=float32)``, each product
 accumulated in float32. ``remat`` is ``jax.checkpoint``: the activations
 of its body are recomputed in the backward.
+
+On a bound mesh (``shard_ctx``) ``mlp`` splits d_ff over the model slots,
+``embed`` and ``unembed_chunked`` the vocabulary (a masked lookup summed
+over the slots; a log-sum-exp combined over them).
 """
 from __future__ import annotations
 
@@ -259,15 +263,38 @@ def _gelu(x: Tensor) -> Tensor:
 
 
 def mlp(params: dict, x: Tensor, *, act: str, glu: bool) -> Tensor:
-    from .shard_ctx import constrain
+    from .shard_ctx import constrain, executor
 
     actfn = F.silu if act == "silu" else _gelu
+    ex = executor()
+    if ex is not None:
+        if params["up"].shape[-1] % ex.M == 0:
+            return _mlp_parallel(ex, params, x, actfn, glu)
+        params = ex.replicate_tree(params)
     up = matmul(x, params["up"])
     if "b_up" in params:
         up = up + params["b_up"]
     h = actfn(matmul(x, params["gate"])) * up if glu else actfn(up)
     h = constrain(h, ("data", None, "model"))  # d_ff over TP
     out = matmul(h, params["down"])
+    if "b_down" in params:
+        out = out + params["b_down"]
+    return out
+
+
+def _mlp_parallel(ex, params: dict, x: Tensor, actfn, glu: bool) -> Tensor:
+    """``mlp`` with d_ff over the model slots: slot m's columns of
+    ``up``/``gate`` (and ``b_up``), its rows of ``down``; the float32
+    partials summed over the slots and cast once, then ``b_down``."""
+    def slot(m, dev, xs):
+        up = matmul(xs, ex.part(params["up"], 1, m, dev))
+        if "b_up" in params:
+            up = up + ex.part(params["b_up"], 0, m, dev)
+        h = actfn(matmul(xs, ex.part(params["gate"], 1, m, dev))) * up \
+            if glu else actfn(up)
+        return dot_f32(h, ex.part(params["down"], 0, m, dev))
+
+    out = ex.row_parallel(slot, (x,), x.dtype)
     if "b_down" in params:
         out = out + params["b_down"]
     return out
@@ -280,7 +307,50 @@ def init_embedding(init: Init, vocab: int, d_model: int, dtype) -> dict:
 
 
 def embed(params: dict, tokens: Tensor) -> Tensor:
-    return F.embedding(tokens, params["table"])
+    from .shard_ctx import executor
+
+    ex = executor()
+    table = params["table"]
+    if ex is None:
+        return F.embedding(tokens, table)
+    if table.shape[0] % ex.M:
+        return F.embedding(tokens, ex.full(table))
+    rows = table.shape[0] // ex.M
+
+    def slot(m, dev, tok):
+        # the tokens in model slot m's vocabulary block, zeros elsewhere
+        idx = tok.long() - m * rows
+        inside = (idx >= 0) & (idx < rows)
+        e = F.embedding(idx.clamp(0, rows - 1), ex.part(table, 0, m, dev))
+        return e.float() * inside[..., None]
+
+    return ex.row_parallel(slot, (tokens,), table.dtype)
+
+
+def _vocab_parallel_ce(ex, table, h: Tensor, labels: Tensor) -> tuple:
+    """(log-sum-exp, gold logit) of (B, C) positions with the vocabulary
+    over the model slots: slot m's float32 logits against its rows of the
+    (V, D) table, the log-sum-exps combined over the slots, the gold
+    logit taken from the slot holding the label."""
+    rows = table.shape[0] // ex.M
+
+    def slot(m, dev, hs, ls):
+        logits = dot_f32(hs, ex.part(table, 0, m, dev).t())   # (b, C, V/M)
+        idx = ls.long() - m * rows
+        inside = (idx >= 0) & (idx < rows)
+        gold = logits.gather(-1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1), gold * inside
+
+    lse, gold = [], []
+    for line in ex.per_slot(slot, (h, labels)):
+        lse.append(torch.logsumexp(torch.stack([a for a, _ in line]), 0))
+        g = line[0][1]
+        for _, b in line[1:]:
+            g = g + b
+        gold.append(g)
+    lse, gold = ex.join(lse), ex.join(gold)
+    ex.count("all_reduce", ex.M * 2 * lse.numel() * 4, over=ex.M)
+    return lse, gold
 
 
 def unembed_chunked(table: Tensor, h: Tensor, labels: Tensor,
@@ -290,15 +360,24 @@ def unembed_chunked(table: Tensor, h: Tensor, labels: Tensor,
     each slice's recomputed in the backward rather than kept (V up to
     262k: the big-vocab guard); positions past the last whole chunk are
     dropped, as in the JAX package."""
+    from .shard_ctx import executor
+
     b, s, d = h.shape
     nchunk = max(s // chunk, 1)
     chunk = s // nchunk
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=h.device)
-    table_t = table.t()
+    ex = executor()
+    tp = ex is not None and table.shape[0] % ex.M == 0
+    if ex is not None and not tp:
+        table = ex.full(table)
+    table_t = None if tp else table.t()
 
     def body(hm, lm, mm):
+        if tp:
+            lse, gold = _vocab_parallel_ce(ex, table, hm, lm)
+            return ((lse - gold) * mm).sum()
         logits = dot_f32(hm, table_t)                    # (B, C, V)
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, lm[..., None].long())[..., 0]

@@ -44,6 +44,7 @@ from .transformer import (
     init_slot_cache,
     layer_plan,
 )
+from .shard_ctx import gather_fsdp, replicate
 from .tree import tree_leaves, tree_map, tree_stack
 
 Tensor = torch.Tensor
@@ -130,7 +131,7 @@ class Model:
         h = self._embed_tokens(params, batch["tokens"])
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
             pe = matmul(batch["patch_embeds"].to(h.dtype),
-                        params["frontend"])
+                        replicate(params["frontend"]))
             h = torch.cat([pe, h], dim=1)
         b, s = h.shape[0], h.shape[1]
         return h, _positions(b, s, h.device)
@@ -150,6 +151,10 @@ class Model:
         aux term; ``torch.autograd.grad`` of the loss gives the gradients
         of ``jax.value_and_grad(loss_fn, has_aux=True)``."""
         cfg = self.cfg
+        # on a bound mesh: the leaves outside the layer groups gathered
+        # here (the groups gather theirs at use); the identity without
+        params = {k: (v if k in ("groups", "head", "tail", "shared")
+                      else gather_fsdp(v)) for k, v in params.items()}
         if cfg.encoder is not None:
             return self._whisper_loss(params, batch)
         h, positions = self._embed_in(params, batch)
@@ -289,7 +294,7 @@ class Model:
         tokens = batch["tokens"]
         sd = tokens.shape[1]
         h = embed(params["embed"], tokens).to(enc_out.dtype)
-        h = h + params["pos_embed"][None, :sd]
+        h = h + replicate(params["pos_embed"])[None, :sd]
         pos = _positions(b, sd, h.device)
         return self._whisper_decode_stack(params, h, pos, enc_out, enc_pos)
 

@@ -12,6 +12,10 @@ tensor on the host. Shared experts run densely for every token. The
 router's load-balance and z losses come back as values. Gradients flow
 through the gates and the aux loss; the routing and the drops are
 discrete.
+
+On a bound mesh (``shard_ctx``) the experts split over the model slots
+(expert parallelism: each slot's one-hot einsums over its experts, the
+partials summed over the slots); the router runs replicated.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 
 from .layers import (Init, _dense_init, einsum_f32, init_mlp, matmul, mlp,
                      remat)
+from .shard_ctx import executor
 
 Tensor = torch.Tensor
 
@@ -50,6 +55,13 @@ def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
     """One sequence chunk: x (B, g, D) -> (out (B, g, D), (lb, z))."""
     e, k = moe_cfg.n_experts, moe_cfg.top_k
     b, g, d = x.shape
+    ex = executor()
+    experts_tp = ex is not None and e % ex.M == 0
+    if ex is not None:
+        # the router replicated; the experts too where they do not split
+        params = dict(params, **{
+            n: ex.full(params[n]) for n in ("router", "gate", "up", "down")
+            if n == "router" or not experts_tp})
     logits = matmul(x, params["router"]).float()               # (B, g, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)       # (B, g, k)
@@ -72,12 +84,11 @@ def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
     comb = ((onehot.float() * gate_vals[..., None]
              ).to(x.dtype)[..., None] * cap_oh[..., None, :]).sum(2)
 
-    xin = einsum_f32("bgec,bgd->becd", disp, x).to(x.dtype)
-    h = F.silu(einsum_f32("becd,edf->becf", xin, params["gate"])
-               ).to(x.dtype) * einsum_f32("becd,edf->becf", xin,
-                                          params["up"]).to(x.dtype)
-    xout = einsum_f32("becf,efd->becd", h, params["down"]).to(x.dtype)
-    out = einsum_f32("bgec,becd->bgd", comb, xout).to(x.dtype)
+    if experts_tp:
+        out = _experts_parallel(ex, params, x, disp, comb)
+    else:
+        out = _experts(params["gate"], params["up"], params["down"], x,
+                       disp, comb).to(x.dtype)
 
     # aux: load-balance (Switch) + router z-loss
     density = onehot.sum(2).float().mean(dim=(0, 1))
@@ -85,6 +96,32 @@ def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
     lb = e * (density / k * prob_mass).sum()
     z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
     return out, (lb, z)
+
+
+def _experts(gate, up, down, x, disp, comb) -> Tensor:
+    """The experts of `gate`/`up`/`down` on their dispatched tokens,
+    combined: float32 (B, g, D)."""
+    xin = einsum_f32("bgec,bgd->becd", disp, x).to(x.dtype)
+    h = F.silu(einsum_f32("becd,edf->becf", xin, gate)
+               ).to(x.dtype) * einsum_f32("becd,edf->becf", xin,
+                                          up).to(x.dtype)
+    xout = einsum_f32("becf,efd->becd", h, down).to(x.dtype)
+    return einsum_f32("bgec,becd->bgd", comb, xout)
+
+
+def _experts_parallel(ex, params, x, disp, comb) -> Tensor:
+    """The experts over the model slots (expert parallelism): slot m runs
+    its block of the experts on its dispatched tokens; the float32
+    combined partials are summed over the slots and cast once."""
+    n = params["gate"].shape[0] // ex.M
+
+    def slot(m, dev, xs, ds, cs):
+        own = slice(m * n, (m + 1) * n)
+        return _experts(*(ex.part(params[w], 0, m, dev)
+                          for w in ("gate", "up", "down")),
+                        xs, ds[:, :, own], cs[:, :, own])
+
+    return ex.row_parallel(slot, (x, disp, comb), x.dtype)
 
 
 def moe_apply(params: dict, x: Tensor, moe_cfg) -> tuple:

@@ -18,6 +18,10 @@ With ``cfg.remat`` each layer group of the training forward is
 rematerialized (``layers.remat``, the JAX package's ``jax.checkpoint`` of
 the scan body): only the group's input is kept for the backward, and the
 chunk checkpoints of its attention, MoE and scans nest inside.
+
+On a bound mesh ``gather_fsdp`` hands each group its gathered weights
+inside the group's checkpoint; the mixers of ``REPLICATED_MIXERS``
+compute replicated over the model axis.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import Init, init_mlp, init_rmsnorm, mlp, remat, rmsnorm
-from .shard_ctx import gather_fsdp
+from .shard_ctx import gather_fsdp, replicate
 from .tree import tree_index, tree_store
 
 Tensor = torch.Tensor
@@ -138,6 +142,11 @@ def _init_shared_block(init: Init, cfg: ArchConfig, dtype) -> dict:
 
 
 # ============================ train-path blocks ==================================
+# mixers that compute replicated over the model axis of a bound mesh: their
+# weights' model blocks are gathered whole (ROADMAP.md, divergences)
+REPLICATED_MIXERS = ("mla", "mamba", "mlstm", "slstm")
+
+
 def _shared_block(cfg: ArchConfig, shared: dict, h: Tensor,
                   y: Tensor) -> Tensor:
     """zamba2's shared block after its attention output `y`: the MLP on
@@ -148,6 +157,8 @@ def _shared_block(cfg: ArchConfig, shared: dict, h: Tensor,
 
 def _mixer_train(cfg: ArchConfig, slot: Slot, p: dict, shared: Optional[dict],
                  h: Tensor, positions: Tensor) -> Tensor:
+    if slot.mixer in REPLICATED_MIXERS:
+        p = replicate(p)     # no tensor-parallel form on a mesh
     if slot.mixer in ("global", "local"):
         window = cfg.sliding_window if slot.mixer == "local" else None
         return attn.attention_train(

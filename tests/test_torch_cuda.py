@@ -1318,3 +1318,68 @@ def test_cuda_lm_prefetched_batches_equal_host_batches(cuda):
     finally:
         it.close()
     assert not it._thread.is_alive()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (1, 8)])
+def test_cuda_lm_sharded_step_equals_one_slot(cuda, shape):
+    """Reduced gemma3-4b at float32 on a virtual mesh of the card ("head"
+    with the kv heads split, repeated, and "key"): the sharded step's
+    loss and gradients equal the one-slot step's on the card within
+    1e-5 of each leaf's largest entry; its batch comes from the prefetch
+    iterator, whole on the card, as ``train_loop`` hands it over."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData, make_batch_iterator
+    from repro_torch.distributed import elastic
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_leaves, tree_map
+
+    cfg = get_arch("gemma3-4b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    src = SyntheticLMData(cfg.vocab_size, 64, 4, seed=3)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in src.batch(0).items()}
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss1, _ = model.loss_fn(params, batch)
+    grads1 = torch.autograd.grad(loss1, leaves)
+    mesh = make_mesh(shape, ("data", "model"), devices=[cuda] * (
+        shape[0] * shape[1]))
+    ts = make_train_step(cfg, mesh)
+    placed = ts.params_sh.place(tree_map(lambda t: t.detach().clone(),
+                                         params))
+    it = make_batch_iterator(src, device=cuda)
+    try:
+        pbatch = next(it)
+    finally:
+        it.close()
+    assert pbatch["tokens"].is_cuda
+    loss2, _, grads2 = ts.executor.grads(model.loss_fn, placed, pbatch)
+    assert abs(float(loss2) - float(loss1)) <= 1e-5 * abs(float(loss1))
+    got = [elastic.gather(x) for x in elastic.placed_leaves(grads2)]
+    assert max(rel(a, b) for a, b in zip(got, grads1)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_within_half_a_step(cuda):
+    """``compressed_psum`` over 8 slots of the card: distinct gradients
+    within scale/2 of the plain mean (scale = the max over the slots /
+    127); equal gradients within max|g|/127 of themselves."""
+    from repro_torch.distributed.compression import (
+        compressed_psum, make_error_feedback_state)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per = [{"w": torch.randn((256, 512), generator=gen, device=cuda)}
+           for _ in range(8)]
+    err = [make_error_feedback_state(per[0]) for _ in range(8)]
+    mean, _ = compressed_psum(per, err)
+    stack = torch.stack([p["w"] for p in per])
+    scale = float(stack.abs().max()) / 127.0
+    assert float((mean["w"] - stack.mean(0)).abs().max()) <= scale / 2 + 1e-6
+    same, _ = compressed_psum([per[0]] * 8, err)
+    bound = float(per[0]["w"].abs().max()) / 127.0
+    assert float((same["w"] - per[0]["w"]).abs().max()) <= bound * 1.01

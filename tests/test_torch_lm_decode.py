@@ -164,3 +164,54 @@ def test_batched_positions_independent():
 
     np.testing.assert_allclose(last, solo(0), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(row1, solo(1), rtol=2e-4, atol=2e-4)
+
+
+BF16_TOL = 5e-2     # the repo's bf16 tolerance
+PREFIXES = (5, 13, 24)
+
+
+@pytest.mark.parametrize("name", ["gemma3-4b", "starcoder2-15b"])
+def test_bf16_decode_against_prefill_gap_is_the_references(name):
+    """A reduced config cast to bf16 in both packages, from the same
+    (bf16-rounded) parameters and tokens, 24 steps (gemma3-4b's ring of 8
+    wraps): the port's decode-vs-prefill gap (normalized logits, every
+    step of ``PREFIXES`` against the prefill of its prefix, one JAX
+    compile each) is no larger than the JAX
+    package's, and the port's logits, decode and prefill, lie within the
+    bf16 tolerance of the JAX package's."""
+    import dataclasses
+
+    bf = dict(param_dtype="bfloat16", act_dtype="bfloat16")
+    cfg = dataclasses.replace(get_arch(name).reduced(), **bf)
+    model = build_model(cfg)
+    jmodel = jbuild_model(dataclasses.replace(JARCHS[name].reduced(), **bf))
+    p = tree_map(lambda t: t.to(torch.bfloat16), lm_params_to_torch(
+        shared_params(get_arch(name).reduced(), 0), device="cpu"))
+    jp = jax.tree.map(
+        lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), p)
+    b, s = 2, 24
+    toks = np.random.default_rng(100).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    cache, jcache = model.init_cache(b, s, device="cpu"), \
+        jmodel.init_cache(b, s)
+    step, prefill = jax.jit(jmodel.serve_step), jax.jit(jmodel.prefill_fn)
+    gap, jgap = 0.0, 0.0
+    for i in range(s):
+        pos = np.full((b,), i, np.int32)
+        d = model.serve_step(p, cache, torch.from_numpy(toks[:, i:i + 1]),
+                             torch.from_numpy(pos)).float().numpy()
+        jd, jcache = step(jp, jcache, jnp.asarray(toks[:, i:i + 1]),
+                          jnp.asarray(pos))
+        jd = np.asarray(jd, np.float32)
+        assert rel(d, jd) <= BF16_TOL, (name, i)
+        if i + 1 not in PREFIXES:
+            continue
+        f = model.prefill_fn(p, {"tokens": torch.from_numpy(
+            toks[:, :i + 1])}).float().numpy()
+        jf = np.asarray(prefill(jp, {"tokens": jnp.asarray(
+            toks[:, :i + 1])}), np.float32)
+        gap = max(gap, float(np.abs(normalized(d) - normalized(f)).max()))
+        jgap = max(jgap, float(np.abs(normalized(jd)
+                                      - normalized(jf)).max()))
+        assert rel(f, jf) <= BF16_TOL, (name, i)
+    assert gap <= jgap + 1e-6, (gap, jgap)

@@ -20,7 +20,11 @@ the fault drill and the resume.
 * The ``fail_at`` drill restarts once and ends on the unfailed run's
   parameters bit for bit; a run resumed from a checkpoint continues the
   uninterrupted run's losses bit for bit.
-* A mesh of two slots raises; ``device="cuda"`` without a card raises.
+* The step on a mesh of two slots equals the one-slot step; the loop on
+  a (2, 2) mesh equals the one-slot loop, its fault drill restores onto
+  the mesh bit for bit, and a resume continues onto a (1, 2) mesh
+  (``tests/test_torch_lm_shard.py`` holds the executor itself);
+  ``device="cuda"`` without a card raises.
 """
 import os
 import shutil
@@ -43,6 +47,7 @@ from repro.optim import sgd as jsgd
 from repro_torch.configs import ARCHS, SHAPES, get_arch
 from repro_torch.convert import lm_opt_state_to_torch, lm_params_to_torch
 from repro_torch.data import SyntheticLMData, make_batch_iterator
+from repro_torch.distributed import elastic
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.launch.train import train_loop
@@ -160,10 +165,31 @@ def test_train_step_matches_jax(name, accum, fixed_sgd):
     assert max(errs) <= TOL, (name, accum, max(errs))
 
 
-def test_train_step_on_two_slots_raises():
-    mesh = make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        steps.make_train_step(get_arch("gemma3-4b").reduced(), mesh)
+def test_train_step_on_two_slots_raises(fixed_sgd):
+    """The two-slot step runs and equals the one-slot step (3 steps of
+    SGD at a fixed rate, each parameter leaf within 1e-5 of its largest
+    entry); only a mesh without its devices raises. (The name dates from
+    when the step refused a mesh of more than one slot.)"""
+    cfg = get_arch("gemma3-4b").reduced()
+    data = SyntheticLMData(cfg.vocab_size, 16, 4, seed=1)
+    with pytest.raises(RuntimeError, match="needs 2 devices"):
+        make_mesh((2, 1), ("data", "model"), devices=["cpu"])
+    outs = []
+    for mesh in (CPU, make_mesh((2, 1), ("data", "model"),
+                                devices=["cpu", "cpu"])):
+        ts = steps.make_train_step(cfg, mesh)
+        params, state = ts.init_state(torch.Generator().manual_seed(0))
+        losses = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in data.batch(i).items()}
+            params, state, metrics = ts.fn(params, state, batch)
+            losses.append(float(metrics["loss"]))
+        if ts.params_sh is not None:
+            params = [elastic.gather(x) for x in elastic.placed_leaves(params)]
+        outs.append((losses, tree_leaves(params)))
+    np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-5)
+    assert max(rel(a, b) for a, b in zip(outs[1][1], outs[0][1])) <= 1e-5
 
 
 # -- the loop --------------------------------------------------------------------------
@@ -218,6 +244,45 @@ def test_resume_continues_the_losses(tmp_path):
     resumed = train_loop(cfg, ckpt_dir=root, **kw)
     assert resumed.losses == full.losses[2:]
     assert _same_bits(resumed.state[0], full.state[0])
+
+
+def test_train_loop_on_a_mesh_drill_and_resume(tmp_path, monkeypatch):
+    """``train_loop`` on a (2, 2) CPU mesh (SGD at a fixed rate): the
+    uninterrupted run equals the one-slot loop (losses and parameters
+    within 1e-5); the ``fail_at`` drill restarts once from a checkpoint
+    with specs and ends on the uninterrupted run's parameters bit for
+    bit; a resume from step 2 onto a (1, 2) mesh (the surviving slots of
+    ``shrink_mesh``) continues the losses and ends within 1e-5."""
+    sgd = (optimizers.sgd(constant(0.05)), "sgd")
+    monkeypatch.setattr(steps, "select_optimizer",
+                        lambda model, total_steps=0: sgd)
+    cfg = get_arch("starcoder2-15b").reduced()
+    kw = dict(LOOP, steps=6, ckpt_every=2)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    one = train_loop(cfg, device="cpu", **kw)
+    full = train_loop(cfg, mesh, ckpt_dir=str(tmp_path / "a"), **kw)
+    failed = train_loop(cfg, mesh, ckpt_dir=str(tmp_path / "b"), fail_at=4,
+                        **kw)
+    for s in (4, 6):
+        shutil.rmtree(str(tmp_path / "a" / f"step_{s}"))
+    live = elastic.shrink_mesh(mesh, [2, 3])
+    small = make_mesh((1, 2), ("data", "model"),
+                      devices=list(live.devices.flat[:2]))
+    resumed = train_loop(cfg, small, ckpt_dir=str(tmp_path / "a"), **kw)
+
+    def leaves(res):
+        return [elastic.gather(x) for x in elastic.placed_leaves(res.state[0])]
+
+    np.testing.assert_allclose(full.losses, one.losses, rtol=1e-5)
+    assert max(rel(a, b) for a, b in zip(
+        leaves(full), tree_leaves(one.state[0]))) <= 1e-5
+    assert full.restarts == 0 and failed.restarts == 1
+    assert failed.losses[-2:] == full.losses[-2:]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(failed),
+                                                 leaves(full)))
+    np.testing.assert_allclose(resumed.losses, full.losses[2:], rtol=1e-5)
+    assert max(rel(a, b) for a, b in zip(leaves(resumed),
+                                         leaves(full))) <= 1e-5
 
 
 def test_train_loop_without_a_card_raises():
