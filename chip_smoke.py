@@ -283,6 +283,28 @@ Phases (any failure ends the run with a non-zero exit code):
    uninterrupted run's parameters bit for bit) and a resume from a
    checkpoint onto (1, 2), the survivors of ``shrink_mesh`` (<= 1e-5).
    One ``lm_shard`` line.
+12. dryrun — the dry run (``configs.input_specs``, ``make_prefill_step``
+   and ``make_serve_step`` on a mesh, ``roofline/op_cost.py``,
+   ``roofline/analysis.py``'s roofline terms, ``launch/dryrun.py``): (a)
+   the H100 constants of ``launch/mesh.py`` beside the card's own memory
+   and name (``constants`` line); (b) gemma3-4b's one-slot train step at
+   phase 10's batch counted on ``meta`` (FLOPs; predicted peak: the
+   parameters and optimizer state plus the counter's peak of the step)
+   against the same step run on the card under the same counter: FLOPs
+   equal exactly, the peak within ``DRY_PEAK_TOL`` of
+   ``max_memory_allocated`` (``dryrun_one_slot`` line); (c) gemma3-4b at
+   full width, bf16, on (2, 4) ("head") and (1, 16) ("key", the cache's
+   sequence split): a prefill of 1,100 tokens and 8 decode steps over
+   phase 9's 8 requests (s_max 2048) against one slot, logits within
+   5e-2, decode argmax equal (a differing one only where the one-slot
+   step's top two logits lie within twice the step's largest logit
+   difference; both counts kept), and the executor's collective counts equal
+   to the same steps' on a mesh of ``meta`` slots (``dryrun_mesh``
+   line); (d) the launches and halo bytes of phase 7's sharded dust and
+   log-twin applies against ``dryrun.icr_geometry``; (e) the dry run's
+   rows of gemma3-4b's train_4k, prefill_32k and decode_32k cells and
+   icr-dust-pod on the 16x16 mesh, each a process of its own on one CPU
+   core, started before phase 9 and read here. One ``dryrun`` line.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -297,6 +319,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -307,10 +330,8 @@ ROOT = Path(__file__).resolve().parent
 S = 8                        # samples per apply (the serving slab)
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 REPS = 25                    # timed repetitions after warm-up
-F32_PEAK = 67e12             # H100 SXM f32 (non-tensor) FLOP/s, data sheet
-# device memory bandwidth by card name (NVIDIA data sheets)
-BANDWIDTH = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-             ("H100", 3.35e12)]
+# the card's peaks and bandwidths: repro_torch.launch.mesh (imported in
+# the functions: this module imports nothing of the repo at its top)
 
 FWD_SRC = "src/repro_torch/kernels/csrc/refine_1d.cu"
 ADJ_SRC = "src/repro_torch/kernels/csrc/refine_1d_adjoint.cu"
@@ -749,8 +770,10 @@ def main_path_smem(models) -> dict:
 
 
 def bound(moved, fmas, bandwidth) -> tuple:
+    from repro_torch.launch.mesh import PEAK_FLOPS_F32
+
     t_bytes = moved / bandwidth * 1e3
-    t_ops = 2 * fmas / F32_PEAK * 1e3
+    t_ops = 2 * fmas / PEAK_FLOPS_F32 * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2436,6 +2459,8 @@ DIST_SLOTS = 8
 # DistributedICR refuses (it runs #3 sharded, per-family matrices sliced)
 DIST_AXES = {"dust": 1, "regular": 0, "log_polar": 0, "log_reflect": 0}
 DIST_SERVED = ("dust", "regular")
+# (chart, dtype) -> the launches and halo bytes of the sharded apply
+DIST_DRY: dict = {}
 
 
 def dist_mesh(axis: str, device="cuda"):
@@ -2502,7 +2527,7 @@ def dist_apply_case(cname, chart, kernel, mats32, flush, gen,
     import torch
 
     from repro_torch import ICR
-    from repro_torch.core.distributed import DistributedICR
+    from repro_torch.core.distributed import HALO_BYTES, DistributedICR
     from repro_torch.core.refine import LevelGeom
     from repro_torch.kernels import build, dispatch
 
@@ -2522,10 +2547,15 @@ def dist_apply_case(cname, chart, kernel, mats32, flush, gen,
         xi = icr.init_xi(gen.manual_seed(11), batch=S)
         _sync(device)
         build.LAUNCHES.clear()
+        HALO_BYTES[0] = 0
         with plain_guard(f"{cname} {dname}", device):
             blocks = dist.apply_sqrt_batch(placed, xi)
             _sync(device)
         counts = +collections.Counter(build.LAUNCHES)
+        # what the dry run must predict from the geometry (phase 12d)
+        DIST_DRY[(cname, dname)] = {"chart": chart, "axis": axis,
+                                    "launches": dict(counts),
+                                    "halo_bytes_moved": HALO_BYTES[0]}
         launches.update(counts)
         devices = len({s.device for s in dist.ring()})
         want = collections.Counter()
@@ -2558,7 +2588,9 @@ def dist_apply_case(cname, chart, kernel, mats32, flush, gen,
             "unsharded_enqueue_ms": enqueue_ms(
                 lambda: icr.apply_sqrt_batch(mats, xi)),
             "halo_bytes": [dist.halo_bytes(lvl, S, itemsize)
-                           for lvl in range(k, chart.n_levels)]}
+                           for lvl in range(k, chart.n_levels)],
+            "halo_bytes_moved": DIST_DRY[(cname, dname)][
+                "halo_bytes_moved"]}
         del blocks, got, ref, placed, xi
     return launches, record
 
@@ -3468,8 +3500,9 @@ def check_lm(card) -> dict:
     if n_params != srv.model.param_count():
         raise RuntimeError("param_count differs from the drawn tree")
     # the step reads every weight and, at most, every cache row once
-    name = torch.cuda.get_device_name(0)
-    bandwidth = next(bw for key, bw in BANDWIDTH if key in name)
+    from repro_torch.launch.mesh import bandwidth_of
+
+    bandwidth = bandwidth_of(torch.cuda.get_device_name(0))
     record.update(param_count=n_params, param_bytes=param_bytes,
                   cache_bytes=cache_bytes, bandwidth=bandwidth,
                   weight_bound_ms=param_bytes / bandwidth * 1e3,
@@ -3572,7 +3605,6 @@ LMT_REMAT_TOL = 1e-6         # reduced: remat on against off, on the card
 LMT_OPT_TOL = 1e-6           # one optimizer step, card against CPU
 LMT_COS_MIN = 0.99           # gemma3-4b: bf16 gradients against float32
 LMT_LR = 1e-3                # the optimizers' step in 10a
-BF16_PEAK = 989e12           # H100 SXM dense bf16 FLOP/s, data sheet
 
 
 def lmt_grads(model, params, batch) -> tuple:
@@ -3848,7 +3880,7 @@ def lmt_full(cfg, seq, batch_rows, device="cuda", steps_n=LMT_STEPS) -> dict:
     import torch
 
     from repro_torch.data import SyntheticLMData
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_host_mesh
     from repro_torch.launch.steps import active_param_count, make_train_step
     from repro_torch.launch.train import train_loop
     from repro_torch.models import build_model, transformer
@@ -3937,7 +3969,7 @@ def lmt_full(cfg, seq, batch_rows, device="cuda", steps_n=LMT_STEPS) -> dict:
     rec["active_params"] = active
     rec["tokens_per_s"] = tokens / (rec["step_ms"] / 1e3)
     rec["model_flops"] = model_flops_train(active, tokens)
-    rec["mfu"] = rec["model_flops"] / (rec["step_ms"] / 1e3) / BF16_PEAK
+    rec["mfu"] = rec["model_flops"] / (rec["step_ms"] / 1e3) / PEAK_FLOPS_BF16
     with torch.no_grad():
         rec["loss_step0_after"] = float(model.loss_fn(params, batch0)[0])
     rec["loss_step0_before"] = res.losses[0]
@@ -4504,6 +4536,320 @@ def check_lm_shard(card) -> dict:
     return record
 
 
+# -- phase 12: the dry run (configs.input_specs, make_prefill_step and
+# make_serve_step on a mesh, roofline/op_cost.py, launch/dryrun.py) -------
+DRY_CELLS = ("gemma3-4b:train_4k:pod", "gemma3-4b:prefill_32k:pod",
+             "gemma3-4b:decode_32k:pod", "icr-dust-pod:sample:pod")
+DRY_TIMEOUT = 900            # 12e: seconds a background cell may take
+DRY_PEAK_TOL = 0.05          # 12b: predicted peak against the card's
+DRY_MESHES = {"head": (2, 4), "key": (1, 16)}   # 12c, phase 11's
+DRY_STEPS = 8                # 12c: decode steps over the requests' tokens
+
+
+def dry_cells_start() -> list:
+    """12e: the dry run's rows of ``DRY_CELLS``, each in a process of its
+    own on one CPU core (``python -m repro_torch.launch.dryrun --cell``),
+    started now and read by ``dry_cells_finish``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for cell in DRY_CELLS:
+        procs.append((cell, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
+             cell, "--json-only"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))))
+    return procs
+
+
+def dry_cells_stop(procs) -> None:
+    for _, _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dry_cells_finish(procs) -> dict:
+    """12e: each cell's row (status OK) and its seconds from its start."""
+    rows = {}
+    for cell, t0, p in procs:
+        left = max(DRY_TIMEOUT - (time.perf_counter() - t0), 1.0)
+        out, err = p.communicate(timeout=left)
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"dry run {cell}: exit {p.returncode}: "
+                               f"{(err or out)[-1500:]}")
+        row = json.loads(lines[-1])
+        row["seconds"] = time.perf_counter() - t0
+        rows[cell] = row
+    bad = [c for c, r in rows.items() if r["status"] != "OK"]
+    if bad:
+        raise RuntimeError(f"dry run cells failed: {bad}")
+    return rows
+
+
+def dry_constants(card) -> dict:
+    """12a: the constants of ``launch/mesh.py`` beside the card's own."""
+    import torch
+
+    from repro_torch.launch import mesh as hw
+
+    name = torch.cuda.get_device_name(0)
+    props = torch.cuda.get_device_properties(0)
+    rec = {"card": card, "name": name, "total_memory": props.total_memory,
+           "HBM_BYTES": hw.HBM_BYTES, "sm_count": props.multi_processor_count,
+           "bandwidth_of_name": hw.bandwidth_of(name), "HBM_BW": hw.HBM_BW,
+           "PEAK_FLOPS_BF16": hw.PEAK_FLOPS_BF16,
+           "PEAK_FLOPS_F32": hw.PEAK_FLOPS_F32, "NVLINK_BW": hw.NVLINK_BW,
+           "IB_BW": hw.IB_BW}
+    rec["ok"] = (hw.HBM_BYTES <= props.total_memory <= 1.1 * hw.HBM_BYTES
+                 and rec["bandwidth_of_name"] == hw.HBM_BW)
+    return rec
+
+
+def dry_one_slot(device="cuda") -> dict:
+    """12b: gemma3-4b's one-slot train step at phase 10's batch (bf16,
+    remat, AdamW), counted on ``meta`` (its FLOPs and its predicted peak:
+    the parameters and optimizer state plus the counter's peak of what
+    the step allocates) and run on the card under the same counter (its
+    FLOPs) with ``max_memory_allocated`` over the step, less what was
+    allocated before the parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.roofline.analysis import analyze_step
+    from repro_torch.roofline.op_cost import HOME, OpCounter
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), remat=True)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    t0 = time.perf_counter()
+    ts = make_train_step(cfg, make_host_mesh(devices=["meta"]))
+    p = ts.model.params_spec()
+    opt = ts.optimizer.init(p)
+    static = nbytes(p) + nbytes(opt)
+    batch = {k: torch.empty((LMT_BATCH, LMT_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    _, _, meta = analyze_step(ts.fn, p, opt, batch, static={HOME: static})
+    rec = {"arch": LM_ARCH, "seq_len": LMT_SEQ, "global_batch": LMT_BATCH,
+           "meta_flops": meta.flops, "meta_bytes": meta.bytes,
+           "meta_ops": meta.ops, "static_bytes": static,
+           "predicted_peak_bytes": static + meta.peak[HOME],
+           "meta_s": time.perf_counter() - t0}
+    del ts, p, opt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ts = make_train_step(cfg, make_host_mesh(devices=[device]))
+    params = ts.model.init_params(
+        torch.Generator(device=device).manual_seed(0))
+    opt = ts.optimizer.init(params)
+    data = SyntheticLMData(cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCounter() as card_count:
+        _, _, metrics = ts.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    rec.update(card_flops=card_count.flops, card_ops=card_count.ops,
+               card_loss=float(metrics["loss"]), base_bytes=base,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               card_s=time.perf_counter() - t0)
+    rec["measured_peak_bytes"] = rec["max_memory_allocated"] - base
+    rec["peak_rel_err"] = (rec["predicted_peak_bytes"]
+                           / rec["measured_peak_bytes"] - 1.0)
+    rec["ok"] = (rec["meta_flops"] == rec["card_flops"] > 0
+                 and abs(rec["peak_rel_err"]) <= DRY_PEAK_TOL
+                 and math.isfinite(rec["card_loss"]))
+    del ts, params, opt, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dry_mesh_case(cfg, params, layout, prompt, toks, device="cuda") -> dict:
+    """12c on one virtual mesh of the card: the prefill of `prompt` and
+    ``DRY_STEPS`` decode steps of `toks` (rows: requests, teacher
+    forced) against one slot at bf16 (logits within ``LM_TF_TOL`` of the
+    largest, decode argmax equal at every step and row), and each step's
+    collective counts against the same step's on a mesh of ``meta``
+    slots."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.tree import tree_map
+
+    shape = DRY_MESHES[layout]
+    rows = toks.shape[0]
+    rec = {"layout": layout, "mesh": list(shape), "rows": rows,
+           "steps": DRY_STEPS, "prompt_len": prompt.shape[1]}
+    t0 = time.perf_counter()
+    model, _, one_for = make_prefill_step(cfg, lms_mesh((1, 1), device))
+    batch = {"tokens": prompt}
+    ref = one_for(batch)[0](params, batch)
+    _, p_sh, fn_for = make_prefill_step(cfg, lms_mesh(shape, device))
+    placed = p_sh.place(params)
+    fn = fn_for(batch)[0]
+    got = fn(placed, batch)
+    rec["prefill_rel_err"] = float((got - ref).abs().max()
+                                   / ref.abs().max())
+    rec["prefill_counts"] = lms_counts(fn.executor)
+    _, mp_sh, mfn_for = make_prefill_step(cfg, lms_mesh(shape, "meta"))
+    mfn = mfn_for(batch)[0]
+    mfn(mp_sh.place(model.params_spec()),
+        {"tokens": torch.empty(prompt.shape, dtype=torch.int32,
+                               device="meta")})
+    rec["prefill_counts_equal"] = lms_counts(mfn.executor) == \
+        rec["prefill_counts"]
+    rec["prefill_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, one, _, _, _ = make_serve_step(cfg, lms_mesh((1, 1), device), rows,
+                                      LM_S_MAX)
+    cache1 = model.init_cache(rows, LM_S_MAX, device=device)
+    _, step, _, c_sh, c_spec = make_serve_step(cfg, lms_mesh(shape, device),
+                                               rows, LM_S_MAX)
+    cache = c_sh.place(tree_map(torch.clone, cache1))
+    err, agree, decided = 0.0, 0, 0
+    for t in range(DRY_STEPS):
+        tok = toks[:, t:t + 1]
+        pos = torch.full((rows,), t, dtype=torch.int32, device=device)
+        want = one(params, cache1, tok, pos)
+        got = step(placed, cache, tok, pos)
+        diff = (got - want).abs().max()
+        err = max(err, float(diff / want.abs().max()))
+        same = got.argmax(-1) == want.argmax(-1)
+        agree += int(same.sum())
+        # a differing argmax counts against the step unless the one-slot
+        # step's top two logits lie within twice the largest difference
+        top2 = want.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * diff
+        decided += int((same | tie).sum())
+    rec["decode_rel_err"] = err
+    rec["argmax_equal"] = agree
+    rec["argmax_equal_or_tied"] = decided
+    rec["argmax_total"] = rows * DRY_STEPS
+    rec["decode_counts"] = lms_counts(step.executor)
+    _, mstep, mp_sh, mc_sh, mc_spec = make_serve_step(
+        cfg, lms_mesh(shape, "meta"), rows, LM_S_MAX)
+    meta_tok = torch.empty((rows, 1), dtype=torch.int32, device="meta")
+    mstep(mp_sh.place(model.params_spec()), mc_sh.place(mc_spec), meta_tok,
+          torch.empty((rows,), dtype=torch.int32, device="meta"))
+    rec["decode_counts_equal"] = lms_counts(mstep.executor) == \
+        rec["decode_counts"]
+    rec["decode_s"] = time.perf_counter() - t0
+    rec["ok"] = (rec["prefill_rel_err"] <= LM_TF_TOL
+                 and rec["decode_rel_err"] <= LM_TF_TOL
+                 and decided == rows * DRY_STEPS
+                 and rec["prefill_counts_equal"]
+                 and rec["decode_counts_equal"])
+    del placed, cache, cache1
+    return rec
+
+
+def dry_mesh(device="cuda") -> dict:
+    """12c: gemma3-4b at full width (bf16, seeded weights) on the virtual
+    meshes of ``DRY_MESHES``: a prefill of ``LM_DECODE_LEN`` tokens and the
+    serve step over the first ``DRY_STEPS`` prompt tokens of phase 9's
+    ``LM_REQUESTS`` requests (s_max ``LM_S_MAX``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(LM_ARCH)
+    params = build_model(cfg).init_params(
+        torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    toks = torch.tensor(np.stack([p[:DRY_STEPS] for p in prompts]),
+                        dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, LM_DECODE_LEN),
+                           generator=gen, device=device, dtype=torch.int32)
+    with torch.no_grad():
+        out = {layout: dry_mesh_case(cfg, params, layout, prompt, toks,
+                                     device)
+               for layout in DRY_MESHES}
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dry_icr(device="cuda") -> dict:
+    """12d: phase 7's sharded dust and log-twin applies (S = 8, f32 and
+    bf16, 8 slots of one card) against ``dryrun.icr_geometry`` on the
+    same ring: launches per kernel and the halo bytes taken from ring
+    neighbours."""
+    import torch
+
+    from repro_torch import ICR, matern32
+    from repro_torch.core.distributed import DistributedICR
+    from repro_torch.launch.dryrun import icr_geometry
+
+    out = {}
+    for (cname, dname), seen in DIST_DRY.items():
+        if cname not in ("dust", "log_reflect"):
+            continue
+        mesh = dist_mesh("space", device)
+        dist = DistributedICR(ICR(seen["chart"], matern32.with_defaults(
+            rho=1.0), device="meta"), mesh, shard_axis=seen["axis"])
+        dtype = torch.bfloat16 if dname == "bfloat16" else torch.float32
+        geo = icr_geometry(dist, samples=S, dtype=dtype,
+                           devices=len(mesh.distinct_devices()))
+        rec = {"launches": geo["launches"],
+               "launches_phase7": seen["launches"],
+               "halo_bytes": sum(geo["halo_bytes"]),
+               "halo_bytes_phase7": seen["halo_bytes_moved"]}
+        rec["ok"] = (rec["launches"] == rec["launches_phase7"]
+                     and rec["halo_bytes"] == rec["halo_bytes_phase7"] > 0)
+        out[f"{cname}-{dname}"] = rec
+    return out
+
+
+def check_dryrun(card, procs) -> dict:
+    """Phase 12: 12a the card's constants, 12b the one-slot train step
+    counted on ``meta`` against the card, 12c the sharded prefill and
+    serve steps against one slot, 12d the ICR geometry against phase 7,
+    12e the dry run's rows (``procs``: started before phase 9). Returns
+    the ``dryrun`` record; a failed check raises."""
+    t_phase = time.perf_counter()
+    record = {"constants": dry_constants(card)}
+    print("constants: " + json.dumps(record["constants"]), flush=True)
+    if not record["constants"]["ok"]:
+        raise RuntimeError(f"phase 12a: {record['constants']}")
+    record["one_slot"] = dry_one_slot()
+    print("dryrun_one_slot: " + json.dumps(record["one_slot"]), flush=True)
+    if not record["one_slot"]["ok"]:
+        raise RuntimeError(f"phase 12b: {record['one_slot']}")
+    record["mesh"] = dry_mesh()
+    print("dryrun_mesh: " + json.dumps(record["mesh"]), flush=True)
+    bad = [k for k, r in record["mesh"].items() if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"phase 12c failed on {bad}")
+    record["icr"] = dry_icr()
+    bad = [k for k, r in record["icr"].items() if not r["ok"]]
+    if bad or len(record["icr"]) != 4:
+        raise RuntimeError(f"phase 12d failed: {record['icr']}")
+    record["gpu_s"] = time.perf_counter() - t_phase
+    record["cells"] = dry_cells_finish(procs)
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -4528,7 +4874,9 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bandwidth = next((bw for key, bw in BANDWIDTH if key in name), None)
+    from repro_torch.launch.mesh import bandwidth_of
+
+    bandwidth = bandwidth_of(name)
     if bandwidth is None:
         print(f"chip_smoke: no bandwidth known for {name!r}",
               file=sys.stderr)
@@ -4703,19 +5051,31 @@ def main() -> int:
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # -- 9. LM serving: ten reduced archs, gemma3-4b at full width ----------
-    del flush
-    print("lm_serve: " + json.dumps(check_lm(card)), flush=True)
-    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    # the dry run's cells (phase 12e) count on the host's spare cores
+    # while phases 9-12 drive the card
+    procs = dry_cells_start()
+    try:
+        # -- 9. LM serving: ten reduced archs, gemma3-4b at full width ------
+        del flush
+        print("lm_serve: " + json.dumps(check_lm(card)), flush=True)
+        print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
-    # -- 10. LM training: ten reduced archs, gemma3-4b at full width -------
-    print("lm_train: " + json.dumps(check_lm_train(card)), flush=True)
-    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+        # -- 10. LM training: ten reduced archs, gemma3-4b at full width ---
+        print("lm_train: " + json.dumps(check_lm_train(card)), flush=True)
+        print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
-    # -- 11. the sharded LM executor: reduced archs, gemma3-4b sharded -----
-    print("lm_shard: " + json.dumps(check_lm_shard(card)), flush=True)
+        # -- 11. the sharded LM executor: reduced archs, gemma3-4b sharded -
+        print("lm_shard: " + json.dumps(check_lm_shard(card)), flush=True)
+        print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+        # -- 12. the dry run: constants, meta against the card, mesh steps -
+        print("dryrun: " + json.dumps(check_dryrun(card, procs)),
+              flush=True)
+    finally:
+        dry_cells_stop(procs)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))

@@ -1,8 +1,9 @@
 from .base import (ArchConfig, EncoderConfig, MLAConfig, MoEConfig, SHAPES,
-                   ShapeCell, SSMConfig)
+                   ShapeCell, SSMConfig, input_specs)
 from .registry import ARCHS, ICR_ARCHS, arch_names, get_arch
 
 __all__ = [
     "ArchConfig", "EncoderConfig", "MLAConfig", "MoEConfig", "SSMConfig",
-    "SHAPES", "ShapeCell", "ARCHS", "ICR_ARCHS", "arch_names", "get_arch",
+    "SHAPES", "ShapeCell", "input_specs", "ARCHS", "ICR_ARCHS",
+    "arch_names", "get_arch",
 ]

@@ -2,8 +2,8 @@
 
 Every assigned architecture is a frozen ``ArchConfig``; ``reduced()`` derives
 the CPU-smoke-test variant (same family/topology, tiny widths). Input shapes
-(the 4 assigned shape cells) live in ``SHAPES``. The dry-run's
-``input_specs`` is not here yet (ROADMAP.md).
+(the 4 assigned shape cells) live in ``SHAPES``; ``input_specs`` gives
+the dry run's stand-ins for a cell's inputs, ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -167,3 +167,40 @@ SHAPES = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell, *, for_train: bool = None):
+    """Stand-ins for every model input of this cell: ``meta`` tensors
+    (the JAX package's ``ShapeDtypeStruct``), nothing allocated.
+
+    decode cells describe ONE serve_step: a single new token per sequence
+    and its position; the seq_len-deep cache comes separately
+    (``Model.cache_spec``). whisper's decoder length is capped at its
+    ``max_target``; a vision frontend's patch tokens count toward the
+    cell's sequence length. ``for_train`` is accepted and unused, as in
+    the JAX package.
+    """
+    del for_train
+    s, b = cell.seq_len, cell.global_batch
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind == "decode":
+        return {"tokens": spec((b, 1)), "positions": spec((b,))}
+    act = as_dtype(cfg.act_dtype)
+    if cfg.encoder is not None:
+        dec = min(s, cfg.encoder.max_target)
+        return {"enc_embeds": spec((b, cfg.encoder.n_frames, cfg.d_model),
+                                   act),
+                "tokens": spec((b, dec)), "labels": spec((b, dec))}
+    specs = {}
+    s_text = s
+    if cfg.frontend == "vision_stub":
+        s_text = s - cfg.n_frontend_tokens
+        specs["patch_embeds"] = spec((b, cfg.n_frontend_tokens, cfg.d_model),
+                                     act)
+    specs["tokens"] = spec((b, s_text))
+    if cell.kind == "train":
+        specs["labels"] = spec((b, s_text))
+    return specs

@@ -51,7 +51,10 @@ from .charts import Chart
 from .icr import ICR, _level_mats
 from .refine import LevelGeom, refine_level
 
-__all__ = ["DistributedICR", "reflect_edges"]
+__all__ = ["DistributedICR", "HALO_BYTES", "reflect_edges"]
+
+# bytes the halo exchanges took from ring neighbours (reset by the caller)
+HALO_BYTES = [0]
 
 
 def reflect_edges(x: torch.Tensor, axis: int, b: int) -> torch.Tensor:
@@ -280,7 +283,8 @@ class DistributedICR:
         """Each block with its ring halos of width `b` along the shard axis
         (after the leading sample dim): the neighbours' edge rows, copied
         to the slot's device; the global edges reflect locally (the
-        chart's reflect boundary)."""
+        chart's reflect boundary). ``HALO_BYTES`` counts the bytes taken
+        from the neighbours."""
         ax = 1 + self.shard_axis
         n = len(fields)
         out = []
@@ -291,10 +295,12 @@ class DistributedICR:
             else:
                 prev = fields[i - 1]
                 left = prev.narrow(ax, prev.shape[ax] - b, b).to(local.device)
+                HALO_BYTES[0] += left.numel() * left.element_size()
             if i == n - 1:
                 right = local.narrow(ax, size - b - 1, b).flip(ax)
             else:
                 right = fields[i + 1].narrow(ax, 0, b).to(local.device)
+                HALO_BYTES[0] += right.numel() * right.element_size()
             out.append(torch.cat([left, local, right], dim=ax))
         return out
 

@@ -416,16 +416,18 @@ def _nd_vjp_plans(geom: LevelGeom, charted: tuple, samples: int,
 
 
 def level_launch_plans(chart, lvl: int, route: str | None = None, *,
-                       samples: int = 1, dtype=None) -> dict:
+                       samples: int = 1, dtype=None,
+                       geom: LevelGeom | None = None) -> dict:
     """Every launch one level of `chart` makes on `route` (default: its
     kernel route): ``{"forward": [plans], "vjp": [plans]}``, the VJP at
     fixed matrices. The ``nd-axes`` route's forward is its per-axis passes
     (the last axis first, axis 0 with noise), its VJP their adjoints in
-    reverse."""
+    reverse. ``geom`` replaces the level's geometry (a slot's block of a
+    sharded level, ``DistributedICR._local_geom``)."""
     from .icr_refine import adjoint_1d_plan, refine_1d_plan
 
     dtype = storage_width(dtype)[1]
-    geom = LevelGeom.for_level(chart, lvl)
+    geom = geom or LevelGeom.for_level(chart, lvl)
     route = route or route_for(geom, have_axis_mats=chart.ndim > 1)
     charted = _charted_axes(chart, geom)
     T, fsz, csz = tuple(geom.T), geom.n_fsz, geom.n_csz

@@ -18,9 +18,13 @@ it: each slot gets its block, on its device, one copy per (device, block)
 so that slots sharing a card share the tensor (the port's
 ``jax.device_put(x, NamedSharding(mesh, spec))``).
 
-Mesh layouts of the JAX package (its TPU v5e pod is 16x16 chips):
-``make_production_mesh`` builds (data=16, model=16), or (pod=2, data=16,
-model=16) with ``multi_pod``; ICR's spatial ring is the axes flattened.
+Mesh layouts of the JAX package: ``make_production_mesh`` builds
+(data=16, model=16), or (pod=2, data=16, model=16) with ``multi_pod``;
+ICR's spatial ring is the axes flattened.
+
+The card's constants (the H100 SXM's data sheet) live here, in one place:
+the roofline terms (``roofline/analysis.py``), the dry run and
+``chip_smoke.py`` read them.
 """
 from __future__ import annotations
 
@@ -30,8 +34,27 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "P", "PartitionSpec", "Slot", "make_host_mesh",
+__all__ = ["BANDWIDTH_BY_NAME", "HBM_BW", "HBM_BYTES", "IB_BW", "Mesh",
+           "NVLINK_BW", "P", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
+           "PartitionSpec", "Slot", "bandwidth_of", "make_host_mesh",
            "make_mesh", "make_production_mesh", "visible_devices"]
+
+# -- the card's constants (NVIDIA H100 SXM 80 GB, data sheet, 700 W) --------
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s, dense bf16 tensor cores
+PEAK_FLOPS_F32 = 67e12       # FLOP/s, float32 outside the tensor cores
+HBM_BW = 3.35e12             # B/s, HBM3
+HBM_BYTES = 80 * 10**9       # the 80 GB card's device memory
+NVLINK_BW = 450e9            # B/s per direction per GPU (NVLink 4, 900 GB/s
+#                              both ways)
+IB_BW = 50e9                 # B/s per GPU across hosts (400 Gb/s NDR)
+# device-memory bandwidth by card name (NVIDIA data sheets), first match
+BANDWIDTH_BY_NAME = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+                     ("H200", 4.8e12), ("H100", HBM_BW))
+
+
+def bandwidth_of(name: str):
+    """The device-memory bandwidth of a card by its name, or None."""
+    return next((bw for key, bw in BANDWIDTH_BY_NAME if key in name), None)
 
 
 class PartitionSpec(tuple):

@@ -17,6 +17,12 @@ parameters, Adafactor above (its factored state keeps the 236 B and 400 B
 MoE configs within one pod), with a warm-up capped by the run's length.
 ``choose_accum`` is the JAX package's gradient-accumulation rule, computed
 from the shapes alone.
+
+``make_prefill_step`` and ``make_serve_step`` build the forward-only
+steps the same way: one slot runs the model's own functions, a larger
+mesh runs them through the executor (``Executor.forward``,
+``Executor.decode``) with the parameters and the cache placed by their
+specs.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ from repro_torch.optim import linear_warmup_cosine
 from repro_torch.optim.optimizers import adafactor, adamw
 
 __all__ = ["ADAFACTOR_THRESHOLD", "TrainStep", "active_param_count",
-           "choose_accum", "data_model_axes", "make_train_step",
-           "select_optimizer"]
+           "choose_accum", "data_model_axes", "make_prefill_step",
+           "make_serve_step", "make_train_step", "select_optimizer"]
 
 ADAFACTOR_THRESHOLD = 100e9
 
@@ -153,7 +159,8 @@ def _grads(model, params, leaves, batch) -> tuple:
 
 
 def make_train_step(cfg: ArchConfig, mesh: Mesh, *, accum: int = 1,
-                    total_steps: int = 10_000) -> TrainStep:
+                    total_steps: int = 10_000,
+                    repr_rows: bool = False) -> TrainStep:
     """The train step of `cfg` on `mesh` (see the module docstring for a
     mesh of more than one slot). At ``accum`` 1 the
     gradients come in the parameters' dtype; above, the batch is split
@@ -164,7 +171,7 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, *, accum: int = 1,
     model = build_model(cfg)
     opt, opt_name = select_optimizer(model, total_steps=total_steps)
     if mesh.size != 1:
-        return _sharded_step(model, mesh, opt, opt_name, accum)
+        return _sharded_step(model, mesh, opt, opt_name, accum, repr_rows)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -199,7 +206,7 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, *, accum: int = 1,
 
 
 def _sharded_step(model, mesh: Mesh, opt, opt_name: str,
-                  accum: int) -> TrainStep:
+                  accum: int, repr_rows: bool = False) -> TrainStep:
     """The train step on a mesh of more than one slot: parameters and
     optimizer state placed by their specs, the whole batch (on the mesh's
     first device) split over the data slots by rows, microbatches of
@@ -210,7 +217,7 @@ def _sharded_step(model, mesh: Mesh, opt, opt_name: str,
                                                   param_specs, shardings_for)
 
     data_axes, model_axes = data_model_axes(mesh)
-    ex = Executor(mesh, data_axes, model_axes)
+    ex = Executor(mesh, data_axes, model_axes, repr_rows=repr_rows)
     p_meta = model.params_spec()
     params_sh = shardings_for(
         param_specs(p_meta, mesh, data_axes, model_axes), mesh)
@@ -226,3 +233,88 @@ def _sharded_step(model, mesh: Mesh, opt, opt_name: str,
     return TrainStep(fn=train_step, opt_name=opt_name, model=model,
                      optimizer=opt, device=ex.home, params_sh=params_sh,
                      opt_sh=opt_sh, executor=ex)
+
+
+def _mesh_parts(model, mesh: Mesh, repr_rows: bool) -> tuple:
+    """(executor, parameter placements) of a mesh of more than one
+    slot."""
+    from repro_torch.distributed.executor import Executor
+    from repro_torch.distributed.sharding import param_specs, shardings_for
+
+    data_axes, model_axes = data_model_axes(mesh)
+    ex = Executor(mesh, data_axes, model_axes, repr_rows=repr_rows)
+    params_sh = shardings_for(param_specs(model.params_spec(), mesh,
+                                          data_axes, model_axes), mesh)
+    return ex, params_sh
+
+
+def make_prefill_step(cfg: ArchConfig, mesh: Mesh, *,
+                      repr_rows: bool = False):
+    """``(model, params_sh, fn_for)``, the JAX package's return:
+    ``fn_for(batch_tree)`` gives ``(fn, batch_sh)``, ``fn(params, batch)``
+    the last position's float32 logits (B, vocab) without gradients.
+
+    Differences from the JAX package: nothing is compiled, so `fn` does
+    not depend on the batch tree; ``batch_sh`` is None (the executor
+    takes the batch whole on its home device and splits it by rows);
+    on one slot ``params_sh`` is None and `params` are plain tensors, on
+    a larger mesh a ``Shardings`` whose ``place`` lays them out as
+    ``elastic.Placed`` leaves, and ``fn.executor`` holds the step's
+    collective counts. ``repr_rows``: the executor's representative-row
+    mode (``meta`` tensors only)."""
+    model = build_model(cfg)
+    if mesh.size == 1:
+        def prefill(params, batch):
+            with torch.no_grad():
+                return model.prefill_fn(params, batch)
+
+        prefill.executor = None
+        return model, None, lambda _batch_tree: (prefill, None)
+    ex, params_sh = _mesh_parts(model, mesh, repr_rows)
+
+    def prefill_mesh(params, batch):
+        ex.reset()
+        return ex.forward(model.prefill_fn, params, batch)
+
+    prefill_mesh.executor = ex
+    return model, params_sh, lambda _batch_tree: (prefill_mesh, None)
+
+
+def make_serve_step(cfg: ArchConfig, mesh: Mesh, batch: int, s_max: int,
+                    *, donate: bool = True, repr_rows: bool = False):
+    """``(model, step, params_sh, cache_sh, c_spec)``, the JAX package's
+    return: ``step(params, cache, tokens (B, 1), positions (B,))`` runs one
+    decode step; ``c_spec`` is ``model.cache_spec(batch, s_max)``.
+
+    Differences from the JAX package: `step` returns the float32 logits
+    (B, vocab) alone and writes the cache in place (the JAX step returns
+    ``(logits, new_cache)`` and donates the old one; ``donate`` is
+    accepted and the cache is always written in place). On one slot
+    ``params_sh`` and ``cache_sh`` are None; on a larger mesh they are
+    ``Shardings`` by ``param_specs`` / ``cache_specs`` (batch over the
+    data axes, heads over the model axis where they divide, else the
+    sequence), and ``step.executor`` holds the step's collective
+    counts."""
+    from repro_torch.distributed.sharding import cache_specs, shardings_for
+
+    del donate
+    model = build_model(cfg)
+    c_spec = model.cache_spec(batch, s_max)
+    if mesh.size == 1:
+        def serve(params, cache, tokens, positions):
+            with torch.no_grad():
+                return model.serve_step(params, cache, tokens, positions)
+
+        serve.executor = None
+        return model, serve, None, None, c_spec
+    ex, params_sh = _mesh_parts(model, mesh, repr_rows)
+    data_axes, model_axes = data_model_axes(mesh)
+    cache_sh = shardings_for(cache_specs(c_spec, mesh, data_axes,
+                                         model_axes), mesh)
+
+    def serve_mesh(params, cache, tokens, positions):
+        ex.reset()
+        return ex.decode(model.serve_step, params, cache, tokens, positions)
+
+    serve_mesh.executor = ex
+    return model, serve_mesh, params_sh, cache_sh, c_spec

@@ -146,18 +146,18 @@ def _sdpa_keys(ex, q, k, v, mask, scale):
         pv = einsum_f32("bhrqk,bkhd->bqhrd", e.to(vs.dtype), vs[:, keys])
         return mx, e.sum(-1, keepdim=True), pv
 
-    outs, stats = [], 0
-    for line in ex.per_slot(slot, xs):
+    def combine(line):
         top = torch.stack([mx for mx, _, _ in line]).amax(0)
         den, num = 0.0, 0.0
         for mx, l, pv in line:
             w = torch.exp(mx - top)                       # (b, h, r, q, 1)
             den = den + w * l
             num = num + pv * w[..., 0].permute(0, 3, 1, 2)[..., None]
-        outs.append(num / den[..., 0].permute(0, 3, 1, 2)[..., None])
-        stats += 2 * top.numel()
-    o = ex.join(outs)
+        return num / den[..., 0].permute(0, 3, 1, 2)[..., None]
+
+    o = ex.per_slot(slot, xs, combine)
     # the max, the sum-exp and the P·V partials, float32, over the slots
+    stats = 2 * o.numel() // o.shape[-1]
     ex.count("all_reduce", ex.M * 4 * (stats + o.numel()), over=ex.M)
     return o.reshape(b, cq, h, v.shape[-1]).to(q.dtype)
 
@@ -308,6 +308,31 @@ def _write_rows(cache: Tensor, new: Tensor, slot: Tensor) -> None:
     cache[rows, slot.long().clamp(0, cache.shape[1] - 1)] = new
 
 
+def _decode_proj(params, x, positions, *, n_heads, n_kv, rope_theta,
+                 use_qk_norm):
+    """q, k, v of one new token per row: (B, 1, heads, Dh)."""
+    q, k_new, v_new = _proj_qkv(params, x, x, n_heads, n_kv)
+    if use_qk_norm:
+        q, k_new = qk_norm(q), qk_norm(k_new)
+    if rope_theta is not None:
+        q = apply_rope(q, positions[:, None], rope_theta)
+        k_new = apply_rope(k_new, positions[:, None], rope_theta)
+    return q, k_new, v_new
+
+
+def _visible(positions: Tensor, idx: Tensor, s_max: int,
+             window: int | None) -> Tensor:
+    """(B, len(idx)) bool: which cache slots `idx` hold a position each
+    row's query sees. A ring buffer's slot j holds the largest position
+    p <= the current one with p % s_max == j."""
+    cur = positions[:, None].long()
+    idx = idx[None, :]
+    if window is None:
+        return idx <= cur
+    p_j = cur - ((cur - idx) % s_max)
+    return (p_j >= 0) & (cur - p_j < window) & (p_j <= cur)
+
+
 def attention_decode(params: dict, cache: dict, x: Tensor,
                      positions: Tensor, *, n_heads: int, n_kv: int,
                      d_head: int, rope_theta: float | None,
@@ -318,35 +343,157 @@ def attention_decode(params: dict, cache: dict, x: Tensor,
     cache: {"k": ..., "v": ...}, written in place; positions: (B,)
     write/attend index. Returns (out (B, 1, D), cache). Sliding-window
     layers use a ring-buffer cache of size `window` (slot = pos % window).
+    On a bound mesh the cache leaves are its blocks (``_decode_mesh``).
     """
+    kw = dict(n_heads=n_heads, n_kv=n_kv, d_head=d_head,
+              rope_theta=rope_theta, window=window, use_qk_norm=use_qk_norm)
+    ex = executor()
+    if ex is not None:
+        return _decode_mesh(ex, params, cache, x, positions, **kw), cache
+    return _decode_one(params, cache, x, positions, **kw), cache
+
+
+def _decode_one(params, cache, x, positions, *, n_heads, n_kv, d_head,
+                rope_theta, window, use_qk_norm) -> Tensor:
+    """``attention_decode`` on whole tensors: (B, 1, D)."""
     b = x.shape[0]
-    q, k_new, v_new = _proj_qkv(params, x, x, n_heads, n_kv)
-    if use_qk_norm:
-        q, k_new = qk_norm(q), qk_norm(k_new)
-    if rope_theta is not None:
-        q = apply_rope(q, positions[:, None], rope_theta)
-        k_new = apply_rope(k_new, positions[:, None], rope_theta)
+    q, k_new, v_new = _decode_proj(params, x, positions, n_heads=n_heads,
+                                   n_kv=n_kv, rope_theta=rope_theta,
+                                   use_qk_norm=use_qk_norm)
     s_max = cache["k"].shape[1]
     slot = positions % s_max if window is not None else positions
     _write_rows(cache["k"], k_new[:, 0], slot)
     _write_rows(cache["v"], v_new[:, 0], slot)
-
-    # visibility: cache slot j holds absolute position pos_j
-    idx = torch.arange(s_max, device=x.device)[None, :]
-    cur = positions[:, None].long()
-    if window is not None:
-        # ring buffer: slot j holds position p with p % s_max == j, the
-        # largest such p <= current position
-        p_j = cur - ((cur - idx) % s_max)
-        visible = (p_j >= 0) & (cur - p_j < window) & (p_j <= cur)
-    else:
-        visible = idx <= cur
+    visible = _visible(positions, torch.arange(s_max, device=x.device),
+                       s_max, window)
     scale = 1.0 / np.sqrt(d_head)
     out = _sdpa(q, cache["k"], cache["v"], visible[:, None, :], scale)
     out = matmul(out.reshape(b, 1, n_heads * d_head), params["wo"])
     if "bo" in params:
         out = out + params["bo"]
-    return out, cache
+    return out
+
+
+def _partial(q, k, v, visible, scale) -> tuple:
+    """Partial softmax statistics of one new token per row against a
+    block of keys: q (b, 1, H, Dh), k/v (b, s, Hkv, Dh), visible (b, s)
+    or None -> (max, sum-exp, P·V), float32, (b, H, 1), (b, H, 1),
+    (b, H, Dv)."""
+    b, _, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, 1, hkv, h // hkv, dh)
+    s = einsum_f32("bqhrd,bkhd->bhrqk", qg, k)[:, :, :, 0] * scale
+    if visible is not None:
+        s = torch.where(visible[:, None, None, :], s, NEG_INF)
+    mx = s.amax(-1, keepdim=True)
+    e = torch.exp(s - mx)
+    acc = einsum_f32("bhrk,bkhd->bhrd", e.to(v.dtype), v)
+    return (mx.reshape(b, h, 1), e.sum(-1, keepdim=True).reshape(b, h, 1),
+            acc.reshape(b, h, -1))
+
+
+def _decode_mesh(ex, params, cache, x, positions, *, n_heads, n_kv, d_head,
+                 rope_theta, window, use_qk_norm) -> Tensor:
+    """``attention_decode`` on a bound mesh, the cache placed by
+    ``cache_specs``: each slot writes the new K/V into its block where the
+    block holds the position and scores its rows against its block; the
+    partials combine (``Executor.cache_partials``). Where the model axis
+    splits the kv heads, each model slot projects its heads (its column
+    blocks of wq/wk/wv) and multiplies by its row block of wo, the
+    partials summed; else the projections run replicated. A cache of any
+    other layout is gathered whole, decoded and its new row written back
+    into the blocks."""
+    from repro_torch.distributed.executor import masked_write
+
+    ck, cv = cache["k"], cache["v"]
+    s_max = ck.shape[1]
+    scale = 1.0 / np.sqrt(d_head)
+    kw = dict(n_heads=n_heads, n_kv=n_kv, rope_theta=rope_theta,
+              use_qk_norm=use_qk_norm)
+    ring = window is not None
+    heads = ck.mdim == 2 and ck.ddim in (None, 0, 1) \
+        and (cv.ddim, cv.mdim) == (ck.ddim, ck.mdim)
+    b = x.shape[0]
+    if not heads:
+        params = ex.replicate_tree(params)
+    if not heads and (ck.ddim not in (None, 0, 1) or ck.mdim not in (None, 1)
+                      or (cv.ddim, cv.mdim) != (ck.ddim, ck.mdim)):
+        whole = {"k": ex.gather_leaf(ck), "v": ex.gather_leaf(cv)}
+        out = _decode_one(params, whole, x, positions, d_head=d_head,
+                          window=window, **kw)
+        slot = (positions % s_max if ring else positions).long().clamp(
+            0, s_max - 1)
+        rows = torch.arange(b, device=x.device)
+        for name, leaf in (("k", ck), ("v", cv)):
+            ex.write_rows(leaf, whole[name][rows, slot], slot)
+        return out
+
+    nk = n_kv // ex.M if heads else n_kv
+    hl = n_heads // ex.M if heads else n_heads
+
+    def local(m, dev, xs, ps):
+        """The slot's q, k, v from its heads' columns."""
+        p = {}
+        for name, first, count in (("q", m * hl, hl), ("k", m * nk, nk),
+                                   ("v", m * nk, nk)):
+            p["w" + name] = ex.narrow(params["w" + name], 1,
+                                      first * d_head, count * d_head, dev)
+            if "b" + name in params:
+                p["b" + name] = ex.narrow(params["b" + name], 0,
+                                          first * d_head, count * d_head,
+                                          dev)
+        return _decode_proj(p, xs, ps, **dict(kw, n_heads=hl, n_kv=nk))
+
+    def slot(m, dev, blocks, start, *rows):
+        if heads:
+            q, k_new, v_new = local(m, dev, *rows)
+            ps = rows[1]
+        else:
+            q, k_new, v_new, ps = rows
+        kb, vb = blocks
+        at = (ps % s_max if ring else ps) - start
+        masked_write(kb, k_new[:, 0], at)
+        masked_write(vb, v_new[:, 0], at)
+        idx = torch.arange(start, start + kb.shape[1], device=dev)
+        return _partial(q, kb, vb, _visible(ps, idx, s_max, window), scale)
+
+    if heads:
+        xs = (x, positions)
+    else:
+        xs = (*_decode_proj(params, x, positions, **kw), positions)
+    mx, l, acc = ex.cache_partials((ck, cv), xs, slot, heads_dim=1)
+    o = (acc / l).reshape(b, 1, n_heads * d_head).to(x.dtype)
+    if not heads:
+        out = matmul(o, params["wo"])
+    else:
+        out = ex.row_parallel(lambda m, dev, os: dot_f32(
+            os[..., m * hl * d_head:(m + 1) * hl * d_head],
+            ex.narrow(params["wo"], 0, m * hl * d_head, hl * d_head, dev)),
+            (o,), x.dtype)
+    return out + params["bo"] if "bo" in params else out
+
+
+def cross_decode(q: Tensor, cache: dict, scale: float) -> Tensor:
+    """One new token per row against a precomputed (cross-attention)
+    cache, all of it visible: (B, 1, H, Dv). On a bound mesh each slot
+    scores its block (its q heads where the model axis splits the kv
+    heads) and the partials combine; a cache of another layout is
+    gathered whole."""
+    ex = executor()
+    if ex is None:
+        return _sdpa(q, cache["k"], cache["v"], None, scale)
+    ck, cv = cache["k"], cache["v"]
+    if ck.ddim not in (None, 0, 1) or ck.mdim not in (None, 1, 2):
+        return _sdpa(q, ex.gather_leaf(ck), ex.gather_leaf(cv), None, scale)
+    hl = q.shape[2] // ex.M
+
+    def slot(m, dev, blocks, start, qs):
+        if ck.mdim == 2:
+            qs = qs[:, :, m * hl:(m + 1) * hl]
+        return _partial(qs, blocks[0], blocks[1], None, scale)
+
+    mx, l, acc = ex.cache_partials((ck, cv), (q,), slot, heads_dim=1)
+    return (acc / l).reshape(q.shape[0], 1, q.shape[2], -1).to(q.dtype)
 
 
 # -- MLA (deepseek-v2) -------------------------------------------------------------
@@ -400,22 +547,64 @@ def mla_decode(params: dict, cache: dict, x: Tensor, positions: Tensor, *,
     c_new, kpe_new = ckv_new[..., :lat], ckv_new[..., lat:]
     kpe_new = apply_rope(kpe_new[:, :, None, :], positions[:, None],
                          10_000.0)[:, :, 0, :]
-    _write_rows(cache["ckv"], c_new[:, 0], positions)
-    _write_rows(cache["kpe"], kpe_new[:, 0], positions)
-    ckv, kpe = cache["ckv"], cache["kpe"]
-
     # absorb W_uk into q: q_lat (B,1,H,lat)
     w_uk = params["w_uk"].reshape(lat, n_heads, nope)
     q_lat = einsum_f32("bqhn,lhn->bqhl", q_nope, w_uk).to(x.dtype)
-    s_max = ckv.shape[1]
-    scores = (einsum_f32("bqhl,bkl->bhqk", q_lat, ckv)
-              + einsum_f32("bqhr,bkr->bhqk", q_pe, kpe)) / np.sqrt(nope + rope)
-    visible = torch.arange(s_max, device=x.device)[None, None, None, :] <= \
-        positions[:, None, None, None]
-    scores = torch.where(visible, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    o_lat = einsum_f32("bhqk,bkl->bqhl", p.to(x.dtype), ckv).to(x.dtype)
+    denom = np.sqrt(nope + rope)
+    ex = executor()
+    native = ex is not None and all(
+        cache[n].ddim in (None, 0, 1) and cache[n].mdim in (None, 1)
+        and (cache[n].ddim, cache[n].mdim) == (cache["ckv"].ddim,
+                                               cache["ckv"].mdim)
+        for n in ("ckv", "kpe"))
+    if native:
+        o_lat = _mla_mesh(ex, cache, q_lat, q_pe, c_new, kpe_new,
+                          positions, 1.0 / denom)
+    else:
+        lat_cache = cache
+        if ex is not None:          # another layout: gathered whole
+            for name, new in (("ckv", c_new), ("kpe", kpe_new)):
+                ex.write_rows(cache[name], new[:, 0], positions)
+            lat_cache = {n: ex.gather_leaf(cache[n]) for n in ("ckv", "kpe")}
+        _write_rows(lat_cache["ckv"], c_new[:, 0], positions)
+        _write_rows(lat_cache["kpe"], kpe_new[:, 0], positions)
+        ckv, kpe = lat_cache["ckv"], lat_cache["kpe"]
+        s_max = ckv.shape[1]
+        scores = (einsum_f32("bqhl,bkl->bhqk", q_lat, ckv)
+                  + einsum_f32("bqhr,bkr->bhqk", q_pe, kpe)) / denom
+        visible = torch.arange(s_max, device=x.device)[None, None, None, :] \
+            <= positions[:, None, None, None]
+        scores = torch.where(visible, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        o_lat = einsum_f32("bhqk,bkl->bqhl", p.to(x.dtype), ckv).to(x.dtype)
     w_uv = params["w_uv"].reshape(lat, n_heads, vd)
     o = einsum_f32("bqhl,lhv->bqhv", o_lat, w_uv).to(x.dtype)
     out = matmul(o.reshape(b, 1, n_heads * vd), params["wo"])
     return out, cache
+
+
+def _mla_mesh(ex, cache, q_lat, q_pe, c_new, kpe_new, positions,
+              scale) -> Tensor:
+    """The absorbed MLA scores on a bound mesh (the latent cache's batch
+    and sequence placed by ``cache_specs``): each slot writes the new
+    latent into its blocks where they hold the position, scores its rows
+    against them, and the partials combine. -> o_lat (B, 1, H, lat)."""
+    from repro_torch.distributed.executor import masked_write
+
+    def slot(m, dev, blocks, start, ql, qp, cn, kn, ps):
+        cb, kb = blocks
+        masked_write(cb, cn[:, 0], ps - start)
+        masked_write(kb, kn[:, 0], ps - start)
+        s = (einsum_f32("bqhl,bkl->bhqk", ql, cb)
+             + einsum_f32("bqhr,bkr->bhqk", qp, kb))[:, :, 0] * scale
+        idx = torch.arange(start, start + cb.shape[1], device=dev)
+        s = torch.where(idx[None, None, :] <= ps[:, None, None], s, NEG_INF)
+        mx = s.amax(-1, keepdim=True)
+        e = torch.exp(s - mx)
+        acc = einsum_f32("bhk,bkl->bhl", e.to(ql.dtype), cb)
+        return mx, e.sum(-1, keepdim=True), acc
+
+    mx, l, acc = ex.cache_partials(
+        (cache["ckv"], cache["kpe"]), (q_lat, q_pe, c_new, kpe_new,
+                                       positions), slot, heads_dim=None)
+    return (acc / l)[:, None].to(q_lat.dtype)

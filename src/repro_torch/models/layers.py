@@ -90,8 +90,17 @@ def remat(fn, *args):
     is stashed for the recompute."""
     if not _records(*args):
         return fn(*args)
+    from .shard_ctx import owner, owning
+
+    who = owner()
+
+    def run(*a):
+        # the recompute issues its ops as the first run did
+        with owning(who):
+            return fn(*a)
+
     return torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, preserve_rng_state=False)
+        run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _mm_f32(a: Tensor, b: Tensor) -> Tensor:
@@ -164,8 +173,11 @@ class _MatmulCast(torch.autograd.Function):
 
 
 def _low_on_card(x: Tensor, w: Tensor) -> bool:
-    """Low-precision operands of one dtype on the card."""
-    return x.is_cuda and x.dtype == w.dtype and x.dtype != torch.float32
+    """Low-precision operands of one dtype on the card, or on ``meta``,
+    which stands in for the card (the dry run counts the card's program:
+    no float32 copies of the operands)."""
+    return (x.device.type in ("cuda", "meta") and x.dtype == w.dtype
+            and x.dtype != torch.float32)
 
 
 def _mm_f32_nd(x: Tensor, w: Tensor) -> Tensor:
@@ -341,14 +353,13 @@ def _vocab_parallel_ce(ex, table, h: Tensor, labels: Tensor) -> tuple:
         gold = logits.gather(-1, idx.clamp(0, rows - 1)[..., None])[..., 0]
         return torch.logsumexp(logits, dim=-1), gold * inside
 
-    lse, gold = [], []
-    for line in ex.per_slot(slot, (h, labels)):
-        lse.append(torch.logsumexp(torch.stack([a for a, _ in line]), 0))
+    def combine(line):
         g = line[0][1]
         for _, b in line[1:]:
             g = g + b
-        gold.append(g)
-    lse, gold = ex.join(lse), ex.join(gold)
+        return torch.logsumexp(torch.stack([a for a, _ in line]), 0), g
+
+    lse, gold = ex.per_slot(slot, (h, labels), combine)
     ex.count("all_reduce", ex.M * 2 * lse.numel() * 4, over=ex.M)
     return lse, gold
 

@@ -44,7 +44,7 @@ from .transformer import (
     init_slot_cache,
     layer_plan,
 )
-from .shard_ctx import gather_fsdp, replicate
+from .shard_ctx import executor, gather_fsdp, replicate
 from .tree import tree_leaves, tree_map, tree_stack
 
 Tensor = torch.Tensor
@@ -142,8 +142,32 @@ class Model:
         return params["lm_head"].t()  # (Vpad, D)
 
     def _logits(self, table: Tensor, h: Tensor) -> Tensor:
-        """(B, D) -> (B, vocab) float32 logits."""
+        """(B, D) -> (B, vocab) float32 logits. On a bound mesh each model
+        slot takes its block of the vocabulary rows and the logits are
+        gathered over the model axis (the JAX package's replicated vocab
+        dim); a table the model axis does not split is gathered whole."""
+        ex = executor()
+        if ex is not None:
+            if getattr(table, "mdim", None) != 0:
+                table = ex.full(table)
+            else:
+                rows = table.shape[0] // ex.M
+                logits = ex.per_slot(
+                    lambda m, dev, hs: dot_f32(hs, ex.narrow(
+                        table, 0, m * rows, rows, dev).t()),
+                    (h,), lambda line: torch.cat(line, dim=-1))
+                ex.count("all_gather", ex.M * logits.numel() * 4
+                         * (1 if h.shape[0] % ex.D == 0 else ex.D),
+                         over=ex.M)
+                return logits[:, : self.cfg.vocab_size]
         return dot_f32(h, table.t())[:, : self.cfg.vocab_size]
+
+    @staticmethod
+    def _gathered(params) -> dict:
+        """On a bound mesh: the leaves outside the layer groups gathered
+        (the groups gather theirs at use); the identity without."""
+        return {k: (v if k in ("groups", "head", "tail", "shared")
+                    else gather_fsdp(v)) for k, v in params.items()}
 
     # ---------------- train loss ----------------------------------------------
     def loss_fn(self, params, batch) -> tuple:
@@ -151,10 +175,7 @@ class Model:
         aux term; ``torch.autograd.grad`` of the loss gives the gradients
         of ``jax.value_and_grad(loss_fn, has_aux=True)``."""
         cfg = self.cfg
-        # on a bound mesh: the leaves outside the layer groups gathered
-        # here (the groups gather theirs at use); the identity without
-        params = {k: (v if k in ("groups", "head", "tail", "shared")
-                      else gather_fsdp(v)) for k, v in params.items()}
+        params = self._gathered(params)
         if cfg.encoder is not None:
             return self._whisper_loss(params, batch)
         h, positions = self._embed_in(params, batch)
@@ -173,6 +194,7 @@ class Model:
     def prefill_fn(self, params, batch) -> Tensor:
         """Forward pass, last-position logits (the inference-prefill cell)."""
         cfg = self.cfg
+        params = self._gathered(params)
         if cfg.encoder is not None:
             return self._whisper_prefill(params, batch)
         h, positions = self._embed_in(params, batch)
@@ -203,11 +225,17 @@ class Model:
             cache["groups"] = {}
         return cache
 
+    def cache_spec(self, batch: int, s_max: int):
+        """The cache tree on the ``meta`` device: shapes and dtypes,
+        nothing allocated."""
+        return self.init_cache(batch, s_max, device="meta")
+
     def serve_step(self, params, cache, tokens: Tensor,
                    positions: Tensor) -> Tensor:
         """One decode step: tokens (B, 1), positions (B,) -> logits (B, V)
         float32; the cache is written in place."""
         cfg = self.cfg
+        params = self._gathered(params)
         if cfg.encoder is not None:
             return self._whisper_serve(params, cache, tokens, positions)
         h = self._embed_tokens(params, tokens)
@@ -352,7 +380,7 @@ class Model:
         cfg = self.cfg
         b = tokens.shape[0]
         h = embed(params["embed"], tokens).to(self.act_dtype)
-        pos_emb = params["pos_embed"][
+        pos_emb = replicate(params["pos_embed"])[
             torch.clamp(positions, max=cfg.encoder.max_target - 1).long()]
         h = h + pos_emb[:, None, :]
         scale = 1.0 / np.sqrt(cfg.head_dim)
@@ -365,16 +393,16 @@ class Model:
             h = h + y
             # cross attention against the precomputed encoder cache
             hx = rmsnorm(lp["norm_x"], h, cfg.norm_eps)
-            q = matmul(hx, lp["cross_attn"]["wq"])
-            if "bq" in lp["cross_attn"]:
-                q = q + lp["cross_attn"]["bq"]
+            ca = replicate(lp["cross_attn"])
+            q = matmul(hx, ca["wq"])
+            if "bq" in ca:
+                q = q + ca["bq"]
             q = q.reshape(b, 1, cfg.n_heads, cfg.head_dim)
-            kc, vc = cache["cross"][i]["k"], cache["cross"][i]["v"]
-            o = attn._sdpa(q, kc, vc, None, scale)
+            o = attn.cross_decode(q, cache["cross"][i], scale)
             o = matmul(o.reshape(b, 1, cfg.n_heads * cfg.head_dim),
-                       lp["cross_attn"]["wo"])
-            if "bo" in lp["cross_attn"]:
-                o = o + lp["cross_attn"]["bo"]
+                       ca["wo"])
+            if "bo" in ca:
+                o = o + ca["bo"]
             h = h + o
             h = h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h, cfg.norm_eps),
                         act=cfg.act, glu=cfg.glu)

@@ -14,12 +14,53 @@ its model-axis blocks; the tensor-parallel branches of ``attention``,
 ``executor()``; ``replicate`` gathers the model blocks of a layer kind
 that computes replicated; ``constrain`` is the identity (the executor
 lays activations out explicitly at those branches). ``clear()`` unbinds.
+
+``owner()`` names who runs the ops being issued, for the dry run's op
+counter (``roofline/op_cost.py``): ``("home", w)`` or ``((d, m), w)``,
+``w`` the times each op counts (the representative-row mode runs one
+data index for all), or None where the counter reads it off the ops'
+inputs (the autograd engine's backward). ``owning`` sets it; ``remat``
+(``layers``) restores its caller's owner when it recomputes. ``times()``
+multiplies every op and collective counted (``repeating``: one
+microbatch standing for all of an accumulation).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
-_CTX: dict = {"executor": None}
+_CTX: dict = {"executor": None, "owner": None, "times": 1}
+
+
+def owner():
+    """Who runs the ops issued now (see the module docstring)."""
+    return _CTX["owner"]
+
+
+def times() -> int:
+    """How many times each op and collective counts now."""
+    return _CTX["times"]
+
+
+@contextlib.contextmanager
+def repeating(n: int):
+    """Count the block's ops and collectives `n` times."""
+    prev = _CTX["times"]
+    _CTX["times"] = prev * n
+    try:
+        yield
+    finally:
+        _CTX["times"] = prev
+
+
+@contextlib.contextmanager
+def owning(who):
+    """Issue the ops of the block as `who` (None: read off the inputs)."""
+    prev, _CTX["owner"] = _CTX["owner"], who
+    try:
+        yield
+    finally:
+        _CTX["owner"] = prev
 
 
 def set_axes(mesh, data_axes, model_axes):

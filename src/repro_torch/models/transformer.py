@@ -35,8 +35,8 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import Init, init_mlp, init_rmsnorm, mlp, remat, rmsnorm
-from .shard_ctx import gather_fsdp, replicate
-from .tree import tree_index, tree_store
+from .shard_ctx import executor, gather_fsdp, replicate
+from .tree import tree_index, tree_map, tree_store
 
 Tensor = torch.Tensor
 
@@ -280,6 +280,14 @@ def init_slot_cache(cfg: ArchConfig, slot: Slot, batch: int, s_max: int,
 
 def _mixer_decode(cfg: ArchConfig, slot: Slot, p: dict, shared, cache,
                   h: Tensor, positions: Tensor):
+    ex = executor()
+    if ex is not None and slot.mixer in REPLICATED_MIXERS:
+        # no tensor-parallel form: the weights gathered whole, and a
+        # recurrent state too (written back into its blocks by
+        # ``_slot_decode``)
+        p = replicate(p)
+        if slot.mixer != "mla":
+            cache = tree_map(ex.gather_leaf, cache)
     if slot.mixer in ("global", "local"):
         window = cfg.sliding_window if slot.mixer == "local" else None
         return attn.attention_decode(
@@ -307,13 +315,15 @@ def _mixer_decode(cfg: ArchConfig, slot: Slot, p: dict, shared, cache,
 def _slot_decode(cfg: ArchConfig, slot: Slot, p: dict, shared, cache, h,
                  positions) -> Tensor:
     """One layer of one decode step; its cache is updated in place."""
+    ex = executor()
+    store = tree_store if ex is None else ex.store_tree
     if slot.mixer == "shared_attn":
         y, new = _mixer_decode(cfg, slot, p, shared, cache, h, positions)
-        tree_store(cache, new)
+        store(cache, new)
         return h + y
     hn = rmsnorm(p["norm1"], h, cfg.norm_eps)
     mix, new = _mixer_decode(cfg, slot, p, shared, cache, hn, positions)
-    tree_store(cache, new)
+    store(cache, new)
     if cfg.parallel_block and slot.ffn != "none":
         return h + mix + mlp(p["mlp"], hn, act=cfg.act, glu=cfg.glu)
     h = h + mix

@@ -14,20 +14,38 @@ H100's 3.35 TB/s.
 trace format: ``name``, ``cat``, ``dur`` in µs), so a CPU trace (its
 ``cpu_op`` events standing in for device ones) tests it; ``profile``
 takes the trace of a callable on the card.
+
+The JAX package's HLO half, on the dry run's counts: three roofline terms
+per device (``RooflineTerms``),
+
+  compute    = FLOPs / PEAK_FLOPS_BF16
+  memory     = bytes / HBM_BW
+  collective = collective bytes / NVLINK_BW
+
+at the H100 constants of ``launch/mesh.py``. ``collective_bytes`` and
+``collective_counts`` read an executor's counts (the JAX package's parse
+the post-SPMD HLO text); ``analyze_step`` (the counterpart of
+``analyze_compiled``) runs a step under ``op_cost.OpCounter`` and fills
+``memory_per_device`` from its per-owner memory, ``fits_hbm`` against
+``HBM_BYTES``.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import re
 import tempfile
+from typing import Optional
 
-__all__ = ["HBM_BYTES_PER_S", "DEVICE_CATS", "kernel_of_event", "attribute",
+from repro_torch.launch import mesh as hw
+
+__all__ = ["DEVICE_CATS", "RooflineTerms", "analyze_step", "attribute",
+           "collective_bytes", "collective_counts", "kernel_of_event",
            "model_flops_train", "model_flops_decode",
            "roofline", "profile"]
 
-HBM_BYTES_PER_S = 3.35e12   # the H100 SXM's device-memory rate
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 _DEMANGLED = re.compile(
@@ -97,7 +115,7 @@ def attribute(events, *, device_cats=DEVICE_CATS) -> dict:
 
 
 def roofline(attrib: dict, plans, *, calls: int = 1,
-             bandwidth: float = HBM_BYTES_PER_S, top: int = 6) -> dict:
+             bandwidth: float = hw.HBM_BW, top: int = 6) -> dict:
     """Each kernel's time in ``attrib`` (``calls`` calls of the entry)
     against its bound: the bytes of its launch plans of one call
     (``plans``) at ``bandwidth``, per call. -> per kernel ``ms``,
@@ -159,3 +177,153 @@ def model_flops_train(n_params_active: int, tokens: int) -> float:
 def model_flops_decode(n_params_active: int, tokens: int) -> float:
     """2·N per generated token (forward only)."""
     return 2.0 * n_params_active * tokens
+
+
+# -- the HLO half: roofline terms from the dry run's counts ----------------------
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute", "ragged-all-to-all")
+
+
+def collective_bytes(counts: dict) -> dict:
+    """Per-device collective traffic from an executor's ``counts`` (its
+    ``device_bytes``: all-gather its output, reduce-scatter its output
+    times the group, all-reduce twice its output), under the JAX
+    package's kind names, with ``total``."""
+    from .op_cost import JAX_KIND
+
+    out = {k: 0 for k in _COLLECTIVES}
+    for kind, c in counts.items():
+        out[JAX_KIND.get(kind, kind)] += int(round(c.get("device_bytes",
+                                                         0.0)))
+    out["total"] = sum(out[k] for k in _COLLECTIVES)
+    return out
+
+
+def collective_counts(counts: dict) -> dict:
+    """Collective calls by kind from an executor's ``counts``."""
+    from .op_cost import JAX_KIND
+
+    out = {k: 0 for k in _COLLECTIVES}
+    for kind, c in counts.items():
+        out[JAX_KIND.get(kind, kind)] += int(c["calls"])
+    return out
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    flops: float                 # per-device FLOPs
+    bytes_accessed: float        # per-device memory traffic (op model)
+    coll_bytes: float            # per-device collective traffic
+    coll_breakdown: dict
+    coll_counts: dict
+    memory_per_device: Optional[dict] = None
+    model_flops: float = 0.0     # 6·N·D (or 6·N_active·D) useful flops/device
+    raw_xla: Optional[dict] = None  # the JAX package's raw XLA numbers: none
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / hw.PEAK_FLOPS_BF16
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_accessed / hw.HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / hw.NVLINK_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_time(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def flops_utilization(self) -> float:
+        """Fraction of the roofline-bound step spent on useful model math
+        (MODEL_FLOPS at peak): the dry run's analogue of MFU."""
+        if self.bound_time == 0:
+            return 0.0
+        return (self.model_flops / hw.PEAK_FLOPS_BF16) / self.bound_time
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "flops": self.flops,
+            "bytes": self.bytes_accessed,
+            "coll_bytes": self.coll_bytes,
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "dominant": self.dominant,
+            "bound_time_s": self.bound_time,
+            "model_flops": self.model_flops,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "roofline_fraction": self.flops_utilization,
+            "coll_breakdown": {k: v for k, v in
+                               self.coll_breakdown.items() if v},
+            "coll_counts": {k: v for k, v in self.coll_counts.items() if v},
+            "memory_per_device": self.memory_per_device,
+            "raw_xla": self.raw_xla,
+        }
+
+
+def memory_summary(counter, static: dict, slots) -> dict:
+    """``memory_per_device`` of a counted step: per slot its placed
+    blocks (``static[slot]``: parameters, optimizer state, gradients,
+    cache) and the peak of what its bodies allocated; the slot with the
+    most. ``home_device``: the home's peak (the whole-batch activations)
+    with its own slot's blocks."""
+    from .op_cost import HOME
+
+    def one(slot):
+        arg, temp = int(static.get(slot, 0)), int(counter.peak[slot])
+        return {"argument_bytes": arg, "temp_bytes": temp,
+                "total_bytes": arg + temp}
+
+    per = {s: one(s) for s in slots}
+    worst = max(per, key=lambda s: per[s]["total_bytes"])
+    mem = dict(per[worst], slot=list(worst) if isinstance(worst, tuple)
+               else worst)
+    mem["fits_hbm"] = mem["total_bytes"] <= hw.HBM_BYTES
+    first = next(iter(slots))
+    home = {"argument_bytes": int(static.get(first, 0)),
+            "temp_bytes": int(counter.peak[HOME])}
+    home["total_bytes"] = home["argument_bytes"] + home["temp_bytes"]
+    home["fits_hbm"] = home["total_bytes"] <= hw.HBM_BYTES
+    mem["home_device"] = home
+    return mem
+
+
+def analyze_step(fn, *args, model_flops_per_device: float = 0.0,
+                 executor=None, static: dict | None = None, slots=None,
+                 devices: int = 1, plans=()) -> tuple:
+    """Run ``fn(*args)`` under ``op_cost.OpCounter`` and take the three
+    roofline terms per device (the counterpart of ``analyze_compiled``):
+    FLOPs and bytes over `devices`, the `executor`'s collective counts
+    (read after the call), ``memory_per_device`` per slot (``static``:
+    each slot's placed bytes; ``slots``: the owners to compare, default
+    the home device alone). -> ``(terms, fn's result, counter)``."""
+    from .op_cost import HOME, OpCounter, module_costs
+
+    with OpCounter() as counter:
+        out = fn(*args)
+    counts = executor.counts if executor is not None else None
+    la = module_costs(counter, counts, plans, devices)
+    coll = dict(la["coll_by_kind"])
+    coll["total"] = la["coll_bytes"]
+    terms = RooflineTerms(
+        flops=la["flops"], bytes_accessed=la["bytes"],
+        coll_bytes=la["coll_bytes"], coll_breakdown=coll,
+        coll_counts=la["coll_counts"],
+        memory_per_device=memory_summary(counter, static or {},
+                                         slots or [HOME]),
+        model_flops=model_flops_per_device)
+    return terms, out, counter

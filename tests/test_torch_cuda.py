@@ -1383,3 +1383,73 @@ def test_cuda_compressed_psum_within_half_a_step(cuda):
     same, _ = compressed_psum([per[0]] * 8, err)
     bound = float(per[0]["w"].abs().max()) / 127.0
     assert float((same["w"] - per[0]["w"]).abs().max()) <= bound * 1.01
+
+
+@pytest.mark.cuda
+def test_cuda_meta_flops_equal_the_cards(cuda):
+    """The dry run counts the card's program: reduced gemma3-4b in
+    bfloat16 (remat), its one-slot train step counted on ``meta`` and run
+    on the card under the same counter, FLOPs equal exactly."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.roofline.op_cost import OpCounter
+
+    cfg = dataclasses.replace(get_arch("gemma3-4b").reduced(),
+                              param_dtype="bfloat16", act_dtype="bfloat16",
+                              remat=True)
+    flops = {}
+    for dev in ("meta", "cuda"):
+        ts = make_train_step(cfg, make_host_mesh(devices=[dev]))
+        params = (ts.model.params_spec() if dev == "meta" else
+                  ts.model.init_params(torch.Generator(
+                      device="cuda").manual_seed(0)))
+        opt = ts.optimizer.init(params)
+        batch = {k: torch.randint(0, cfg.vocab_size, (2, 64),
+                                  dtype=torch.int32).to(dev)
+                 for k in ("tokens", "labels")} if dev == "cuda" else {
+            k: torch.empty((2, 64), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
+        with OpCounter() as counter:
+            ts.fn(params, opt, batch)
+        flops[dev] = counter.flops
+    assert flops["meta"] == flops["cuda"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_cuda_sharded_serve_step_equals_one_slot(cuda, shape):
+    """Reduced gemma3-4b at float32 on a virtual mesh of the card (the kv
+    heads split; the cache's sequence split): the prefill and 4 decode
+    steps equal one slot's within 1e-5, and so does the cache."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import elastic
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.tree import tree_leaves, tree_map
+
+    cfg = get_arch("gemma3-4b").reduced()
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=[cuda] * (shape[0] * shape[1]))
+    one = make_mesh((1, 1), ("data", "model"), devices=[cuda])
+    model, _, one_for = make_prefill_step(cfg, one)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                         device=cuda)
+    batch = {"tokens": toks}
+    _, p_sh, fn_for = make_prefill_step(cfg, mesh)
+    placed = p_sh.place(params)
+    assert rel(fn_for(batch)[0](placed, batch),
+               one_for(batch)[0](params, batch)) <= 1e-5
+    _, step1, _, _, _ = make_serve_step(cfg, one, 4, 16)
+    _, step, _, c_sh, _ = make_serve_step(cfg, mesh, 4, 16)
+    cache1 = model.init_cache(4, 16, device=cuda)
+    cache = c_sh.place(tree_map(torch.clone, cache1))
+    for t in range(4):
+        pos = torch.full((4,), t, dtype=torch.int32, device=cuda)
+        want = step1(params, cache1, toks[:, t:t + 1], pos)
+        assert rel(step(placed, cache, toks[:, t:t + 1], pos), want) <= 1e-5
+    for got, want in zip(elastic.placed_leaves(cache), tree_leaves(cache1)):
+        assert rel(elastic.gather(got), want) <= 1e-5
