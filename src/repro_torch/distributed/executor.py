@@ -36,11 +36,12 @@ On a mesh of several cards every slot computes on its own card, but the
 residual stream and the gathered weights pass through the first slot's
 card: the executor is exact there, not fast (ROADMAP.md).
 
-* **Forward and decode.** ``forward`` runs a function of the parameters
-  (the prefill) without gradients. ``decode`` runs one decode step with
-  the cache placed by ``cache_specs``: each slot decodes against its own
-  cache block and writes the new position into the block holding it
-  (``attention``'s decode branches); where the sequence is split, the
+* **Forward and decode.** ``forward`` runs a function of placed trees
+  without gradients: the parameters (the prefill), or the parameters and
+  the cache placed by ``cache_specs`` (a decode step). In a decode step
+  each slot decodes against its own cache block and writes the new
+  position into the block holding it (``attention``'s decode branches);
+  where the sequence is split, the
   slots' partial softmax statistics combine as an online softmax
   (``merge_partials``); a leaf of another layout, and the recurrent
   states of the replicated mixers, are gathered whole (``gather_leaf``)
@@ -581,9 +582,11 @@ class Executor:
         return tree_map_with_path(lambda _path, pl: self.shard_leaf(pl, subst),
                                   placed_tree)
 
-    def forward(self, fn: Callable, params, *args):
-        """``fn(view of params, *args)`` on the mesh without gradients
-        (the prefill): `params` a tree of Placed leaves, tensor `args` on
+    def forward(self, fn: Callable, trees: Sequence, *args):
+        """``fn(*views of trees, *args)`` on the mesh without gradients:
+        `trees` trees of Placed leaves (the parameters for the prefill;
+        the parameters and the cache laid out by ``cache_specs`` for a
+        decode step, written in place block by block), tensor `args` on
         the home device."""
         from repro_torch.models import shard_ctx
 
@@ -593,23 +596,7 @@ class Executor:
         shard_ctx.bind(self)
         try:
             with torch.no_grad(), owning(("home", 1)):
-                return fn(self.view(params), *args)
-        finally:
-            shard_ctx.bind(prev)
-
-    def decode(self, fn: Callable, params, cache, *args):
-        """``fn(view of params, view of cache, *args)`` without gradients
-        (one decode step): `cache` a tree of Placed leaves laid out by
-        ``cache_specs``, written in place, block by block."""
-        from repro_torch.models import shard_ctx
-
-        args = [a.to(self.home) if isinstance(a, torch.Tensor) else a
-                for a in args]
-        prev = shard_ctx.executor()
-        shard_ctx.bind(self)
-        try:
-            with torch.no_grad(), owning(("home", 1)):
-                return fn(self.view(params), self.view(cache), *args)
+                return fn(*(self.view(t) for t in trees), *args)
         finally:
             shard_ctx.bind(prev)
 

@@ -12,10 +12,12 @@ computed or allocated, under ``roofline/op_cost.py``'s counter. Each
 cell gives one JSON row with the JAX row's keys: parameters, accum,
 FLOPs, bytes, collective bytes and counts, the three roofline terms at
 the H100 constants (``launch/mesh.py``), the dominant term, and memory
-per device against the card's 80 GB; besides, ``home_device`` (the home
-slot's memory: it holds the whole-batch activations, the executor's
-layout) and ``repr_rows`` (the representative-row mode: data index 0's
-slots run for all, ``Executor``). ``lower_s`` is the set-up (build and
+per device against the card's 80 GB (``fits_hbm`` where the fullest
+slot and the home slot both fit, ``slot_fits_hbm`` for the slot alone);
+besides, ``home_device`` (the home slot's memory: it holds the
+whole-batch activations, the executor's layout) and ``repr_rows`` (the
+representative-row mode: data index 0's slots run for all,
+``Executor``). ``lower_s`` is the set-up (build and
 placement), ``compile_s`` 0.0 (nothing is compiled), ``run_s`` the
 counting.
 
@@ -250,7 +252,7 @@ def run_icr_cell(arch: str, mesh_kind: str, *, mesh=None) -> dict:
     costs = module_costs(OpCounter(), None, geo["slot_plans"])
     mem = {"argument_bytes": int(geo["memory"]), "temp_bytes": 0,
            "total_bytes": int(geo["memory"])}
-    mem["fits_hbm"] = mem["total_bytes"] <= HBM_BYTES
+    mem["fits_hbm"] = mem["slot_fits_hbm"] = mem["total_bytes"] <= HBM_BYTES
     terms = RooflineTerms(
         flops=geo["flops"], bytes_accessed=geo["bytes"], coll_bytes=halo,
         coll_breakdown={"collective-permute": halo, "total": halo},

@@ -20,9 +20,8 @@ from the shapes alone.
 
 ``make_prefill_step`` and ``make_serve_step`` build the forward-only
 steps the same way: one slot runs the model's own functions, a larger
-mesh runs them through the executor (``Executor.forward``,
-``Executor.decode``) with the parameters and the cache placed by their
-specs.
+mesh runs them through the executor (``Executor.forward``) with the
+parameters and the cache placed by their specs.
 """
 from __future__ import annotations
 
@@ -274,7 +273,7 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, *,
 
     def prefill_mesh(params, batch):
         ex.reset()
-        return ex.forward(model.prefill_fn, params, batch)
+        return ex.forward(model.prefill_fn, (params,), batch)
 
     prefill_mesh.executor = ex
     return model, params_sh, lambda _batch_tree: (prefill_mesh, None)
@@ -314,7 +313,8 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, batch: int, s_max: int,
 
     def serve_mesh(params, cache, tokens, positions):
         ex.reset()
-        return ex.decode(model.serve_step, params, cache, tokens, positions)
+        return ex.forward(model.serve_step, (params, cache), tokens,
+                          positions)
 
     serve_mesh.executor = ex
     return model, serve_mesh, params_sh, cache_sh, c_spec

@@ -26,8 +26,8 @@ at the H100 constants of ``launch/mesh.py``. ``collective_bytes`` and
 ``collective_counts`` read an executor's counts (the JAX package's parse
 the post-SPMD HLO text); ``analyze_step`` (the counterpart of
 ``analyze_compiled``) runs a step under ``op_cost.OpCounter`` and fills
-``memory_per_device`` from its per-owner memory, ``fits_hbm`` against
-``HBM_BYTES``.
+``memory_per_device`` from its per-owner memory: ``fits_hbm`` against
+``HBM_BYTES`` where the fullest slot and the home slot both fit.
 """
 from __future__ import annotations
 
@@ -279,8 +279,10 @@ def memory_summary(counter, static: dict, slots) -> dict:
     """``memory_per_device`` of a counted step: per slot its placed
     blocks (``static[slot]``: parameters, optimizer state, gradients,
     cache) and the peak of what its bodies allocated; the slot with the
-    most. ``home_device``: the home's peak (the whole-batch activations)
-    with its own slot's blocks."""
+    most, and whether it fits the card (``slot_fits_hbm``).
+    ``home_device``: the home's peak (the whole-batch activations) with
+    its own slot's blocks. ``fits_hbm`` holds only where both fit: the
+    executor's first device holds the home's tensors as well."""
     from .op_cost import HOME
 
     def one(slot):
@@ -292,12 +294,13 @@ def memory_summary(counter, static: dict, slots) -> dict:
     worst = max(per, key=lambda s: per[s]["total_bytes"])
     mem = dict(per[worst], slot=list(worst) if isinstance(worst, tuple)
                else worst)
-    mem["fits_hbm"] = mem["total_bytes"] <= hw.HBM_BYTES
+    mem["slot_fits_hbm"] = mem["total_bytes"] <= hw.HBM_BYTES
     first = next(iter(slots))
     home = {"argument_bytes": int(static.get(first, 0)),
             "temp_bytes": int(counter.peak[HOME])}
     home["total_bytes"] = home["argument_bytes"] + home["temp_bytes"]
     home["fits_hbm"] = home["total_bytes"] <= hw.HBM_BYTES
+    mem["fits_hbm"] = mem["slot_fits_hbm"] and home["fits_hbm"]
     mem["home_device"] = home
     return mem
 
@@ -317,11 +320,10 @@ def analyze_step(fn, *args, model_flops_per_device: float = 0.0,
         out = fn(*args)
     counts = executor.counts if executor is not None else None
     la = module_costs(counter, counts, plans, devices)
-    coll = dict(la["coll_by_kind"])
-    coll["total"] = la["coll_bytes"]
     terms = RooflineTerms(
         flops=la["flops"], bytes_accessed=la["bytes"],
-        coll_bytes=la["coll_bytes"], coll_breakdown=coll,
+        coll_bytes=la["coll_bytes"],
+        coll_breakdown=collective_bytes(counts or {}),
         coll_counts=la["coll_counts"],
         memory_per_device=memory_summary(counter, static or {},
                                          slots or [HOME]),

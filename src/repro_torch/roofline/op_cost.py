@@ -48,6 +48,8 @@ from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.models.shard_ctx import _CTX
+from repro_torch.roofline.analysis import (collective_bytes,
+                                           collective_counts)
 
 __all__ = ["HOME", "JAX_KIND", "OpCounter", "module_costs"]
 
@@ -167,12 +169,8 @@ def module_costs(counter: OpCounter, counts: dict | None = None,
     totals over `devices` (the per-device program of a mesh whose slots
     share the work), the executor's collective ``counts`` per device,
     and the launch ``plans``' kernels."""
-    coll_by_kind = {k: 0.0 for k in JAX_KIND.values()}
-    coll_counts: dict = {}
-    for kind, c in (counts or {}).items():
-        coll_by_kind[JAX_KIND[kind]] += float(c.get("device_bytes", 0.0))
-        if c["calls"]:
-            coll_counts[JAX_KIND[kind]] = int(c["calls"])
+    coll = collective_bytes(counts or {})
+    calls = collective_counts(counts or {})
     custom = collections.defaultdict(
         lambda: {"count": 0, "bytes": 0.0, "pallas": False})
     for p in plans:
@@ -180,9 +178,9 @@ def module_costs(counter: OpCounter, counts: dict | None = None,
         custom[p.kernel]["bytes"] += float(p.hbm_bytes())
     return {"flops": counter.flops / devices,
             "bytes": counter.bytes / devices,
-            "coll_bytes": sum(coll_by_kind.values()),
-            "coll_by_kind": {k: v for k, v in coll_by_kind.items() if v},
-            "coll_counts": coll_counts,
+            "coll_bytes": coll.pop("total"),
+            "coll_by_kind": {k: v for k, v in coll.items() if v},
+            "coll_counts": {k: v for k, v in calls.items() if v},
             "custom_calls": dict(custom),
             "flops_by_op": {k: v / devices for k, v in
                             counter.flops_by_op.items()}}

@@ -1423,7 +1423,10 @@ def test_cuda_meta_flops_equal_the_cards(cuda):
 def test_cuda_sharded_serve_step_equals_one_slot(cuda, shape):
     """Reduced gemma3-4b at float32 on a virtual mesh of the card (the kv
     heads split; the cache's sequence split): the prefill and 4 decode
-    steps equal one slot's within 1e-5, and so does the cache."""
+    steps equal one slot's within 1e-5, and so does the cache. The
+    one-slot step writes positions 0..4 first; the 4 steps run at
+    positions 5 + t + row, across the boundary of the sequence's blocks
+    of 4."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed import elastic
     from repro_torch.launch.mesh import make_mesh
@@ -1446,9 +1449,12 @@ def test_cuda_sharded_serve_step_equals_one_slot(cuda, shape):
     _, step1, _, _, _ = make_serve_step(cfg, one, 4, 16)
     _, step, _, c_sh, _ = make_serve_step(cfg, mesh, 4, 16)
     cache1 = model.init_cache(4, 16, device=cuda)
+    for t in range(5):
+        step1(params, cache1, toks[:, t:t + 1],
+              torch.full((4,), t, dtype=torch.int32, device=cuda))
     cache = c_sh.place(tree_map(torch.clone, cache1))
-    for t in range(4):
-        pos = torch.full((4,), t, dtype=torch.int32, device=cuda)
+    for t in range(5, 9):
+        pos = (t + torch.arange(4, device=cuda)).to(torch.int32)
         want = step1(params, cache1, toks[:, t:t + 1], pos)
         assert rel(step(placed, cache, toks[:, t:t + 1], pos), want) <= 1e-5
     for got, want in zip(elastic.placed_leaves(cache), tree_leaves(cache1)):

@@ -11,7 +11,8 @@
   exactly.
 * ``RooflineTerms``: the arithmetic and the dominant term of
   ``tests/test_roofline.py`` at the H100 constants; the per-device
-  collective conversion on a hand-counted case.
+  collective conversion on a hand-counted case; ``fits_hbm`` only where
+  the fullest slot and the home slot both fit.
 * The executor's representative-row mode equal to the full run on meshes
   (4, 2) and (2, 2, 2) of ``meta`` slots, for the train step (at accum 1
   and 2: one microbatch standing for both), the prefill and the serve
@@ -26,6 +27,7 @@
   ICR cell.
 """
 import ast
+import collections
 import contextlib
 import io
 import json
@@ -180,6 +182,22 @@ def test_collective_conversion_per_device():
             counts["all-reduce"]) == (1, 1, 1)
 
 
+@pytest.mark.parametrize("home_fits", [True, False])
+def test_fits_hbm_needs_the_home_to_fit(home_fits):
+    """Two slots that fit beside a home whose whole-batch activations fit
+    the card or pass it by one byte: the row fits only in the first case,
+    the slot's own verdict in both."""
+    home = hw.HBM_BYTES - 5 if home_fits else hw.HBM_BYTES - 4
+    counter = types.SimpleNamespace(peak=collections.Counter(
+        {(0, 0): 10, (0, 1): 20, HOME: home}))
+    mem = analysis.memory_summary(counter, {(0, 0): 5}, [(0, 0), (0, 1)])
+    assert (mem["slot"], mem["total_bytes"]) == ([0, 1], 20)
+    assert mem["slot_fits_hbm"]
+    assert mem["home_device"]["total_bytes"] == home + 5
+    assert mem["home_device"]["fits_hbm"] is home_fits
+    assert mem["fits_hbm"] is home_fits
+
+
 def _meta_mesh(shape):
     axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                       "model")
@@ -324,7 +342,9 @@ def test_a_reduced_row_through_run_cell(monkeypatch):
     assert row["repr_rows"] is True and "home_device" in row
     assert row["t_compute_s"] == pytest.approx(row["flops"]
                                                / hw.PEAK_FLOPS_BF16)
-    assert row["memory_per_device"]["fits_hbm"]
+    mem = row["memory_per_device"]
+    assert mem["fits_hbm"] and mem["slot_fits_hbm"]
+    assert row["home_device"]["fits_hbm"]
 
 
 def test_the_command_line_on_an_icr_cell():

@@ -6,9 +6,15 @@ to the JAX package on the CPU.
   architectures: (2, 2) (the kv heads over the model slots: each slot
   projects its heads), (1, 4) (the sequence of the cache over the model
   slots: an online softmax over them), and a batch of one on (4, 1)
-  (the data axes on the sequence). Logits within 1e-5 of their largest
-  entry at every one of 4 decode steps, and the cache blocks gathered
-  after them equal to the one-slot cache within 1e-5.
+  (the data axes on the sequence). The one-slot step first writes
+  positions 0..WARM-1 of the cache; the mesh takes that cache and both
+  decode 4 steps at positions WARM + t + row, which cross from the
+  second block of the sequence into the third where the sequence is
+  split (blocks of 4): live partials of several blocks merge, rows of
+  one block write while others keep, and a later block's keys are
+  visible. Logits within 1e-5 of their largest entry at every step, and
+  the cache blocks gathered after them equal to the one-slot cache
+  within 1e-5.
 * The JAX package's own ``make_prefill_step`` / ``make_serve_step`` on
   ``make_host_mesh()`` (one CPU device) against the port's steps on a
   (2, 2) mesh, within 1e-5, for gemma3-4b and deepseek-v2 (MLA, MoE).
@@ -36,6 +42,7 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 B, S, STEPS, S_MAX = 4, 16, 4, 16
+WARM = 5            # positions the one-slot step writes before the mesh's
 # name -> (mesh shape, batch, (data dim, model dim) of gemma3-4b's k cache:
 # the tail layer's on "heads", a global layer's (after the group index)
 # on the others; None where the axes do not split it). The local layers'
@@ -85,14 +92,17 @@ def test_sharded_prefill_and_serve_equal_one_slot(name, layout):
     cache1 = model.init_cache(b, S_MAX, device="cpu")
     if cfg.encoder is not None:
         model.prepare_cross_cache(params, cache1, batch["enc_embeds"])
+    for t in range(WARM):
+        one(params, cache1, batch["tokens"][:, t:t + 1],
+            torch.full((b,), t, dtype=torch.int32))
     _, step, _, c_sh, c_spec = make_serve_step(cfg, mesh_of(shape), b,
                                                S_MAX)
     assert [tuple(t.shape) for t in tree_leaves(c_spec)] == \
         [tuple(t.shape) for t in tree_leaves(cache1)]
     cache = c_sh.place(tree_map(torch.clone, cache1))
     for t in range(STEPS):
-        tok = batch["tokens"][:, t:t + 1]
-        pos = torch.full((b,), t, dtype=torch.int32)
+        tok = batch["tokens"][:, WARM + t:WARM + t + 1]
+        pos = (WARM + t + torch.arange(b)).to(torch.int32)
         want = one(params, cache1, tok, pos)
         assert rel(step(placed, cache, tok, pos), want) <= TOL, (name, t)
     for got, want in zip(elastic.placed_leaves(cache), tree_leaves(cache1)):
