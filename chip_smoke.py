@@ -8,6 +8,8 @@ Run from the root of a checkout, with no arguments:
 (``python3 chip_smoke.py --eager-step LABEL=SRC[:fpad] ...`` instead
 times the eager dust fit step of the package under each SRC, one process
 each, to compare two trees in one call: see ``eager_step_ab``;
+``--mesh-step LABEL=SRC ...`` does so for phase 11b's warm sharded
+gemma3-4b step on (2, 4) and (1, 16): see ``mesh_step_ab``;
 ``--kernels-once`` launches every kernel once at a small shape, the
 program the sanitizers run: see ``kernels_once``; ``--level0-probe``
 asks whether cuSOLVER's syevd, and the Cholesky root the port takes
@@ -256,9 +258,13 @@ Phases (any failure ends the run with a non-zero exit code):
    ``distributed/executor.py``, ``distributed/compression.py``, the mesh
    branches of ``models/``, ``launch/steps.py`` and ``launch/train.py`` on
    a mesh; plain torch ops, none of the port's kernels), on virtual
-   meshes of slots of the one card: (a) the ten reduced architectures at
+   meshes of slots of the one card, every batch placed per line (each
+   data index's rows on its own slots) through
+   ``make_batch_iterator(shardings=)`` and the step's
+   ``batch_shardings``: (a) the ten reduced architectures at
    float32 on (data 2, model 2) ("head", the kv heads split), (1, 4)
-   ("head", the kv heads repeated) and (1, 8) ("key"): the loss and every
+   ("head", the kv heads repeated), (1, 8) ("key") and (4, 1) (one row
+   per line, the last row's labels partly masked): the loss and every
    gradient leaf against the card's one-slot step (<= 1e-5 of the leaf's
    largest entry), one update of sgd, adamw and adafactor (factored) from
    the one-slot gradients placed on (2, 2) and (1, 8) (<= 1e-5), an
@@ -275,7 +281,8 @@ Phases (any failure ends the run with a non-zero exit code):
    update into a full-size difference; at least a quarter of the entries
    must be held); the sharded step's gradients and update each timed by
    CUDA events with their host enqueue, then one more whole step timed
-   (warm), the peak memory allocated and the step's collective calls
+   (warm), the peak memory allocated (beside phase 11b's 57.7–70.5 GB
+   before the lines, PERF.md) and the step's collective calls
    and bytes; then one whole sharded step on (1, 16), the production
    model axis ("key"), timed, its loss held to the one-slot loss.
    (c) on reduced starcoder2, SGD: the loop on (2, 2)
@@ -294,14 +301,19 @@ Phases (any failure ends the run with a non-zero exit code):
    equal exactly, the peak within ``DRY_PEAK_TOL`` of
    ``max_memory_allocated`` (``dryrun_one_slot`` line); (c) gemma3-4b at
    full width, bf16, on (2, 4) ("head") and (1, 16) ("key", the cache's
-   sequence split): a prefill of 1,100 tokens against one slot; phase
+   sequence split), every batch placed per line: a prefill of two
+   prompts of 1,100 tokens (one per line of (2, 4)) against one slot;
+   phase
    9's 8 requests teacher forced (s_max 2048) through the one-slot step
    at positions 0..123, then 8 steps at positions 124..131 on the mesh
    and on one slot, crossing the first boundary of the key blocks (128
    positions each), logits within 5e-2, decode argmax equal at every
    row and step, the cache gathered after them within 5e-2 of the
    one-slot cache, and the executor's collective counts equal to the
-   same steps' on a mesh of ``meta`` slots (``dryrun_mesh`` line); (d)
+   same steps' on a mesh of ``meta`` slots (``dryrun_mesh`` line); (f)
+   one train step of reduced deepseek-v2 on (2, 4) under the op counter
+   on the card and on ``meta``: FLOPs equal, each owner's peak within
+   ``DRY_PEAK_TOL`` (``dryrun_mesh_train`` line); (d)
    the launches and halo bytes of phase 7's sharded dust and log-twin
    applies against ``dryrun.icr_geometry``; (e) the dry run's rows of
    gemma3-4b's decode_32k cell and icr-dust-pod on the 16x16 mesh, each
@@ -4086,7 +4098,7 @@ def check_lm_train(card) -> dict:
 # -- phase 11: the sharded LM executor (distributed/sharding.py,
 # distributed/executor.py, distributed/compression.py, the mesh branches of
 # models/, launch/steps.py and launch/train.py on a mesh) --------------------
-LMS_MESHES = {"2x2": (2, 2), "1x4": (1, 4), "1x8": (1, 8)}
+LMS_MESHES = {"2x2": (2, 2), "1x4": (1, 4), "1x8": (1, 8), "4x1": (4, 1)}
 LMS_TOL = 1e-5             # 11a: sharded against one slot, float32
 LMS_FULL_MESH = (2, 4)     # 11b: gemma3-4b, "head" with the kv heads split
 LMS_KEY_MESH = (1, 16)     # 11b: the production model axis, "key"
@@ -4131,6 +4143,51 @@ def lms_counts(ex) -> dict:
     return {k: dict(v) for k, v in ex.counts.items()}
 
 
+def lms_mask_last_row(labels) -> None:
+    """The batch's last row's labels from a third of the way on set to
+    -1, in place (the lines' masked counts then differ): a whole tensor,
+    or a placed leaf's blocks (at accum > 1 in the microbatch layout,
+    (accum, rows, seq): the last microbatch's last row)."""
+    from repro_torch.distributed import elastic
+
+    cut = labels.shape[-1] // 3
+    if not isinstance(labels, elastic.Placed):
+        labels[-1, cut:] = -1
+        return
+    dim = len(labels.shape) - 2
+    last = labels.shape[dim] - 1
+    for sl, copies in elastic.logical_blocks(labels):
+        lo = sl[dim].start or 0
+        hi = labels.shape[dim] if sl[dim].stop is None else sl[dim].stop
+        if lo <= last < hi:
+            for t in copies:
+                (t[-1] if dim else t)[last - lo, cut:] = -1
+
+
+def lms_lines_batch(ts, data, extra=None) -> dict:
+    """`data`'s batch of step 0 as the pipeline hands it to the sharded
+    step `ts`: ``make_batch_iterator(shardings=)`` with the step's
+    ``batch_shardings`` (each line's rows on its own slots), and the
+    `extra` leaves (the frontends' inputs, whole) placed alike."""
+    import torch
+
+    from repro_torch.data.pipeline import make_batch_iterator
+
+    tree = {k: torch.empty((data.global_batch, data.seq_len),
+                           dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
+    tree.update(extra or {})
+    sh = ts.batch_shardings(tree)
+    it = make_batch_iterator(data, start_step=0, shardings=sh)
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    if extra:
+        batch.update(sh.place(extra))
+    return batch
+
+
 def lms_reduced_case(name, device="cuda") -> dict:
     """Phase 11a on one reduced architecture at float32: the sharded
     loss and gradients on the three meshes against the card's one-slot
@@ -4147,10 +4204,23 @@ def lms_reduced_case(name, device="cuda") -> dict:
     from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
     from repro_torch.optim import constant, optimizers
 
+    from repro_torch.data import SyntheticLMData
+
     cfg = get_arch(name).reduced()
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=device).manual_seed(0))
-    batch = lmt_reduced_batch(cfg, device)
+    batch = lmt_reduced_batch(cfg, device)      # step 0 of `data`
+    lms_mask_last_row(batch["labels"])
+    data = SyntheticLMData(cfg.vocab_size, LMT_REDUCED[1], LMT_REDUCED[0],
+                           seed=3)
+    extra = {k: v for k, v in batch.items() if k not in ("tokens",
+                                                         "labels")}
+
+    def lines_batch(ts):
+        placed = lms_lines_batch(ts, data, extra)
+        lms_mask_last_row(placed["labels"])
+        return placed
+
     l1, g1 = lmt_grads(model, params, batch)
     params = tree_map(lambda t: t.detach(), params)
     rec = {"loss_rel_err": {}, "grad_rel_err": {}, "grad_zero_level": {},
@@ -4158,7 +4228,8 @@ def lms_reduced_case(name, device="cuda") -> dict:
     for mname, shape in LMS_MESHES.items():
         ts = steps.make_train_step(cfg, lms_mesh(shape, device))
         placed = ts.params_sh.place(tree_map(torch.clone, params))
-        loss, _, grads = ts.executor.grads(model.loss_fn, placed, batch)
+        loss, _, grads = ts.executor.grads(model.loss_fn, placed,
+                                           lines_batch(ts))
         rec["loss_rel_err"][mname] = abs(float(loss) - float(l1)) / abs(
             float(l1))
         rec["grad_rel_err"][mname], rec["grad_zero_level"][mname] = \
@@ -4194,9 +4265,11 @@ def lms_reduced_case(name, device="cuda") -> dict:
             ts = steps.make_train_step(cfg, mesh, accum=2)
         p = tree_map(torch.clone, params)
         st = ts.optimizer.init(p)
+        b = batch
         if ts.params_sh is not None:
             p, st = ts.params_sh.place(p), ts.opt_sh.place(st)
-        new, _, metrics = ts.fn(p, st, batch)
+            b = lines_batch(ts)     # the microbatch layout: accum 2
+        new, _, metrics = ts.fn(p, st, b)
         outs.append((float(metrics["loss"]),
                      lms_whole(new) if ts.params_sh is not None
                      else tree_leaves(new)))
@@ -4282,9 +4355,11 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
              timed=0) -> dict:
     """Phase 11b: `cfg` at full width and depth (bf16, remat, AdamW at a
     constant ``LMS_LR``) on a virtual mesh of `shape` slots of the card,
-    phase 10's parameters (seed 0) and batch (step 0). Without `ref`: the
-    one-slot step first (its gradients and its updated parameters kept on
-    the host), then the sharded step's two calls, each timed by CUDA
+    phase 10's parameters (seed 0) and batch (step 0), the sharded step's
+    placed per line by ``make_batch_iterator(shardings=)``. Without
+    `ref`: the one-slot step first (its gradients and its updated
+    parameters kept on the host), then the sharded step's two calls,
+    each timed by CUDA
     events with its host enqueue (the first sharded step:
     ``first_step_ms``): its gradients, then the update from them. Held
     to the one-slot step: its loss; its gradients' cosine, over all
@@ -4354,6 +4429,8 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
     state = ts.opt_sh.place(ts.optimizer.init(params))
     placed = ts.params_sh.place(params)      # views: updated in place
     del params
+    # the pipeline's batch: each line's rows on its own slots
+    lines = lms_lines_batch(ts, data)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     if g1_host is not None:
@@ -4361,7 +4438,7 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
         # the update on the blocks from them
         clock = _StepClock(torch.device(device))
         clock.start()
-        loss2, _, g2 = ts.executor.grads(model.loss_fn, placed, batch0)
+        loss2, _, g2 = ts.executor.grads(model.loss_fn, placed, lines)
         grads_enq = clock.enqueued()
         rec["loss"] = float(loss2)
         rec["grads_ms"] = clock.elapsed()
@@ -4402,7 +4479,7 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
     for _ in range(timed):
         clock = _StepClock(torch.device(device))
         clock.start()
-        placed, state, metrics = ts.fn(placed, state, batch0)
+        placed, state, metrics = ts.fn(placed, state, lines)
         rec["enqueue_ms"] = clock.enqueued()
         rec.setdefault("losses", []).append(float(metrics["loss"]))
         rec["step_ms"] = clock.elapsed()
@@ -4548,6 +4625,8 @@ DRY_PEAK_TOL = 0.05          # 12b: predicted peak against the card's
 DRY_MESHES = {"head": (2, 4), "key": (1, 16)}   # 12c, phase 11's
 DRY_FROM = 124               # 12c: positions the one-slot step writes first
 DRY_STEPS = 8                # 12c: decode steps compared, from DRY_FROM
+DRY_PREFILL_ROWS = 2         # 12c: prompts prefilled, one per line of (2, 4)
+DRY_TRAIN_ARCH = "deepseek-v2-236b"   # 12f: reduced, (2, 4), card and meta
 
 
 def dry_cells_start() -> list:
@@ -4694,6 +4773,7 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
     slots."""
     import torch
 
+    from repro_torch.distributed import elastic
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.tree import tree_leaves, tree_map
 
@@ -4708,16 +4788,17 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
     ref = one_for(batch)[0](params, batch)
     _, p_sh, fn_for = make_prefill_step(cfg, lms_mesh(shape, device))
     placed = p_sh.place(params)
-    fn = fn_for(batch)[0]
-    got = fn(placed, batch)
+    fn, b_sh = fn_for(batch)
+    # the prompts placed per line; the logits come back per line
+    got = elastic.gather(fn(placed, b_sh.place(batch)))
     rec["prefill_rel_err"] = float((got - ref).abs().max()
                                    / ref.abs().max())
     rec["prefill_counts"] = lms_counts(fn.executor)
     _, mp_sh, mfn_for = make_prefill_step(cfg, lms_mesh(shape, "meta"))
-    mfn = mfn_for(batch)[0]
-    mfn(mp_sh.place(model.params_spec()),
-        {"tokens": torch.empty(prompt.shape, dtype=torch.int32,
-                               device="meta")})
+    mbatch = {"tokens": torch.empty(prompt.shape, dtype=torch.int32,
+                                    device="meta")}
+    mfn, mb_sh = mfn_for(mbatch)
+    mfn(mp_sh.place(model.params_spec()), mb_sh.place(mbatch))
     rec["prefill_counts_equal"] = lms_counts(mfn.executor) == \
         rec["prefill_counts"]
     rec["prefill_s"] = time.perf_counter() - t0
@@ -4734,7 +4815,9 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
         tok = toks[:, p:p + 1]
         pos = torch.full((rows,), p, dtype=torch.int32, device=device)
         want = one(params, cache1, tok, pos)
-        got = step(placed, cache, tok, pos)
+        rows_in = step.batch_sh.place({"tokens": tok, "positions": pos})
+        got = elastic.gather(step(placed, cache, rows_in["tokens"],
+                                  rows_in["positions"]))
         err = max(err, float((got - want).abs().max() / want.abs().max()))
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
     rec["decode_rel_err"] = err
@@ -4747,9 +4830,12 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
     rec["decode_counts"] = lms_counts(step.executor)
     _, mstep, mp_sh, mc_sh, mc_spec = make_serve_step(
         cfg, lms_mesh(shape, "meta"), rows, LM_S_MAX)
-    meta_tok = torch.empty((rows, 1), dtype=torch.int32, device="meta")
-    mstep(mp_sh.place(model.params_spec()), mc_sh.place(mc_spec), meta_tok,
-          torch.empty((rows,), dtype=torch.int32, device="meta"))
+    meta_in = mstep.batch_sh.place(
+        {"tokens": torch.empty((rows, 1), dtype=torch.int32, device="meta"),
+         "positions": torch.empty((rows,), dtype=torch.int32,
+                                  device="meta")})
+    mstep(mp_sh.place(model.params_spec()), mc_sh.place(mc_spec),
+          meta_in["tokens"], meta_in["positions"])
     rec["decode_counts_equal"] = lms_counts(mstep.executor) == \
         rec["decode_counts"]
     rec["decode_s"] = time.perf_counter() - t0
@@ -4765,7 +4851,8 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
 
 def dry_mesh(device="cuda") -> dict:
     """12c: gemma3-4b at full width (bf16, seeded weights) on the virtual
-    meshes of ``DRY_MESHES``: a prefill of ``LM_DECODE_LEN`` tokens, and
+    meshes of ``DRY_MESHES``: a prefill of ``DRY_PREFILL_ROWS`` prompts of
+    ``LM_DECODE_LEN`` tokens, and
     phase 9's ``LM_REQUESTS`` requests (a prompt shorter than ``DRY_FROM
     + DRY_STEPS`` tokens repeated) written by the one-slot serve step at
     positions 0..``DRY_FROM`` - 1 (s_max ``LM_S_MAX``), then stepped on
@@ -4787,8 +4874,9 @@ def dry_mesh(device="cuda") -> dict:
                                   for p in prompts]),
                         dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(3)
-    prompt = torch.randint(0, cfg.vocab_size, (1, LM_DECODE_LEN),
-                           generator=gen, device=device, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (DRY_PREFILL_ROWS, LM_DECODE_LEN), generator=gen,
+                           device=device, dtype=torch.int32)
     with torch.no_grad():
         _, one, _, _, _ = make_serve_step(cfg, lms_mesh((1, 1), device),
                                           LM_REQUESTS, LM_S_MAX)
@@ -4805,6 +4893,62 @@ def dry_mesh(device="cuda") -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def dry_mesh_train(device="cuda") -> dict:
+    """12f: one train step of reduced ``DRY_TRAIN_ARCH`` (float32, AdamW)
+    on the (2, 4) virtual mesh, the batch placed per line, under
+    ``op_cost.OpCounter`` on the card and on ``meta`` slots: FLOPs equal
+    exactly, and each owner's peak (what the counter sees the step
+    allocate: each line's activations on slot (d, 0), the model slots'
+    bodies, the home's reduced statistics) within ``DRY_PEAK_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.roofline.op_cost import OpCounter
+
+    cfg = get_arch(DRY_TRAIN_ARCH).reduced()
+    b, s = LMT_REDUCED
+    counted = {}
+    for dev in ("meta", device):
+        t0 = time.perf_counter()
+        ts = make_train_step(cfg, lms_mesh(LMS_FULL_MESH, dev))
+        if dev == "meta":
+            p = ts.model.params_spec()
+            batch = {k: torch.empty((b, s), dtype=torch.int32, device=dev)
+                     for k in ("tokens", "labels")}
+        else:
+            p = ts.model.init_params(
+                torch.Generator(device=dev).manual_seed(0))
+            data = SyntheticLMData(cfg.vocab_size, s, b, seed=3)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch(0).items()}
+        args = (ts.params_sh.place(p), ts.opt_sh.place(ts.optimizer.init(p)),
+                ts.batch_shardings(batch).place(batch))
+        with OpCounter() as c:
+            _, _, metrics = ts.fn(*args)
+        loss = metrics["loss"]
+        counted[dev] = (c, None if dev == "meta" else float(loss),
+                        time.perf_counter() - t0)
+        del ts, p, args
+    (meta, _, meta_s), (card, loss, card_s) = counted["meta"], \
+        counted[device]
+    owners = sorted(set(meta.peak) | set(card.peak), key=str)
+    peaks = {str(o): [meta.peak[o], card.peak[o]] for o in owners}
+    errs = [abs(c / m - 1.0) if m else float(c != 0)
+            for m, c in peaks.values()]
+    rec = {"arch": DRY_TRAIN_ARCH, "mesh": list(LMS_FULL_MESH),
+           "rows": b, "seq_len": s, "meta_flops": meta.flops,
+           "card_flops": card.flops, "meta_ops": meta.ops,
+           "card_ops": card.ops, "peak_bytes": peaks,
+           "peak_rel_err_max": max(errs), "card_loss": loss,
+           "meta_s": meta_s, "card_s": card_s}
+    rec["ok"] = (rec["meta_flops"] == rec["card_flops"] > 0
+                 and rec["peak_rel_err_max"] <= DRY_PEAK_TOL
+                 and math.isfinite(loss))
+    return rec
 
 
 def dry_icr(device="cuda") -> dict:
@@ -4841,7 +4985,9 @@ def dry_icr(device="cuda") -> dict:
 def check_dryrun(card) -> dict:
     """Phase 12: 12a the card's constants, 12b the one-slot train step
     counted on ``meta`` against the card, 12c the sharded prefill and
-    serve steps against one slot, 12d the ICR geometry against phase 7,
+    serve steps against one slot, 12f a reduced sharded train step
+    counted on the card against ``meta``, 12d the ICR geometry against
+    phase 7,
     12e the dry run's rows (after the card's work, so that they share
     the host with no timed phase). Returns the ``dryrun`` record; a
     failed check raises."""
@@ -4859,6 +5005,11 @@ def check_dryrun(card) -> dict:
     bad = [k for k, r in record["mesh"].items() if not r["ok"]]
     if bad:
         raise RuntimeError(f"phase 12c failed on {bad}")
+    record["mesh_train"] = dry_mesh_train()
+    print("dryrun_mesh_train: " + json.dumps(record["mesh_train"]),
+          flush=True)
+    if not record["mesh_train"]["ok"]:
+        raise RuntimeError(f"phase 12f: {record['mesh_train']}")
     record["icr"] = dry_icr()
     bad = [k for k, r in record["icr"].items() if not r["ok"]]
     if bad or len(record["icr"]) != 4:
@@ -5238,6 +5389,80 @@ def eager_step_ab(specs) -> int:
     return 0
 
 
+def mesh_step_one(src: str, shape: str) -> dict:
+    """Phase 11b's sharded gemma3-4b step (bf16, remat, AdamW at a
+    constant ``LMS_LR``, phase 10's parameters and batch) on a virtual
+    mesh of `shape` ("2x4") slots of the card, with the package under
+    `src`: two steps, the second timed by CUDA events with its host
+    enqueue; the losses, the peak memory allocated over both and the
+    second step's collective counts. The batch as that package's train
+    loop hands it over: placed per line where its step gives a batch
+    placement (``batch_shardings``), else whole on the card."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import _StepClock
+    from repro_torch.optim import constant, optimizers
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), remat=True)
+    mesh = lms_mesh(tuple(int(n) for n in shape.split("x")))
+    with lms_optimizer(optimizers.adamw(constant(LMS_LR), weight_decay=0.1),
+                       "adamw"):
+        ts = make_train_step(cfg, mesh)
+    params = ts.model.init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    state = ts.opt_sh.place(ts.optimizer.init(params))
+    placed = ts.params_sh.place(params)
+    del params
+    data = SyntheticLMData(cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=0)
+    if hasattr(ts, "batch_shardings"):
+        batch = lms_lines_batch(ts, data)
+    else:
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in data.batch(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"src": src, "mesh": shape, "losses": []}
+    for _ in range(2):
+        clock = _StepClock(torch.device("cuda"))
+        clock.start()
+        placed, state, metrics = ts.fn(placed, state, batch)
+        rec["enqueue_ms"] = clock.enqueued()
+        rec["losses"].append(float(metrics["loss"]))
+        rec["step_ms"] = clock.elapsed()
+    rec["collectives"] = lms_counts(ts.executor)
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def mesh_step_ab(specs) -> int:
+    """``--mesh-step LABEL=SRC ...``: phase 11b's warm sharded step
+    (``mesh_step_one``) of each package in turn, on (2, 4) and then on
+    (1, 16), one process each (list them as parent, change, change,
+    parent to see the drift); prints one ``mesh_step`` line per run and
+    the card."""
+    for shape in ("2x4", "1x16"):
+        for spec in specs:
+            label, _, src = spec.partition("=")
+            run = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-step-one", src, shape],
+                capture_output=True, text=True)
+            if run.returncode != 0:
+                print(run.stderr[-4000:], file=sys.stderr)
+                return 1
+            rec = json.loads(run.stdout.strip().splitlines()[-1])
+            print("mesh_step: " + json.dumps({"label": label, **rec}),
+                  flush=True)
+    print(card_line())
+    return 0
+
+
 def level0_probe() -> int:
     """``--level0-probe``: can the level-0 root be rebuilt inside a CUDA
     graph? (1) cuSOLVER's syevd through a binding on the current stream
@@ -5340,5 +5565,10 @@ if __name__ == "__main__":
         sys.exit(eager_step_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--eager-step-one"]:
         print(json.dumps(eager_step_one(*sys.argv[2:4])))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-step"]:
+        sys.exit(mesh_step_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-step-one"]:
+        print(json.dumps(mesh_step_one(*sys.argv[2:4])))
         sys.exit(0)
     sys.exit(main())

@@ -13,10 +13,16 @@ to the card on a side stream, and records an event after the copy; the
 consumer's ``next`` makes its current stream wait on that event (and
 marks the tensors as used there), so a step never reads a batch whose
 copy has not finished, and batch N+1 crosses while step N runs. On the
-CPU the batch is handed over as numpy-backed tensors.
+CPU the batch is handed over as numpy-backed tensors. With
+``shardings`` (a step's ``sharding.BatchShardings``, the JAX package's
+``device_put`` by ``batch_sh``) each data index's rows go from pinned
+memory to its own slots' devices only (one side stream and one event per
+card), as ``elastic.Placed`` leaves: under accumulation each data
+index's part of every microbatch is already on its devices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -81,34 +87,49 @@ class BatchIterator:
     build re-raises its error in ``next``."""
 
     def __init__(self, source: SyntheticLMData, start_step: int,
-                 prefetch: int, host_id: int, host_count: int, device):
+                 prefetch: int, host_id: int, host_count: int, device,
+                 shardings=None):
         self.device = torch.device(device)
+        self.shardings = shardings
+        devices = ([self.device] if shardings is None
+                   else shardings.mesh.distinct_devices())
+        self.cards = [d for d in devices if d.type == "cuda"]
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._args = (source, start_step, host_id, host_count)
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 
-    def _build(self, source, step, host_id, host_count, stream):
+    def _build(self, source, step, host_id, host_count, streams):
         b = source.batch(step, host_id=host_id, host_count=host_count)
         b = {k: torch.from_numpy(v) for k, v in b.items()}
-        if stream is None:
-            return b, None
-        with torch.cuda.stream(stream):
-            b = {k: v.pin_memory().to(self.device, non_blocking=True)
-                 for k, v in b.items()}
-            done = torch.cuda.Event()
-            done.record(stream)
+        if self.shardings is not None and not streams:
+            return self.shardings.place(b), []
+        if not streams:
+            return b, []
+        with contextlib.ExitStack() as stack:
+            for s in streams:
+                stack.enter_context(torch.cuda.stream(s))
+            if self.shardings is not None:
+                # each copy on its card's current stream: the side stream
+                b = self.shardings.place(b, pin=True)
+            else:
+                b = {k: v.pin_memory().to(self.device, non_blocking=True)
+                     for k, v in b.items()}
+        done = []
+        for s in streams:
+            ev = torch.cuda.Event()
+            ev.record(s)
+            done.append((s.device, ev))
         return b, done
 
     def _work(self):
         source, step, host_id, host_count = self._args
-        stream = (torch.cuda.Stream(self.device)
-                  if self.device.type == "cuda" else None)
+        streams = [torch.cuda.Stream(d) for d in self.cards]
         while not self._stop.is_set():
             try:
                 item = self._build(source, step, host_id, host_count,
-                                   stream)
+                                   streams)
             except Exception as exc:  # noqa: BLE001 — re-raised by next
                 item = exc
             while not self._stop.is_set():
@@ -129,11 +150,12 @@ class BatchIterator:
         if isinstance(item, Exception):
             raise item
         batch, done = item
-        if done is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(done)
-            for t in batch.values():
-                t.record_stream(consumer)
+        for dev, ev in done:
+            consumer = torch.cuda.current_stream(dev)
+            consumer.wait_event(ev)
+            for t in _tensors(batch):
+                if t.device == dev:
+                    t.record_stream(consumer)
         return batch
 
     def close(self):
@@ -141,13 +163,23 @@ class BatchIterator:
         self._thread.join(timeout=30)
 
 
+def _tensors(batch) -> list:
+    """The tensors of a batch (a Placed leaf's blocks included)."""
+    out = []
+    for v in batch.values():
+        out.extend(v if isinstance(v, list) else [v])
+    return out
+
+
 def make_batch_iterator(source: SyntheticLMData, *, start_step: int = 0,
                         prefetch: int = 2, host_id: int = 0,
-                        host_count: int = 1,
-                        device="cuda") -> Iterator[dict]:
+                        host_count: int = 1, device="cuda",
+                        shardings=None) -> Iterator[dict]:
     """Double-buffered iterator of ``source``'s batches from
-    ``start_step`` on, as tensors on `device`: batch N+1 is built (and
-    copied) while the model runs step N. Restart-safe: pass the
-    checkpointed step as `start_step` and the stream resumes exactly."""
+    ``start_step`` on, as tensors on `device`, or placed by `shardings`
+    (a ``sharding.BatchShardings``: each data index's rows on its slots'
+    devices, `device` unused): batch N+1 is built (and copied) while the
+    model runs step N. Restart-safe: pass the checkpointed step as
+    `start_step` and the stream resumes exactly."""
     return BatchIterator(source, start_step, prefetch, host_id, host_count,
-                         device)
+                         device, shardings)

@@ -29,7 +29,10 @@ pods.
 
 ``shardings_for`` is the port's tree of ``NamedSharding``: it places a
 tree on a ``launch.mesh.Mesh`` as ``elastic.Placed`` leaves
-(``Mesh.shard`` through ``elastic.remesh_report``).
+(``Mesh.shard`` through ``elastic.remesh_report``). ``BatchShardings``
+places an input batch by ``batch_spec``: each data index's rows on its
+slots' devices and nowhere else (at ``accum`` > 1 in the JAX package's
+``micro_spec`` layout), which the sharded executor runs line by line.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import numpy as np
 
 from repro_torch.launch.mesh import Mesh, P
 
-__all__ = ["Shardings", "batch_spec", "cache_specs", "opt_state_specs",
+__all__ = ["BatchShardings", "Shardings", "batch_spec", "cache_specs", "opt_state_specs",
            "param_specs", "shardings_for", "with_batch_constraint"]
 
 PyTree = Any
@@ -228,6 +231,79 @@ class Shardings:
 
 def shardings_for(spec_tree: PyTree, mesh: Mesh) -> Shardings:
     return Shardings(spec_tree, mesh)
+
+
+class BatchShardings(Shardings):
+    """An input batch's placement (the ``batch_sh`` of the JAX package's
+    ``jit_for``): ``batch_spec`` over `batch_tree`'s shapes, leading dim
+    over the data axes where it divides, else replicated.
+
+    At ``accum`` > 1 each leaf is placed as ``(accum, B / accum, ...)``
+    with the data axes on dim 1, the layout of the JAX package's
+    ``micro_spec``: data index d holds its rows of every microbatch, so
+    no microbatch crosses data indices. ``place`` copies to each distinct
+    (device, data index) only that data index's rows (slots sharing both
+    share the tensor); ``pin``: each block staged in pinned host memory
+    and copied without blocking (the caller orders the copies)."""
+
+    def __init__(self, batch_tree: PyTree, mesh: Mesh, data_axes=("data",),
+                 accum: int = 1):
+        import torch
+
+        self.accum, self.data_axes = accum, tuple(data_axes)
+
+        def micro(names, leaf):
+            shape = tuple(leaf.shape)
+            if accum > 1:
+                if shape[0] % accum:
+                    raise ValueError(f"batch {shape[0]} does not split "
+                                     f"into {accum} microbatches")
+                shape = (accum, shape[0] // accum) + shape[1:]
+            return torch.empty(shape, device="meta")
+
+        shapes = map_with_names(micro, batch_tree)
+        specs = batch_spec(
+            map_with_names(lambda _n, x: x[0] if accum > 1 else x, shapes),
+            mesh, data_axes)
+        if accum > 1:
+            specs = map_with_names(lambda _n, sp: P(None, *sp), specs)
+        super().__init__(specs, mesh)
+
+    def place(self, tree: PyTree, *, pin: bool = False) -> PyTree:
+        from .elastic import Placed
+
+        mesh, accum = self.mesh, self.accum
+
+        def one(_names, x, spec):
+            if accum > 1:
+                x = x.reshape((accum, x.shape[0] // accum) + x.shape[1:])
+            dim = next((i for i, e in enumerate(spec) if e is not None),
+                       None)
+            made, blocks = {}, []
+            for flat, slot in enumerate(mesh.slots):
+                k, n = (mesh.block_index(flat, self.data_axes)
+                        if dim is not None else (0, 1))
+                key = (slot.device, k)
+                if key not in made:
+                    rows = x.shape[dim] // n if dim is not None else 0
+                    blk = (x.narrow(dim, k * rows, rows) if dim is not None
+                           else x)
+                    if pin:
+                        blk = blk.contiguous().pin_memory()
+                    made[key] = blk.to(slot.device, non_blocking=pin)
+                blocks.append(made[key])
+            return Placed(blocks, spec, mesh, x.shape)
+
+        return _map_pair(one, tree, self.spec_tree)
+
+
+def _map_pair(fn: Callable, tree: PyTree, specs: PyTree,
+              names: tuple = ()) -> PyTree:
+    """``fn(names, leaf, spec)`` over a batch tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map_pair(fn, v, specs[k], names + (str(k),))
+                for k, v in tree.items()}
+    return fn(names, tree, specs)
 
 
 def with_batch_constraint(x, data_axes=("data",)):

@@ -14,12 +14,16 @@ FLOPs, bytes, collective bytes and counts, the three roofline terms at
 the H100 constants (``launch/mesh.py``), the dominant term, and memory
 per device against the card's 80 GB (``fits_hbm`` where the fullest
 slot and the home slot both fit, ``slot_fits_hbm`` for the slot alone);
-besides, ``home_device`` (the home slot's memory: it holds the
-whole-batch activations, the executor's layout) and ``repr_rows`` (the
-representative-row mode: data index 0's slots run for all,
-``Executor``). ``lower_s`` is the set-up (build and
-placement), ``compile_s`` 0.0 (nothing is compiled), ``run_s`` the
-counting.
+besides, ``home_device`` (the home slot's memory: its blocks and what
+the home owner still allocates: the loss's all-reduced statistics and
+the optimizer's temporaries where its ops read no slot's tensor; every
+activation lives on its line's slots, line d's on slot (d, 0), which the
+counter charges) and
+``repr_rows`` (the representative-row mode: line 0's slots run for all,
+``Executor``). The batch is placed by the step's ``BatchShardings``
+before the count, as the JAX dry run's inputs arrive placed by
+``batch_sh``. ``lower_s`` is the set-up (build and placement),
+``compile_s`` 0.0 (nothing is compiled), ``run_s`` the counting.
 
 ICR cells (``icr-*:sample:*``) run nothing: ``run_icr_cell`` counts from
 the geometry of ``DistributedICR`` on the mesh, per ring slot and level
@@ -123,15 +127,16 @@ def run_lm_cell(arch: str, shape: str, mesh_kind: str, *,
         for k, v in grad_of.items():
             static[k] += v * (2 if accum > 1 and cfg.param_dtype ==
                               "bfloat16" else 1)
-        fn, args, ex = ts.fn, (params, opt_state, specs), ts.executor
+        batch = ts.batch_shardings(specs).place(specs)
+        fn, args, ex = ts.fn, (params, opt_state, batch), ts.executor
         mf = model_flops_train(n_active, tokens) / n_chips
     elif cell.kind == "prefill":
         model, params_sh, fn_for = make_prefill_step(cfg, mesh,
                                                      repr_rows=repr_rows)
         params = params_sh.place(model.params_spec())
-        fn, _ = fn_for(specs)
+        fn, batch_sh = fn_for(specs)
         static = slot_bytes([params], mesh)
-        args, ex = (params, specs), fn.executor
+        args, ex = (params, batch_sh.place(specs)), fn.executor
         mf = model_flops_decode(n_active, tokens) / n_chips
     else:
         s_max = min(cell.seq_len, enc.max_target) if enc else cell.seq_len
@@ -140,7 +145,9 @@ def run_lm_cell(arch: str, shape: str, mesh_kind: str, *,
         params = params_sh.place(model.params_spec())
         cache = cache_sh.place(c_spec)
         static = slot_bytes([params, cache], mesh)
-        args = (params, cache, specs["tokens"], specs["positions"])
+        batch = fn.batch_sh.place({k: specs[k] for k in ("tokens",
+                                                         "positions")})
+        args = (params, cache, batch["tokens"], batch["positions"])
         ex = fn.executor
         mf = model_flops_decode(n_active, cell.global_batch) / n_chips
     row["lower_s"] = round(time.time() - t0, 1)

@@ -22,6 +22,14 @@ from the shapes alone.
 steps the same way: one slot runs the model's own functions, a larger
 mesh runs them through the executor (``Executor.forward``) with the
 parameters and the cache placed by their specs.
+
+On a mesh every step takes its batch over the data axes, as the JAX
+package's ``jit_for`` returns ``batch_sh``: ``TrainStep.batch_shardings``,
+the prefill's ``fn_for`` and the serve step's ``batch_sh`` give the
+batch's placement (``sharding.BatchShardings``: each data index's rows on
+its own slots, the train step's microbatches laid out as ``micro_spec``
+lays them), which ``data.make_batch_iterator(shardings=)`` applies; a
+step handed a whole batch places it so itself.
 """
 from __future__ import annotations
 
@@ -106,6 +114,19 @@ class TrainStep:
     params_sh: Any = None    # on a mesh: the placements (sharding.Shardings)
     opt_sh: Any = None
     executor: Any = None     # on a mesh: the sharded executor
+    accum: int = 1
+
+    def batch_shardings(self, batch_tree):
+        """The placement of batches shaped as `batch_tree` (the JAX
+        package's ``batch_sh``): a ``sharding.BatchShardings`` at the
+        step's accumulation on a mesh, None on one slot (the batch goes
+        whole to ``device``)."""
+        if self.executor is None:
+            return None
+        from repro_torch.distributed.sharding import BatchShardings
+
+        ex = self.executor
+        return BatchShardings(batch_tree, ex.mesh, ex.data_axes, self.accum)
 
     def init_state(self, generator: torch.Generator):
         """(params, opt_state) drawn from `generator` on the step's
@@ -201,16 +222,16 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, *, accum: int = 1,
         return params, opt_state, {"loss": loss, **metrics}
 
     return TrainStep(fn=train_step, opt_name=opt_name, model=model,
-                     optimizer=opt, device=device)
+                     optimizer=opt, device=device, accum=accum)
 
 
 def _sharded_step(model, mesh: Mesh, opt, opt_name: str,
                   accum: int, repr_rows: bool = False) -> TrainStep:
     """The train step on a mesh of more than one slot: parameters and
-    optimizer state placed by their specs, the whole batch (on the mesh's
-    first device) split over the data slots by rows, microbatches of
-    consecutive rows at ``accum`` > 1 as the JAX package's ``micro_spec``
-    lays them out."""
+    optimizer state placed by their specs, the batch over the data axes
+    (``TrainStep.batch_shardings``; a whole batch is placed so by the
+    executor), microbatches of consecutive rows at ``accum`` > 1 as the
+    JAX package's ``micro_spec`` lays them out."""
     from repro_torch.distributed.executor import Executor
     from repro_torch.distributed.sharding import (opt_state_specs,
                                                   param_specs, shardings_for)
@@ -231,7 +252,7 @@ def _sharded_step(model, mesh: Mesh, opt, opt_name: str,
 
     return TrainStep(fn=train_step, opt_name=opt_name, model=model,
                      optimizer=opt, device=ex.home, params_sh=params_sh,
-                     opt_sh=opt_sh, executor=ex)
+                     opt_sh=opt_sh, executor=ex, accum=accum)
 
 
 def _mesh_parts(model, mesh: Mesh, repr_rows: bool) -> tuple:
@@ -254,11 +275,13 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, *,
     the last position's float32 logits (B, vocab) without gradients.
 
     Differences from the JAX package: nothing is compiled, so `fn` does
-    not depend on the batch tree; ``batch_sh`` is None (the executor
-    takes the batch whole on its home device and splits it by rows);
-    on one slot ``params_sh`` is None and `params` are plain tensors, on
-    a larger mesh a ``Shardings`` whose ``place`` lays them out as
-    ``elastic.Placed`` leaves, and ``fn.executor`` holds the step's
+    not depend on the batch tree; on one slot ``params_sh`` and
+    ``batch_sh`` are None and `params` are plain tensors, on a larger
+    mesh ``params_sh`` is a ``Shardings`` whose ``place`` lays them out
+    as ``elastic.Placed`` leaves, ``batch_sh`` the batch's
+    ``BatchShardings`` (a whole batch is placed so by the executor), the
+    logits come back as a Placed leaf over the data axes
+    (``elastic.gather`` joins them), and ``fn.executor`` holds the step's
     collective counts. ``repr_rows``: the executor's representative-row
     mode (``meta`` tensors only)."""
     model = build_model(cfg)
@@ -275,8 +298,13 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, *,
         ex.reset()
         return ex.forward(model.prefill_fn, (params,), batch)
 
+    def fn_for(batch_tree):
+        from repro_torch.distributed.sharding import BatchShardings
+
+        return prefill_mesh, BatchShardings(batch_tree, mesh, ex.data_axes)
+
     prefill_mesh.executor = ex
-    return model, params_sh, lambda _batch_tree: (prefill_mesh, None)
+    return model, params_sh, fn_for
 
 
 def make_serve_step(cfg: ArchConfig, mesh: Mesh, batch: int, s_max: int,
@@ -292,9 +320,13 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, batch: int, s_max: int,
     ``params_sh`` and ``cache_sh`` are None; on a larger mesh they are
     ``Shardings`` by ``param_specs`` / ``cache_specs`` (batch over the
     data axes, heads over the model axis where they divide, else the
-    sequence), and ``step.executor`` holds the step's collective
-    counts."""
-    from repro_torch.distributed.sharding import cache_specs, shardings_for
+    sequence), ``step.batch_sh`` places ``{"tokens", "positions"}`` over
+    the data axes (``BatchShardings``; whole tensors are placed so by the
+    executor), the logits come back as a Placed leaf over the data axes,
+    and ``step.executor`` holds the step's collective counts."""
+    from repro_torch.distributed.sharding import (BatchShardings,
+                                                  cache_specs,
+                                                  shardings_for)
 
     del donate
     model = build_model(cfg)
@@ -304,7 +336,7 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, batch: int, s_max: int,
             with torch.no_grad():
                 return model.serve_step(params, cache, tokens, positions)
 
-        serve.executor = None
+        serve.executor = serve.batch_sh = None
         return model, serve, None, None, c_spec
     ex, params_sh = _mesh_parts(model, mesh, repr_rows)
     data_axes, model_axes = data_model_axes(mesh)
@@ -317,4 +349,8 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, batch: int, s_max: int,
                           positions)
 
     serve_mesh.executor = ex
+    serve_mesh.batch_sh = BatchShardings(
+        {"tokens": torch.empty((batch, 1), dtype=torch.int32, device="meta"),
+         "positions": torch.empty((batch,), dtype=torch.int32,
+                                  device="meta")}, mesh, data_axes)
     return model, serve_mesh, params_sh, cache_sh, c_spec

@@ -15,8 +15,9 @@ as the JAX package's ``repro.launch.train``.
 
 The loop runs on the card unless the caller passes ``device="cpu"``; it
 does not fall back. On a mesh of more than one slot the step is the
-sharded executor's (``launch/steps.py``; it takes the batch whole on
-its first slot's device and splits it over the data slots), checkpoints
+sharded executor's (``launch/steps.py``), the pipeline places each data
+index's rows on its own slots (``make_batch_iterator(shardings=)``, the
+step's ``batch_shardings``: the JAX package's ``batch_sh``), checkpoints
 record each leaf's spec, and a
 restore (the supervisor's, or a resume) places the leaves back by those
 specs on the loop's mesh, which may have another shape than the one that
@@ -107,6 +108,10 @@ def train_loop(cfg, mesh: Optional[Mesh] = None, *, steps: int,
         spec_tree = (ts.params_sh.spec_tree, ts.opt_sh.spec_tree)
         on_mesh = mesh
 
+    batch_sh = ts.batch_shardings({
+        k: torch.empty((global_batch, seq_len), dtype=torch.int32,
+                       device="meta") for k in ("tokens", "labels")})
+
     params, opt_state = ts.init_state(
         torch.Generator(device=ts.device).manual_seed(seed))
     start_step = 0
@@ -124,7 +129,8 @@ def train_loop(cfg, mesh: Optional[Mesh] = None, *, steps: int,
     straggler = StragglerMonitor()
     clock = _StepClock(ts.device)
     losses, step_ms, enqueue_ms = [], [], []
-    it = make_batch_iterator(data, start_step=start_step, device=ts.device)
+    it = make_batch_iterator(data, start_step=start_step, device=ts.device,
+                             shardings=batch_sh)
     state = (params, opt_state)
     step = start_step
     injected = False
@@ -148,7 +154,8 @@ def train_loop(cfg, mesh: Optional[Mesh] = None, *, steps: int,
                     state = out
                     it.close()
                     it = make_batch_iterator(data, start_step=step,
-                                             device=ts.device)
+                                             device=ts.device,
+                                             shardings=batch_sh)
                     continue
                 state, metrics = out
                 step = step_new

@@ -158,7 +158,8 @@ def _sdpa_keys(ex, q, k, v, mask, scale):
     o = ex.per_slot(slot, xs, combine)
     # the max, the sum-exp and the P·V partials, float32, over the slots
     stats = 2 * o.numel() // o.shape[-1]
-    ex.count("all_reduce", ex.M * 4 * (stats + o.numel()), over=ex.M)
+    ex.count("all_reduce", ex.M * 4 * (stats + o.numel()), over=ex.M,
+             per_line=True)
     return o.reshape(b, cq, h, v.shape[-1]).to(q.dtype)
 
 

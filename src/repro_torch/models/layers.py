@@ -15,8 +15,10 @@ accumulated in float32. ``remat`` is ``jax.checkpoint``: the activations
 of its body are recomputed in the backward.
 
 On a bound mesh (``shard_ctx``) ``mlp`` splits d_ff over the model slots,
-``embed`` and ``unembed_chunked`` the vocabulary (a masked lookup summed
-over the slots; a log-sum-exp combined over them).
+``embed`` and ``unembed_sums`` the vocabulary (a masked lookup summed
+over the slots; a log-sum-exp combined over them). ``unembed_sums`` is
+the JAX package's ``unembed_chunked`` before its division: the masked
+sum and the count, which a mesh reduces over its lines first.
 """
 from __future__ import annotations
 
@@ -90,13 +92,13 @@ def remat(fn, *args):
     is stashed for the recompute."""
     if not _records(*args):
         return fn(*args)
-    from .shard_ctx import owner, owning
+    from .shard_ctx import restored, snapshot
 
-    who = owner()
+    snap = snapshot()
 
     def run(*a):
-        # the recompute issues its ops as the first run did
-        with owning(who):
+        # the recompute issues its ops as the first run did, on its line
+        with restored(snap):
             return fn(*a)
 
     return torch.utils.checkpoint.checkpoint(
@@ -360,17 +362,21 @@ def _vocab_parallel_ce(ex, table, h: Tensor, labels: Tensor) -> tuple:
         return torch.logsumexp(torch.stack([a for a, _ in line]), 0), g
 
     lse, gold = ex.per_slot(slot, (h, labels), combine)
-    ex.count("all_reduce", ex.M * 2 * lse.numel() * 4, over=ex.M)
+    ex.count("all_reduce", ex.M * 2 * lse.numel() * 4, over=ex.M,
+             per_line=True)
     return lse, gold
 
 
-def unembed_chunked(table: Tensor, h: Tensor, labels: Tensor,
-                    chunk: int, mask: Optional[Tensor] = None) -> Tensor:
-    """Mean cross-entropy WITHOUT materializing full (B, S, V) logits: the
+def unembed_sums(table: Tensor, h: Tensor, labels: Tensor, chunk: int,
+                 mask: Optional[Tensor] = None) -> tuple:
+    """(masked sum of the cross-entropy, count of the positions kept),
+    float32 scalars (``tot / max(cnt, 1)`` is the JAX package's
+    ``unembed_chunked``), WITHOUT materializing full (B, S, V) logits: the
     sequence in ``chunk``-sized slices, (B, chunk, V) logits at a time,
     each slice's recomputed in the backward rather than kept (V up to
     262k: the big-vocab guard); positions past the last whole chunk are
-    dropped, as in the JAX package."""
+    dropped, as in the JAX package. Sums, so that rows split over a
+    mesh's lines reduce to the global mean (``shard_ctx.line_stats``)."""
     from .shard_ctx import executor
 
     b, s, d = h.shape
@@ -400,4 +406,4 @@ def unembed_chunked(table: Tensor, h: Tensor, labels: Tensor,
         sl = slice(c * chunk, (c + 1) * chunk)
         tot = tot + remat(body, h[:, sl], labels[:, sl], mask[:, sl])
         cnt = cnt + mask[:, sl].sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt

@@ -6,6 +6,12 @@ parameter init, the training loss (differentiable by autograd, with
 decode for any ArchConfig, including the whisper enc-dec special case and
 the VLM stub frontend. Vocab is padded to a multiple of 128.
 
+The loss is two parts: ``_loss_stats`` runs the model on the batch's
+rows and returns the masked cross-entropy's sum and count and the MoE
+layers' batch means; ``loss_fn`` takes them through
+``shard_ctx.line_stats`` (on a mesh, each line's rows run apart and the
+statistics are reduced over the global batch) and combines them.
+
 ``serve_step`` writes the new K/V, latent or recurrent state into the
 cache IN PLACE and returns the logits (the JAX package returns a new
 cache; the values are the same). Nothing in it reads a tensor on the
@@ -34,7 +40,7 @@ from .layers import (
     matmul,
     mlp,
     rmsnorm,
-    unembed_chunked,
+    unembed_sums,
 )
 from .transformer import (
     _init_shared_block,
@@ -43,8 +49,9 @@ from .transformer import (
     forward_hidden,
     init_slot_cache,
     layer_plan,
+    moe_aux_total,
 )
-from .shard_ctx import executor, gather_fsdp, replicate
+from .shard_ctx import executor, gather_fsdp, line_stats, replicate
 from .tree import tree_leaves, tree_map, tree_stack
 
 Tensor = torch.Tensor
@@ -156,8 +163,9 @@ class Model:
                     lambda m, dev, hs: dot_f32(hs, ex.narrow(
                         table, 0, m * rows, rows, dev).t()),
                     (h,), lambda line: torch.cat(line, dim=-1))
-                ex.count("all_gather", ex.M * logits.numel() * 4
-                         * (1 if h.shape[0] % ex.D == 0 else ex.D),
+                # every data index gathers its rows' logits (in the
+                # replicated mode, the whole batch's)
+                ex.count("all_gather", ex.M * logits.numel() * 4 * ex.D,
                          over=ex.M)
                 return logits[:, : self.cfg.vocab_size]
         return dot_f32(h, table.t())[:, : self.cfg.vocab_size]
@@ -173,22 +181,37 @@ class Model:
     def loss_fn(self, params, batch) -> tuple:
         """(loss, {"nll", "aux"}): the mean next-token NLL plus the MoE
         aux term; ``torch.autograd.grad`` of the loss gives the gradients
-        of ``jax.value_and_grad(loss_fn, has_aux=True)``."""
+        of ``jax.value_and_grad(loss_fn, has_aux=True)``. On a mesh the
+        statistics of the lines' rows reduce over the global batch first
+        (``shard_ctx.line_stats``)."""
+        sums, means = line_stats(self._loss_stats, params, batch)
+        nll = sums["tot"] / torch.clamp(sums["cnt"], min=1.0)
+        if self.cfg.encoder is not None:
+            return nll, {"nll": nll, "aux": torch.zeros(
+                (), dtype=torch.float32, device=nll.device)}
+        aux = moe_aux_total(self.cfg, means["moe"], nll.device)
+        loss = nll + aux
+        return loss, {"nll": nll, "aux": aux}
+
+    def _loss_stats(self, params, batch) -> tuple:
+        """``({"tot", "cnt"}, {"moe"})`` of a batch's rows: the masked
+        cross-entropy's sum and count of kept positions (the text
+        positions only, behind a vision stub's patches), and the MoE
+        layers' batch means (``forward_hidden``)."""
         cfg = self.cfg
         params = self._gathered(params)
         if cfg.encoder is not None:
-            return self._whisper_loss(params, batch)
+            return self._whisper_loss_stats(params, batch)
         h, positions = self._embed_in(params, batch)
-        h, aux = forward_hidden(cfg, params, h, positions)
+        h, moe_stats = forward_hidden(cfg, params, h, positions)
         labels = batch["labels"]
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
             h = h[:, -labels.shape[1]:]  # loss on text positions only
         mask = (labels >= 0).float()
         labels = torch.clamp(labels, min=0)
-        nll = unembed_chunked(self._unembed_table(params), h, labels,
-                              cfg.loss_chunk, mask)
-        loss = nll + aux
-        return loss, {"nll": nll, "aux": aux}
+        tot, cnt = unembed_sums(self._unembed_table(params), h, labels,
+                                cfg.loss_chunk, mask)
+        return {"tot": tot, "cnt": cnt}, {"moe": moe_stats}
 
     # ---------------- prefill (forward only) -----------------------------------
     def prefill_fn(self, params, batch) -> Tensor:
@@ -326,15 +349,14 @@ class Model:
         pos = _positions(b, sd, h.device)
         return self._whisper_decode_stack(params, h, pos, enc_out, enc_pos)
 
-    def _whisper_loss(self, params, batch):
+    def _whisper_loss_stats(self, params, batch):
         h = self._whisper_hidden(params, batch)
         labels = batch["labels"]
         mask = (labels >= 0).float()
-        nll = unembed_chunked(params["embed"]["table"], h,
-                              torch.clamp(labels, min=0),
-                              self.cfg.loss_chunk, mask)
-        return nll, {"nll": nll, "aux": torch.zeros(
-            (), dtype=torch.float32, device=h.device)}
+        tot, cnt = unembed_sums(params["embed"]["table"], h,
+                                torch.clamp(labels, min=0),
+                                self.cfg.loss_chunk, mask)
+        return {"tot": tot, "cnt": cnt}, {}
 
     def _whisper_prefill(self, params, batch):
         h = self._whisper_hidden(params, batch)

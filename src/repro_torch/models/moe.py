@@ -9,9 +9,12 @@ rows, counted per sample; a choice past the capacity is dropped (its gate
 set to 0, so the token falls through to the residual path). Dispatch and
 combine are one-hot einsums; the capacity is static, so nothing reads a
 tensor on the host. Shared experts run densely for every token. The
-router's load-balance and z losses come back as values. Gradients flow
-through the gates and the aux loss; the routing and the drops are
-discrete.
+router's load-balance and z losses come back as values
+(``moe_stats_apply`` returns their batch means, per sequence chunk, and
+``moe_aux`` combines them: on a mesh the means are first averaged over
+the lines, ``shard_ctx.line_stats``, so that the load balance is the
+product of the global means). Gradients flow through the gates and the
+aux loss; the routing and the drops are discrete.
 
 On a bound mesh (``shard_ctx``) the experts split over the model slots
 (expert parallelism: each slot's one-hot einsums over its experts, the
@@ -52,7 +55,10 @@ def _one_hot(idx: Tensor, n: int, dtype) -> Tensor:
 
 
 def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
-    """One sequence chunk: x (B, g, D) -> (out (B, g, D), (lb, z))."""
+    """One sequence chunk: x (B, g, D) -> (out (B, g, D), (density,
+    prob_mass, z)): the means over the chunk's tokens of the experts'
+    dispatch counts (no gradient), of the router probabilities, and of
+    the router z-loss."""
     e, k = moe_cfg.n_experts, moe_cfg.top_k
     b, g, d = x.shape
     ex = executor()
@@ -90,12 +96,11 @@ def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
         out = _experts(params["gate"], params["up"], params["down"], x,
                        disp, comb).to(x.dtype)
 
-    # aux: load-balance (Switch) + router z-loss
+    # aux: load-balance (Switch) + router z-loss, as their batch means
     density = onehot.sum(2).float().mean(dim=(0, 1))
     prob_mass = probs.mean(dim=(0, 1))
-    lb = e * (density / k * prob_mass).sum()
     z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
-    return out, (lb, z)
+    return out, (density, prob_mass, z)
 
 
 def _experts(gate, up, down, x, disp, comb) -> Tensor:
@@ -126,6 +131,14 @@ def _experts_parallel(ex, params, x, disp, comb) -> Tensor:
 
 def moe_apply(params: dict, x: Tensor, moe_cfg) -> tuple:
     """x: (B, S, D) -> (out, aux_loss); sequence chunks one after another."""
+    out, stats = moe_stats_apply(params, x, moe_cfg)
+    return out, moe_aux(stats, moe_cfg)
+
+
+def moe_stats_apply(params: dict, x: Tensor, moe_cfg) -> tuple:
+    """x: (B, S, D) -> (out, stats): ``stats`` the chunks' ``(density,
+    prob_mass, z)`` means over the batch's tokens, stacked over the
+    sequence chunks ((n, E), (n, E), (n,)), for ``moe_aux``."""
     b, s, d = x.shape
     g = min(moe_cfg.router_group_size, s)
     nch = s // g
@@ -136,22 +149,36 @@ def moe_apply(params: dict, x: Tensor, moe_cfg) -> tuple:
     capacity = max(capacity, 4)
 
     if nch == 1:
-        out, (lb, z) = _dispatch_chunk(params, x, moe_cfg, capacity)
-        aux = (lb - 1.0) * 1e-2 + z * 1e-3
+        out, stats = _dispatch_chunk(params, x, moe_cfg, capacity)
+        stats = [stats]
     else:
-        lb = torch.zeros((), dtype=torch.float32, device=x.device)
-        z = torch.zeros((), dtype=torch.float32, device=x.device)
-        outs = []
+        outs, stats = [], []
         for c in range(nch):
             # remat: the dispatch one-hots and the expert buffers are
             # recomputed in the backward
-            o, (lb_c, z_c) = remat(_dispatch_chunk, params,
-                                   x[:, c * g:(c + 1) * g], moe_cfg,
-                                   capacity)
-            lb, z = lb + lb_c, z + z_c
+            o, st = remat(_dispatch_chunk, params,
+                          x[:, c * g:(c + 1) * g], moe_cfg, capacity)
+            stats.append(st)
             outs.append(o)
         out = torch.cat(outs, dim=1)
-        aux = (lb / nch - 1.0) * 1e-2 + (z / nch) * 1e-3
     if "shared" in params:
         out = out + mlp(params["shared"], x, act="silu", glu=True)
-    return out, aux
+    return out, tuple(torch.stack(z) for z in zip(*stats))
+
+
+def moe_aux(stats: tuple, moe_cfg) -> Tensor:
+    """The router's aux loss from ``moe_stats_apply``'s means: per chunk
+    the Switch load balance ``E · Σ density / k · prob_mass`` and the
+    z-loss, averaged over the chunks, ``(lb - 1)·1e-2 + z·1e-3``."""
+    e, k = moe_cfg.n_experts, moe_cfg.top_k
+    density, prob_mass, z = stats
+    nch = z.shape[0]
+    if nch == 1:
+        lb = e * (density[0] / k * prob_mass[0]).sum()
+        return (lb - 1.0) * 1e-2 + z[0] * 1e-3
+    lb = torch.zeros((), dtype=torch.float32, device=z.device)
+    zs = torch.zeros((), dtype=torch.float32, device=z.device)
+    for c in range(nch):
+        lb = lb + e * (density[c] / k * prob_mass[c]).sum()
+        zs = zs + z[c]
+    return (lb / nch - 1.0) * 1e-2 + (zs / nch) * 1e-3

@@ -12,17 +12,25 @@ calls then are. ``gather_fsdp`` all-gathers each leaf's FSDP blocks into
 its model-axis blocks; the tensor-parallel branches of ``attention``,
 ``layers`` and ``moe`` run each model slot at its local sizes through
 ``executor()``; ``replicate`` gathers the model blocks of a layer kind
-that computes replicated; ``constrain`` is the identity (the executor
-lays activations out explicitly at those branches). ``clear()`` unbinds.
+that computes replicated. ``constrain`` stays the identity: the
+executor places every activation itself, each line's rows on its own
+slots (GSPMD's batch over the data axes), so a constraint has nothing
+left to move. ``clear()`` unbinds.
+
+``line_stats(fn, *args)`` is the loss's cross-line reduction: with no
+mesh ``fn(*args)``; on a mesh whose lines hold the batch's rows, ``fn``
+runs once per line and the lines' sums and means come back reduced over
+the global batch (``Executor.line_stats``).
 
 ``owner()`` names who runs the ops being issued, for the dry run's op
 counter (``roofline/op_cost.py``): ``("home", w)`` or ``((d, m), w)``,
 ``w`` the times each op counts (the representative-row mode runs one
 data index for all), or None where the counter reads it off the ops'
 inputs (the autograd engine's backward). ``owning`` sets it; ``remat``
-(``layers``) restores its caller's owner when it recomputes. ``times()``
-multiplies every op and collective counted (``repeating``: one
-microbatch standing for all of an accumulation).
+(``layers``) takes a ``snapshot`` of the owner and the running line and
+recomputes ``restored`` to it. ``times()`` multiplies every op and
+collective counted (``repeating``: one microbatch standing for all of an
+accumulation).
 """
 from __future__ import annotations
 
@@ -61,6 +69,30 @@ def owning(who):
         yield
     finally:
         _CTX["owner"] = prev
+
+
+def snapshot() -> tuple:
+    """The owner and the bound executor's running line, for a
+    recompute."""
+    ex = _CTX["executor"]
+    return _CTX["owner"], None if ex is None else ex.line
+
+
+@contextlib.contextmanager
+def restored(snap: tuple):
+    """Issue the block as the ``snapshot`` was taken: its owner, and its
+    line on the bound executor."""
+    who, line = snap
+    ex = _CTX["executor"]
+    prev = None if ex is None else ex.line
+    if ex is not None:
+        ex.line = line
+    try:
+        with owning(who):
+            yield
+    finally:
+        if ex is not None:
+            ex.line = prev
 
 
 def set_axes(mesh, data_axes, model_axes):
@@ -105,7 +137,16 @@ def replicate(param_tree):
     return param_tree if ex is None else ex.replicate_tree(param_tree)
 
 
+def line_stats(fn, *args):
+    """``fn(*args) -> (sums, means)`` over the global batch: with no mesh
+    fn's result; on a mesh, fn once per line on the line's rows, the
+    sums summed and the means averaged over the lines (all-reduces)."""
+    ex = _CTX["executor"]
+    return fn(*args) if ex is None else ex.line_stats(fn, *args)
+
+
 def constrain(x, roles: Sequence[Optional[str]]):
     """Constrain x's sharding by logical roles; the identity (with no
-    mesh, and under the executor, which places activations itself)."""
+    mesh, and under the executor, which places every activation on its
+    line's slots itself)."""
     return x

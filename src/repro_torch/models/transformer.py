@@ -186,54 +186,68 @@ def _mixer_train(cfg: ArchConfig, slot: Slot, p: dict, shared: Optional[dict],
 
 
 def _slot_train(cfg: ArchConfig, slot: Slot, p: dict, shared, h, positions,
-                aux):
+                stats: tuple):
+    """One layer: (h, stats), the MoE layer's statistics
+    (``moe.moe_stats_apply``) appended to `stats`."""
     if slot.mixer == "shared_attn":
         # zamba2 shared block handles its own norms/residual internally
-        return h + _mixer_train(cfg, slot, p, shared, h, positions), aux
+        return h + _mixer_train(cfg, slot, p, shared, h, positions), stats
     hn = rmsnorm(p["norm1"], h, cfg.norm_eps)
     mix = _mixer_train(cfg, slot, p, shared, hn, positions)
     if cfg.parallel_block and slot.ffn != "none":
         ff = mlp(p["mlp"], hn, act=cfg.act, glu=cfg.glu)
-        return h + mix + ff, aux
+        return h + mix + ff, stats
     h = h + mix
     if slot.ffn == "none":
-        return h, aux
+        return h, stats
     hn2 = rmsnorm(p["norm2"], h, cfg.norm_eps)
     if slot.ffn == "moe":
-        ff, a = moe_mod.moe_apply(p["moe"], hn2, cfg.moe)
-        aux = aux + a
+        ff, st = moe_mod.moe_stats_apply(p["moe"], hn2, cfg.moe)
+        stats = stats + (st,)
     else:
         ff = mlp(p["mlp"], hn2, act=cfg.act, glu=cfg.glu)
-    return h + ff, aux
+    return h + ff, stats
 
 
 def forward_hidden(cfg: ArchConfig, params: dict, h: Tensor,
                    positions: Tensor) -> tuple:
-    """Run all layers on embedded input h. Returns (h, aux_loss)."""
+    """Run all layers on embedded input h. Returns (h, moe_stats): the MoE
+    layers' statistics in layer order, for ``moe_aux_total``."""
     head, period, n_groups, tail = layer_plan(cfg)
     shared = params.get("shared")
     shared = gather_fsdp(shared) if shared is not None else None
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    stats = ()
     for i, slot in enumerate(head):
-        h, aux = _slot_train(cfg, slot, gather_fsdp(params["head"][i]),
-                             shared, h, positions, aux)
+        h, stats = _slot_train(cfg, slot, gather_fsdp(params["head"][i]),
+                               shared, h, positions, stats)
 
-    def group_body(gp, hh, au):
+    def group_body(gp, hh):
         gp = gather_fsdp(gp)
+        st = ()
         for j, slot in enumerate(period):
-            hh, au = _slot_train(cfg, slot, gp[f"slot{j}"], shared, hh,
-                                 positions, au)
-        return hh, au
+            hh, st = _slot_train(cfg, slot, gp[f"slot{j}"], shared, hh,
+                                 positions, st)
+        return hh, st
 
     for gp in group_rows(params["groups"], n_groups):
         if cfg.remat:
-            h, aux = remat(group_body, gp, h, aux)
+            h, st = remat(group_body, gp, h)
         else:
-            h, aux = group_body(gp, h, aux)
+            h, st = group_body(gp, h)
+        stats = stats + tuple(st)
     for i, slot in enumerate(tail):
-        h, aux = _slot_train(cfg, slot, gather_fsdp(params["tail"][i]),
-                             shared, h, positions, aux)
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
+        h, stats = _slot_train(cfg, slot, gather_fsdp(params["tail"][i]),
+                               shared, h, positions, stats)
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), stats
+
+
+def moe_aux_total(cfg: ArchConfig, stats, device) -> Tensor:
+    """The MoE aux loss summed over the layers, in layer order, from
+    ``forward_hidden``'s statistics (0 without MoE layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for st in stats:
+        aux = aux + moe_mod.moe_aux(st, cfg.moe)
+    return aux
 
 
 def group_rows(groups, n_groups: int) -> list:

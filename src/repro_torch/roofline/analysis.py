@@ -280,9 +280,11 @@ def memory_summary(counter, static: dict, slots) -> dict:
     blocks (``static[slot]``: parameters, optimizer state, gradients,
     cache) and the peak of what its bodies allocated; the slot with the
     most, and whether it fits the card (``slot_fits_hbm``).
-    ``home_device``: the home's peak (the whole-batch activations) with
-    its own slot's blocks. ``fits_hbm`` holds only where both fit: the
-    executor's first device holds the home's tensors as well."""
+    ``home_device``: the home owner's peak (what the executor still
+    issues there: the loss's reduced statistics; a replicated batch's
+    activations) with its own slot's blocks. ``fits_hbm`` holds only
+    where both fit: the executor's first device holds the home's tensors
+    as well."""
     from .op_cost import HOME
 
     def one(slot):

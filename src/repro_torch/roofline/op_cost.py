@@ -29,7 +29,8 @@ eager loop issues every iteration's ops, so there is no trip-count
 correction to port.
 
 Each op is attributed to its owner (``shard_ctx.owner``): the slot whose
-body issued it, or the home device; an op of the autograd engine's
+body issued it (a line's activations: its slot (d, 0)), or the home
+device; an op of the autograd engine's
 backward to the owner of its inputs (a slot's saved tensors or
 gradients). An owner's weight counts its ops that many times, and so
 does ``shard_ctx.times()`` (the executor's representative-row mode). Memory is tracked per owner as if

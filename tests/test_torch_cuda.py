@@ -1327,7 +1327,8 @@ def test_cuda_lm_sharded_step_equals_one_slot(cuda, shape):
     with the kv heads split, repeated, and "key"): the sharded step's
     loss and gradients equal the one-slot step's on the card within
     1e-5 of each leaf's largest entry; its batch comes from the prefetch
-    iterator, whole on the card, as ``train_loop`` hands it over."""
+    iterator placed per line (``shardings=``: each data index's rows on
+    its slots), as ``train_loop`` hands it over."""
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLMData, make_batch_iterator
     from repro_torch.distributed import elastic
@@ -1352,12 +1353,13 @@ def test_cuda_lm_sharded_step_equals_one_slot(cuda, shape):
     ts = make_train_step(cfg, mesh)
     placed = ts.params_sh.place(tree_map(lambda t: t.detach().clone(),
                                          params))
-    it = make_batch_iterator(src, device=cuda)
+    it = make_batch_iterator(src, shardings=ts.batch_shardings(batch))
     try:
         pbatch = next(it)
     finally:
         it.close()
-    assert pbatch["tokens"].is_cuda
+    assert all(isinstance(v, elastic.Placed) and v[0].is_cuda
+               for v in pbatch.values())
     loss2, _, grads2 = ts.executor.grads(model.loss_fn, placed, pbatch)
     assert abs(float(loss2) - float(loss1)) <= 1e-5 * abs(float(loss1))
     got = [elastic.gather(x) for x in elastic.placed_leaves(grads2)]
@@ -1444,7 +1446,7 @@ def test_cuda_sharded_serve_step_equals_one_slot(cuda, shape):
     batch = {"tokens": toks}
     _, p_sh, fn_for = make_prefill_step(cfg, mesh)
     placed = p_sh.place(params)
-    assert rel(fn_for(batch)[0](placed, batch),
+    assert rel(elastic.gather(fn_for(batch)[0](placed, batch)),
                one_for(batch)[0](params, batch)) <= 1e-5
     _, step1, _, _, _ = make_serve_step(cfg, one, 4, 16)
     _, step, _, c_sh, _ = make_serve_step(cfg, mesh, 4, 16)
@@ -1456,6 +1458,7 @@ def test_cuda_sharded_serve_step_equals_one_slot(cuda, shape):
     for t in range(5, 9):
         pos = (t + torch.arange(4, device=cuda)).to(torch.int32)
         want = step1(params, cache1, toks[:, t:t + 1], pos)
-        assert rel(step(placed, cache, toks[:, t:t + 1], pos), want) <= 1e-5
+        got = elastic.gather(step(placed, cache, toks[:, t:t + 1], pos))
+        assert rel(got, want) <= 1e-5
     for got, want in zip(elastic.placed_leaves(cache), tree_leaves(cache1)):
         assert rel(elastic.gather(got), want) <= 1e-5

@@ -243,11 +243,7 @@ def test_representative_rows_equal_the_full_run(shape, kind):
     full = _counted(kind, cfg, mesh, False)
     rows = _counted(kind, cfg, mesh, True)
     assert full[0] > 0 and full[1] > 0 and full[3] > 0
-    assert rows[:4] == full[:4]
-    if kind != "accum2":
-        # under accumulation the full run's home holds one gradient block
-        # of the previous microbatch a while longer
-        assert rows[4] == full[4]
+    assert rows == full
 
 
 def test_representative_rows_refuse_real_tensors():

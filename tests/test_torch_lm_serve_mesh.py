@@ -57,6 +57,8 @@ def mesh_of(shape):
 
 
 def rel(got, want) -> float:
+    if isinstance(got, elastic.Placed):     # a mesh step's rows per line
+        got = elastic.gather(got)
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 

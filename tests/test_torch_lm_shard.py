@@ -1,16 +1,19 @@
 """The port's sharded LM executor held to its one-slot step on the CPU.
 
-Virtual meshes of 8 CPU slots (``make_mesh(..., devices=["cpu"] * n)``),
+Virtual meshes of CPU slots (``make_mesh(..., devices=["cpu"] * n)``),
 the three of ``chip_smoke.py`` phase 11a: (data 2, model 2) reaches the
 "head" layout with the kv heads split, (1, 4) "head" with the kv heads
 repeated group-wise (the reduced archs have 4 q heads and 2 kv heads),
-(1, 8) "key". The one-slot step is itself held to the JAX package
+(1, 8) "key"; and for the gradients (4, 1) and (4, 2), one row per line.
+The one-slot step is itself held to the JAX package
 (``tests/test_torch_lm_train.py``, ``test_torch_lm_grad*.py``).
 
 * The loss and every gradient leaf of the ten reduced architectures
-  (float32, seeded parameters and batch) on each mesh against one slot,
-  within 1e-5 of the leaf's largest entry (a leaf zero in exact
-  arithmetic is held by its level against the largest entry of all).
+  (float32, seeded parameters and batch, the last row's labels partly
+  masked, so that the lines' masked counts differ) on each mesh against
+  one slot, within 1e-5 of the leaf's largest entry (a leaf zero in
+  exact arithmetic is held by its level against the largest entry of
+  all).
 * The train step at accum 2 on (2, 2) against one slot's, SGD at a fixed
   rate, each parameter leaf within 1e-5.
 * SGD (momentum), AdamW and Adafactor on placed leaves: two updates from
@@ -46,6 +49,8 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 MESHES = {"2x2": (2, 2), "1x4": (1, 4), "1x8": (1, 8)}
+# the gradients also on four lines, one row each
+GRAD_MESHES = dict(MESHES, **{"4x1": (4, 1), "4x2": (4, 2)})
 LAYOUT = {"2x2": ("head", True), "1x4": ("head", False), "1x8": ("key",
                                                                  None)}
 
@@ -56,8 +61,10 @@ def mesh_of(shape):
 
 
 def reduced_batch(cfg) -> dict:
-    """A seeded batch of 4 rows of 32 tokens (and the frontends')."""
+    """A seeded batch of 4 rows of 32 tokens (and the frontends'), the
+    last row's labels masked past position 12."""
     host = SyntheticLMData(cfg.vocab_size, 32, 4, seed=3).batch(0)
+    host["labels"][3, 12:] = -1
     batch = {k: torch.from_numpy(v) for k, v in host.items()}
     gen = torch.Generator().manual_seed(4)
     if cfg.frontend == "vision_stub":
@@ -115,11 +122,11 @@ def sharded(cfg, mesh, params, **kw):
     return ts, ts.params_sh.place(tree_map(torch.clone, params))
 
 
-@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("mesh_name", sorted(GRAD_MESHES))
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_sharded_grads_match_one_slot(name, mesh_name):
     cfg, params, batch, loss1, grads1 = one_slot(name)
-    ts, placed = sharded(cfg, mesh_of(MESHES[mesh_name]), params)
+    ts, placed = sharded(cfg, mesh_of(GRAD_MESHES[mesh_name]), params)
     loss, _, grads = ts.executor.grads(ts.model.loss_fn, placed, batch)
     assert abs(float(loss) - float(loss1)) <= TOL * abs(float(loss1))
     worst, zero = leaf_errs(whole(grads), grads1)
