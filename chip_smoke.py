@@ -10,6 +10,8 @@ times the eager dust fit step of the package under each SRC, one process
 each, to compare two trees in one call: see ``eager_step_ab``;
 ``--mesh-step LABEL=SRC ...`` does so for phase 11b's warm sharded
 gemma3-4b step on (2, 4) and (1, 16): see ``mesh_step_ab``;
+``--tp-peaks LABEL=SRC ...`` gives phase 13's peak memory of the
+sharded prefills and train step under each SRC: see ``tp_peaks_ab``;
 ``--kernels-once`` launches every kernel once at a small shape, the
 program the sanitizers run: see ``kernels_once``; ``--level0-probe``
 asks whether cuSOLVER's syevd, and the Cholesky root the port takes
@@ -319,6 +321,35 @@ Phases (any failure ends the run with a non-zero exit code):
    gemma3-4b's decode_32k cell and icr-dust-pod on the 16x16 mesh, each
    a process of its own on one CPU core, started after (d), when the
    card is done. One ``dryrun`` line.
+13. lm_tp  — the tensor-parallel forms of the mixers that earlier ran
+   replicated on a mesh (MLA's heads around its latents, Mamba2's heads
+   or channels, mLSTM's heads or q·k dim, sLSTM's projections, the MoE
+   router's columns, the stub frontends; plain torch ops, none of the
+   port's kernels), on virtual meshes of the card, seeded weights, 12c's
+   checks (``dry_mesh_case``) in bf16 and again in float32 (the same
+   weights widened): (a) zamba2-7b at full width and depth (81 layers,
+   4.6 B parameters) on (2, 4), two prompts of 1,024 tokens prefilled (a
+   line each), two requests written by the one-slot step at positions
+   0..15 and 8 decode steps (bf16: 2) on the mesh and on one slot; and
+   on (1, 16) (7 of its 112 heads a slot in the prefill; the state's 64
+   channels 4 a slot in decode), one prompt of 256 tokens and 4 steps
+   (bf16: 2);
+   (b) deepseek-v2 at full width cut to its leading dense layer and two
+   MoE layers (9.3 B parameters) on (2, 4), as (a) with 8 decode steps
+   in both dtypes, the bf16 steps' collective counts equal to the same
+   steps' on ``meta`` slots; (c)
+   xlstm-1.3b at full width and depth, one AdamW step on (2, 4) at 2 ×
+   64 tokens against the one-slot step (phase 11b's ``lms_full``), the
+   sharded step's ms and peak memory. The float32 runs hold the forms to
+   one slot (logits, decode and the cache within 1e-3, argmax equal;
+   xlstm's loss within 1e-3 and its gradient cosine >= 0.999 over all
+   leaves and >= 0.99 leaf by leaf). The bf16 runs must be finite and
+   their prefill no farther from the float32 one-slot logits than twice
+   one slot's bf16 prefill is: at these depths bf16's own rounding moves
+   the seeded models' logits by tens of percent (``bf16_one_vs_f32``),
+   and xlstm's bf16 gradients' cosine to one slot's is given beside one
+   slot's bf16 gradients' cosine to its float32 ones. One ``lm_tp``
+   line.
 
 The last three lines are the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -4352,7 +4383,7 @@ def lms_leaf_check(gs, g1, ps, p1, lr) -> dict:
 
 
 def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
-             timed=0) -> dict:
+             timed=0, params=None, keep=None) -> dict:
     """Phase 11b: `cfg` at full width and depth (bf16, remat, AdamW at a
     constant ``LMS_LR``) on a virtual mesh of `shape` slots of the card,
     phase 10's parameters (seed 0) and batch (step 0), the sharded step's
@@ -4367,7 +4398,9 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
     (``lms_leaf_check``). Then `timed` whole sharded steps, timed
     (``step_ms``, ``enqueue_ms``: the last); the peak memory and a step's
     collective counts. With `ref` (the one-slot loss), the first timed
-    step's loss is held to it."""
+    step's loss is held to it. `params` replaces the seeded draw (a
+    float32 copy of the bf16 weights); `keep`, a dict, receives the
+    one-slot gradients (``g1``, on the host)."""
     import dataclasses
 
     import torch
@@ -4386,7 +4419,9 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
     data = SyntheticLMData(cfg.vocab_size, seq, rows, seed=0)
     batch0 = {k: torch.from_numpy(v).to(device)
               for k, v in data.batch(0).items()}
-    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    if params is None:
+        params = model.init_params(
+            torch.Generator(device=device).manual_seed(0))
 
     def adamw():
         return optimizers.adamw(constant(LMS_LR), weight_decay=0.1)
@@ -4410,13 +4445,15 @@ def lms_full(cfg, shape, seq, rows, device="cuda", ref=None,
         g1 = torch.autograd.grad(loss1, leaves)
         for t in leaves:
             t.requires_grad_(False)
-        ref = float(loss1)
+        ref = float(loss1.detach())
         del loss1
         o = adamw()
         p1 = tree_map(torch.clone, params)
         p1, st = o.update(tree_unflatten(params, list(g1)), o.init(p1), p1)
         del st
         g1_host = [g.cpu() for g in g1]
+        if keep is not None:
+            keep["g1"] = g1_host
         p1_host = [t.cpu() for t in tree_leaves(p1)]
         del g1, p1
         gc.collect()
@@ -4761,26 +4798,29 @@ def dry_one_slot(device="cuda") -> dict:
 
 
 def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
-                  device="cuda") -> dict:
-    """12c on one virtual mesh of the card: the prefill of `prompt`
-    against one slot, and ``DRY_STEPS`` decode steps of `toks` (rows:
-    requests, teacher forced) at positions ``DRY_FROM`` on from `cache0`
-    (positions before them written by the one-slot step) against one
-    slot at bf16: logits within ``LM_TF_TOL`` of the largest, decode
-    argmax equal at every step and row, the cache after them within
-    ``LM_TF_TOL`` of the one-slot cache leaf by leaf; and each step's
-    collective counts against the same step's on a mesh of ``meta``
-    slots."""
+                  device="cuda", *, shape=None, start=DRY_FROM,
+                  n_steps=DRY_STEPS, s_max=LM_S_MAX, meta=True,
+                  logits=None) -> dict:
+    """12c on one virtual mesh of the card (``DRY_MESHES[layout]``, or
+    `shape`): the prefill of `prompt` against one slot, and `n_steps`
+    decode steps of `toks` (rows: requests, teacher forced) at positions
+    `start` on from `cache0` (positions before them written by the
+    one-slot step) against one slot at bf16: logits within ``LM_TF_TOL``
+    of the largest, decode argmax equal at every step and row, the cache
+    after them within ``LM_TF_TOL`` of the one-slot cache leaf by leaf;
+    and (`meta`) each step's collective counts against the same step's on
+    a mesh of ``meta`` slots. `logits`, a dict, receives the prefill's
+    logits, one slot's (``one``) and the mesh's (``mesh``)."""
     import torch
 
     from repro_torch.distributed import elastic
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.tree import tree_leaves, tree_map
 
-    shape = DRY_MESHES[layout]
+    shape = shape or DRY_MESHES[layout]
     rows = toks.shape[0]
     rec = {"layout": layout, "mesh": list(shape), "rows": rows,
-           "positions": [DRY_FROM, DRY_FROM + DRY_STEPS - 1],
+           "positions": [start, start + n_steps - 1],
            "prompt_len": prompt.shape[1]}
     t0 = time.perf_counter()
     model, _, one_for = make_prefill_step(cfg, lms_mesh((1, 1), device))
@@ -4791,27 +4831,30 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
     fn, b_sh = fn_for(batch)
     # the prompts placed per line; the logits come back per line
     got = elastic.gather(fn(placed, b_sh.place(batch)))
+    if logits is not None:
+        logits.update(one=ref, mesh=got)
     rec["prefill_rel_err"] = float((got - ref).abs().max()
                                    / ref.abs().max())
     rec["prefill_counts"] = lms_counts(fn.executor)
-    _, mp_sh, mfn_for = make_prefill_step(cfg, lms_mesh(shape, "meta"))
-    mbatch = {"tokens": torch.empty(prompt.shape, dtype=torch.int32,
-                                    device="meta")}
-    mfn, mb_sh = mfn_for(mbatch)
-    mfn(mp_sh.place(model.params_spec()), mb_sh.place(mbatch))
-    rec["prefill_counts_equal"] = lms_counts(mfn.executor) == \
-        rec["prefill_counts"]
+    if meta:
+        _, mp_sh, mfn_for = make_prefill_step(cfg, lms_mesh(shape, "meta"))
+        mbatch = {"tokens": torch.empty(prompt.shape, dtype=torch.int32,
+                                        device="meta")}
+        mfn, mb_sh = mfn_for(mbatch)
+        mfn(mp_sh.place(model.params_spec()), mb_sh.place(mbatch))
+        rec["prefill_counts_equal"] = lms_counts(mfn.executor) == \
+            rec["prefill_counts"]
     rec["prefill_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _, one, _, _, _ = make_serve_step(cfg, lms_mesh((1, 1), device), rows,
-                                      LM_S_MAX)
+                                      s_max)
     cache1 = tree_map(torch.clone, cache0)
     _, step, _, c_sh, c_spec = make_serve_step(cfg, lms_mesh(shape, device),
-                                               rows, LM_S_MAX)
+                                               rows, s_max)
     cache = c_sh.place(tree_map(torch.clone, cache0))
     err, agree = 0.0, 0
-    for p in range(DRY_FROM, DRY_FROM + DRY_STEPS):
+    for p in range(start, start + n_steps):
         tok = toks[:, p:p + 1]
         pos = torch.full((rows,), p, dtype=torch.int32, device=device)
         want = one(params, cache1, tok, pos)
@@ -4822,29 +4865,31 @@ def dry_mesh_case(cfg, params, layout, prompt, toks, cache0,
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
     rec["decode_rel_err"] = err
     rec["argmax_equal"] = agree
-    rec["argmax_total"] = rows * DRY_STEPS
+    rec["argmax_total"] = rows * n_steps
     rec["cache_rel_err"] = max(
         float((g.float() - w.float()).abs().max()
               / w.float().abs().max().clamp_min(1e-30))
         for g, w in zip(lms_whole(cache), tree_leaves(cache1)))
     rec["decode_counts"] = lms_counts(step.executor)
-    _, mstep, mp_sh, mc_sh, mc_spec = make_serve_step(
-        cfg, lms_mesh(shape, "meta"), rows, LM_S_MAX)
-    meta_in = mstep.batch_sh.place(
-        {"tokens": torch.empty((rows, 1), dtype=torch.int32, device="meta"),
-         "positions": torch.empty((rows,), dtype=torch.int32,
-                                  device="meta")})
-    mstep(mp_sh.place(model.params_spec()), mc_sh.place(mc_spec),
-          meta_in["tokens"], meta_in["positions"])
-    rec["decode_counts_equal"] = lms_counts(mstep.executor) == \
-        rec["decode_counts"]
+    if meta:
+        _, mstep, mp_sh, mc_sh, mc_spec = make_serve_step(
+            cfg, lms_mesh(shape, "meta"), rows, s_max)
+        meta_in = mstep.batch_sh.place(
+            {"tokens": torch.empty((rows, 1), dtype=torch.int32,
+                                   device="meta"),
+             "positions": torch.empty((rows,), dtype=torch.int32,
+                                      device="meta")})
+        mstep(mp_sh.place(model.params_spec()), mc_sh.place(mc_spec),
+              meta_in["tokens"], meta_in["positions"])
+        rec["decode_counts_equal"] = lms_counts(mstep.executor) == \
+            rec["decode_counts"]
     rec["decode_s"] = time.perf_counter() - t0
     rec["ok"] = (rec["prefill_rel_err"] <= LM_TF_TOL
                  and rec["decode_rel_err"] <= LM_TF_TOL
                  and rec["cache_rel_err"] <= LM_TF_TOL
                  and agree == rec["argmax_total"]
-                 and rec["prefill_counts_equal"]
-                 and rec["decode_counts_equal"])
+                 and rec.get("prefill_counts_equal", True)
+                 and rec.get("decode_counts_equal", True))
     del placed, cache, cache1
     return rec
 
@@ -5022,6 +5067,315 @@ def check_dryrun(card) -> dict:
         dry_cells_stop(procs)
     record["phase_s"] = time.perf_counter() - t_phase
     return record
+
+
+# -- phase 13: the mixers' tensor-parallel forms (MLA, Mamba2/SSD, mLSTM,
+# sLSTM, the MoE router, the stub frontends) on virtual meshes -------------
+TP_PROMPT = 1024             # 13a/13b: tokens a prompt
+TP_FROM = 16                 # positions the one-slot step writes first
+TP_S_MAX = 64                # the decode cache's positions
+# arch -> (mesh, rows: one prompt a line, prompt tokens, decode steps in
+# float32 / bf16, the bf16 counts against meta's)
+TP_CASES = {"zamba2-7b": (((2, 4), 2, TP_PROMPT, 8, 2, False),
+                          ((1, 16), 1, 256, 4, 2, False)),
+            "deepseek-v2-236b": (((2, 4), 2, TP_PROMPT, 8, 8, True),)}
+TP_DEEPSEEK_LAYERS = 3       # 13b: the leading dense layer, two MoE layers
+TP_F32_TOL = 1e-3            # float32 runs: mesh against one slot
+TP_BF16_RATIO = 2.0          # bf16: the mesh's distance to the float32
+#                              logits against one slot's, at most
+TP_XLSTM = "xlstm-1.3b"      # 13c: one AdamW step, full width and depth
+TP_XLSTM_SEQ, TP_XLSTM_ROWS = 64, 2    # one mLSTM chunk a row (the sLSTM
+#                              token loop runs op by op: 29 s a step at 256)
+TP_MESH = (2, 4)             # 13c, and the peaks of ``--tp-peaks``
+
+
+def tp_arch(name):
+    """`name`'s full-width config; deepseek-v2's depth cut to its leading
+    dense layer and two MoE layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    if name == "deepseek-v2-236b":
+        cfg = dataclasses.replace(cfg, n_layers=TP_DEEPSEEK_LAYERS)
+    return cfg
+
+
+def tp_prefill_peak(cfg, params, shape, prompt, device="cuda") -> float:
+    """GB the sharded prefill of `prompt` on a virtual mesh of `shape`
+    allocates at its peak above what the card held before it (the
+    placed parameters included there)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    _, p_sh, fn_for = make_prefill_step(cfg, lms_mesh(shape, device))
+    placed = p_sh.place(params)
+    batch = {"tokens": prompt}
+    fn, b_sh = fn_for(batch)
+    rows = b_sh.place(batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(placed, rows)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del placed, rows
+    return peak
+
+
+def tp_train_peak(cfg, shape, device="cuda") -> float:
+    """GB the sharded gradients of ``TP_XLSTM_ROWS`` × ``TP_XLSTM_SEQ``
+    tokens (bf16, remat) allocate at their peak above the placed
+    parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+
+    cfg = dataclasses.replace(cfg, remat=True)
+    ts = make_train_step(cfg, lms_mesh(shape, device))
+    placed = ts.params_sh.place(ts.model.init_params(
+        torch.Generator(device=device).manual_seed(0)))
+    data = SyntheticLMData(cfg.vocab_size, TP_XLSTM_SEQ, TP_XLSTM_ROWS,
+                           seed=0)
+    if hasattr(ts, "batch_shardings"):
+        batch = lms_lines_batch(ts, data)
+    else:
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(0).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ts.executor.grads(ts.model.loss_fn, placed, batch)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del ts, placed, batch
+    return peak
+
+
+def tp_serve(name, device="cuda") -> dict:
+    """13a/13b: `name` at full width (seeded weights; deepseek-v2's depth
+    cut) on each mesh of ``TP_CASES``: `rows` prompts prefilled (one a
+    line), then `rows` requests written by the one-slot serve step at
+    positions 0..``TP_FROM`` - 1 and stepped on the mesh and on one slot
+    from that cache (12c's checks: ``dry_mesh_case``, each dtype against
+    one slot in its own dtype): in bf16 (the collective counts against
+    ``meta``'s where asked), then in float32 (the same weights
+    widened). Beside each bf16 prefill its distance to the
+    float32 one-slot prefill, one slot's (``bf16_one_vs_f32``: bf16's own
+    rounding through the model's depth) and the mesh's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_map
+
+    cfg = tp_arch(name)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = []
+    for shape, rows, length, n32, n16, meta in TP_CASES[name]:
+        toks = torch.randint(0, cfg.vocab_size,
+                             (rows, TP_FROM + max(n32, n16)), generator=gen,
+                             device=device, dtype=torch.int32)
+        prompt = torch.randint(0, cfg.vocab_size, (rows, length),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        cases.append((shape, {"float32": n32, "bfloat16": n16}, meta, toks,
+                      prompt))
+    out = {"arch": name, "n_layers": cfg.n_layers,
+           "params": model.param_count()}
+    keep: dict = {}
+    for dt in ("bfloat16", "float32"):
+        if dt == "float32":
+            cfg = dataclasses.replace(cfg, param_dtype=dt, act_dtype=dt)
+            params = tree_map(lambda t: t.float(), params)
+            gc.collect()
+        for shape, steps, meta, toks, prompt in cases:
+            t0 = time.perf_counter()
+            key = "x".join(str(n) for n in shape)
+            n_steps, rows = steps[dt], toks.shape[0]
+            with torch.no_grad():
+                _, one, _, _, _ = make_serve_step(
+                    cfg, lms_mesh((1, 1), device), rows, TP_S_MAX)
+                cache0 = build_model(cfg).init_cache(rows, TP_S_MAX,
+                                                     device=device)
+                for p in range(TP_FROM):
+                    one(params, cache0, toks[:, p:p + 1],
+                        torch.full((rows,), p, dtype=torch.int32,
+                                   device=device))
+                keep[dt, key] = {}
+                rec = dry_mesh_case(
+                    cfg, params, "tp", prompt, toks[:, :TP_FROM + n_steps],
+                    cache0, device, shape=shape, start=TP_FROM,
+                    n_steps=n_steps, s_max=TP_S_MAX,
+                    meta=meta and dt == "bfloat16", logits=keep[dt, key])
+                del cache0
+            rec["s"] = time.perf_counter() - t0
+            out.setdefault(key, {})[dt] = rec
+    for key, rec in out.items():
+        if not isinstance(rec, dict):
+            continue
+        ref = keep["float32", key]["one"]
+        for who in ("one", "mesh"):
+            got = keep["bfloat16", key][who]
+            rec[f"bf16_{who}_vs_f32"] = float(
+                (got.float() - ref).abs().max() / ref.abs().max())
+        f32, bf16 = rec["float32"], rec["bfloat16"]
+        f32["ok"] = (max(f32["prefill_rel_err"], f32["decode_rel_err"],
+                         f32["cache_rel_err"]) <= TP_F32_TOL
+                     and f32["argmax_equal"] == f32["argmax_total"])
+        bf16["ok"] = (rec["bf16_mesh_vs_f32"]
+                      <= TP_BF16_RATIO * rec["bf16_one_vs_f32"]
+                      and math.isfinite(bf16["decode_rel_err"])
+                      and bf16.get("prefill_counts_equal", True)
+                      and bf16.get("decode_counts_equal", True))
+    del params, keep
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_cosine(a: list, b: list, device="cuda") -> tuple:
+    """(cosine over all leaves, the least leaf cosine) of two gradient
+    lists on the host, leaf by leaf in float64 on `device`."""
+    dot = na = nb = 0.0
+    least = 1.0
+    for x, y in zip(a, b):
+        x, y = x.to(device).double(), y.to(device).double()
+        d, sx, sy = float((x * y).sum()), float((x * x).sum()), \
+            float((y * y).sum())
+        dot, na, nb = dot + d, na + sx, nb + sy
+        least = min(least, d / math.sqrt(sx * sy) if sx * sy > 0
+                    else float(sx == sy))
+    return dot / math.sqrt(na * nb), least
+
+
+def check_lm_tp(card, device="cuda") -> dict:
+    """Phase 13: 13a zamba2-7b and 13b deepseek-v2 (depth cut) prefilled
+    and decoded on virtual meshes of the card against one slot
+    (``tp_serve``); 13c one sharded AdamW step of xlstm-1.3b on (2, 4)
+    against the one-slot step (phase 11b's ``lms_full``), in bf16 and in
+    float32 (the bf16 weights widened). The float32 runs hold the forms
+    to one slot: logits, decode and cache within ``TP_F32_TOL``, argmax
+    equal; xlstm's loss within ``LMS_LOSS_TOL``, its gradient cosine >=
+    ``LMS_COS_MIN`` over all leaves and >= ``LMS_LEAF_COS_MIN`` leaf by
+    leaf. The bf16 runs are the production dtype: finite, their
+    collective counts equal ``meta``'s, their prefill no farther than
+    ``TP_BF16_RATIO`` times one slot's bf16 prefill from the float32
+    logits (bf16's rounding grows through the seeded models' depth:
+    ``bf16_one_vs_f32``); xlstm's bf16 gradients' cosine to one slot's
+    beside that of one slot's bf16 gradients to its float32 ones. Every
+    part runs; then a failed check raises. Returns the ``lm_tp``
+    record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.tree import tree_map
+
+    record = {"card": card}
+    t_phase = time.perf_counter()
+    bad = []
+    for name in TP_CASES:
+        t0 = time.perf_counter()
+        record[name] = tp_serve(name, device)
+        record[name]["s"] = time.perf_counter() - t0
+        bad += [(name, key, dt) for key, r in record[name].items()
+                if isinstance(r, dict) for dt in ("bfloat16", "float32")
+                if not r[dt]["ok"]]
+    t0 = time.perf_counter()
+    cfg = tp_arch(TP_XLSTM)
+    keep16, keep32 = {}, {}
+    xl = lms_full(cfg, TP_MESH, TP_XLSTM_SEQ, TP_XLSTM_ROWS, device,
+                  keep=keep16)
+    xl["ok"] = math.isfinite(xl["loss"])
+    params = tree_map(lambda t: t.float(), build_model(cfg).init_params(
+        torch.Generator(device=device).manual_seed(0)))
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    xl32 = lms_full(cfg32, TP_MESH, TP_XLSTM_SEQ, TP_XLSTM_ROWS, device,
+                    params=params, keep=keep32)
+    del params
+    # the update's held share is phase 11b's (gemma3-4b) check: reported
+    xl32["ok"] = (xl32["loss_rel_err"] <= LMS_LOSS_TOL
+                  and xl32["grad_cosine"] >= LMS_COS_MIN
+                  and xl32["grad_leaf_cosine_min"] >= LMS_LEAF_COS_MIN)
+    xl["one_bf16_vs_f32_cosine"], xl["one_bf16_vs_f32_leaf_cosine_min"] = \
+        tp_cosine(keep16["g1"], keep32["g1"], device)
+    del keep16, keep32
+    record[TP_XLSTM] = {"bfloat16": xl, "float32": xl32,
+                        "s": time.perf_counter() - t0}
+    bad += [(TP_XLSTM, dt) for dt, r in record[TP_XLSTM].items()
+            if isinstance(r, dict) and not r["ok"]]
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    if bad:
+        print("lm_tp: " + json.dumps(record), flush=True)
+        raise RuntimeError(f"phase 13 failed on {bad}")
+    return record
+
+
+def tp_peaks_one(src: str) -> dict:
+    """Phase 13's sharded steps on (2, 4) with the package under `src`:
+    the peak GB of zamba2-7b's and deepseek-v2's (depth cut) prefill of
+    two prompts and of xlstm-1.3b's gradients (``tp_prefill_peak``,
+    ``tp_train_peak``)."""
+    import torch
+
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import build_model
+
+    rec = {"src": src}
+    for name in TP_CASES:
+        cfg = tp_arch(name)
+        params = build_model(cfg).init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab_size, (2, TP_PROMPT),
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(3),
+                               device="cuda", dtype=torch.int32)
+        with torch.no_grad():
+            rec[name] = tp_prefill_peak(cfg, params, TP_MESH, prompt)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec[TP_XLSTM] = tp_train_peak(tp_arch(TP_XLSTM), TP_MESH)
+    return rec
+
+
+def tp_peaks_ab(specs) -> int:
+    """``--tp-peaks LABEL=SRC ...``: ``tp_peaks_one`` of each package in
+    turn, one process each; prints one ``tp_peaks`` line per run and the
+    card."""
+    for spec in specs:
+        label, _, src = spec.partition("=")
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--tp-peaks-one", src],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            return 1
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+        print("tp_peaks: " + json.dumps({"label": label, **rec}), flush=True)
+    print(card_line())
+    return 0
 
 
 def main() -> int:
@@ -5243,6 +5597,11 @@ def main() -> int:
 
     # -- 12. the dry run: constants, meta against the card, mesh steps -----
     print("dryrun: " + json.dumps(check_dryrun(card)), flush=True)
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 13. the mixers' tensor-parallel forms at full width ---------------
+    print("lm_tp: " + json.dumps(check_lm_tp(card)), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": entries}))
@@ -5565,6 +5924,11 @@ if __name__ == "__main__":
         sys.exit(eager_step_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--eager-step-one"]:
         print(json.dumps(eager_step_one(*sys.argv[2:4])))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-peaks"]:
+        sys.exit(tp_peaks_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-peaks-one"]:
+        print(json.dumps(tp_peaks_one(sys.argv[2])))
         sys.exit(0)
     if sys.argv[1:2] == ["--mesh-step"]:
         sys.exit(mesh_step_ab(sys.argv[2:]))

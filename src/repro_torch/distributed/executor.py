@@ -36,11 +36,14 @@ slot ``d·M + m``. A *line* is data index ``d`` with its slots ``(d, 0) …
   each data-axis block the sum over the lines of its gradient (the
   reduce-scatter). Inside a group's ``remat`` the gathered leaves live
   only while the group runs.
-* **Tensor parallel.** At each point (``per_slot``, ``row_parallel``)
-  model slot m of the running line takes the line's rows and its model
-  block of the weights, on its own device, and runs the single-slot
-  function at local sizes; row-parallel partial outputs are float32,
-  summed over the line's model slots on the line's device and cast once.
+* **Tensor parallel.** At each point (``per_slot``, ``row_parallel``,
+  ``columns``, ``rows``) model slot m of the running line takes the
+  line's rows and its part of the weights, on its own device, and runs
+  the single-slot function at local sizes; row-parallel partial outputs
+  are float32, summed over the line's model slots on the line's device
+  and cast once, column-parallel ones are concatenated there. A slot's
+  part is ``take``'s runs of a leaf, assembled from just the model
+  blocks holding them (its own block, where the split lines up).
 * **Counting.** ``counts`` holds the calls and bytes of each collective
   kind (``all_gather``, ``reduce_scatter``, ``all_reduce``) that a mesh of
   separate devices runs for the work done since ``reset``. Bytes are the
@@ -56,10 +59,10 @@ slot ``d·M + m``. A *line* is data index ``d`` with its slots ``(d, 0) …
   against its own cache block and writes the new position into the block
   holding it (``attention``'s decode branches); where the sequence is
   split, the slots' partial softmax statistics combine as an online
-  softmax (``merge_partials``); a leaf of another layout, and the
-  recurrent states of the replicated mixers, are gathered whole over the
-  line's rows (``gather_leaf``) and written back into their blocks
-  (``store_tree``). A batch that does not divide the data axes (B = 1)
+  softmax (``merge_partials``); a recurrent state is stepped in its
+  blocks where they are the tiles its mixer splits (``slot_block``); a
+  leaf of another layout is gathered whole over the line's rows
+  (``gather_leaf``) and written back into its blocks (``store_tree``). A batch that does not divide the data axes (B = 1)
   is replicated over them: the function runs once on the home device,
   every data index computing the whole batch at each tensor-parallel
   point, as a mesh with a replicated batch does.
@@ -313,6 +316,7 @@ class Executor:
         self.line = None       # the line running, None in the replicated mode
         self.at = (0, 0)       # the slot whose body runs (``per_slot``)
         self._fans = None      # per_slot's weights taken (per data index)
+        self._indices: dict = {}   # ``take``'s index tensors, by device
         self.counts: dict = {}
         self.reset()
 
@@ -555,40 +559,152 @@ class Executor:
         return tree
 
     def narrow(self, x, dim: int, start: int, length: int, device):
-        """``x.narrow(dim, start, length)`` on `device`: from the one model
-        block holding the range where there is one, else from the whole
-        (gathered) leaf. Inside ``per_slot`` the slots of one device share
-        one such tensor (one all-gather where the range spans blocks); in
-        the replicated mode so do the data indices (``_Fan``: their
-        gradients summed once on the home device)."""
-        if self._fans is None:
-            return self._narrow(x, dim, start, length, device)
-        key = (id(x), dim, start, length, torch.device(device))
-        if key not in self._fans:
-            if self.line is not None:
-                self._fans[key] = self._narrow(x, dim, start, length, device)
-            else:
-                with owning(("home", 1)):
-                    self._fans[key] = _fan(
-                        self._narrow(x, dim, start, length, device), self.D)
-        got = self._fans[key]
-        return got if self.line is not None else got[self.at[0]]
+        """``x.narrow(dim, start, length)`` on `device` (``take`` of one
+        run)."""
+        return self.take(x, dim, ((start, length),), device)
 
-    def _narrow(self, x, dim: int, start: int, length: int, device):
-        if isinstance(x, TPLeaf):
-            if x.mdim == dim:
-                size = x.shape[dim] // self.M
-                k = start // size
-                if start + length <= (k + 1) * size:
-                    return x.blocks[k].narrow(dim, start - k * size,
-                                              length).to(device)
-            x = self.full(x)
-        return x.narrow(dim, start, length).to(device)
+    def take(self, x, dim: int, runs, device):
+        """The runs ``(start, length)`` of `x` along `dim`, concatenated in
+        order, on `device`, assembled from just the model blocks holding
+        them (a TPLeaf split on another dim: every block's runs, joined
+        along its split). The bytes read from model blocks other than the
+        running slot's own (slot (d, 0)'s outside ``per_slot``) are the
+        collective a mesh of separate cards runs: counted as an
+        all-gather, their gradient's way back as a reduce-scatter. Inside
+        ``per_slot`` the slots of one device share one such tensor; in the
+        replicated mode so do the data indices (``_Fan``: their gradients
+        summed once on the home device)."""
+        runs = tuple((int(s), int(n)) for s, n in runs)
+        if self._fans is None:
+            got = self._take(x, dim, runs, device)
+        else:
+            key = (id(x), dim, runs, torch.device(device))
+            if key not in self._fans:
+                if self.line is not None:
+                    self._fans[key] = self._take(x, dim, runs, device)
+                else:
+                    with owning(("home", 1)):
+                        self._fans[key] = _fan(
+                            self._take(x, dim, runs, device), self.D)
+            got = self._fans[key]
+            got = got if self.line is not None else got[self.at[0]]
+        return self._read(self._foreign_bytes(x, dim, runs), got)
+
+    def _pieces(self, x: TPLeaf, runs) -> list:
+        """``[(block, start, length)]`` of the runs along x's split dim,
+        adjacent pieces of one block merged."""
+        size = x.shape[x.mdim] // self.M
+        out: list = []
+        for s, n in runs:
+            while n > 0:
+                k = s // size
+                step = min(n, (k + 1) * size - s)
+                if out and out[-1][0] == k and sum(out[-1][1:]) == s - k * size:
+                    out[-1] = (k, out[-1][1], out[-1][2] + step)
+                else:
+                    out.append((k, s - k * size, step))
+                s, n = s + step, n - step
+        return out
+
+    def _take(self, x, dim: int, runs, device):
+        def cat(ts, d):
+            return ts[0] if len(ts) == 1 else torch.cat(ts, dim=d)
+
+        if not isinstance(x, TPLeaf):
+            return cat([x.narrow(dim, s, n) for s, n in runs], dim).to(device)
+        if x.mdim != dim:
+            return cat([self._take(b, dim, runs, device) for b in x.blocks],
+                       x.mdim)
+        groups: list = []          # consecutive pieces of one block
+        for k, s, n in self._pieces(x, runs):
+            if groups and groups[-1][0] == k:
+                groups[-1][1].append((s, n))
+            else:
+                groups.append((k, [(s, n)]))
+        parts = []
+        for k, local in groups:
+            b = x.blocks[k]
+            if len(local) == 1:
+                parts.append(b.narrow(dim, *local[0]).to(device))
+            else:
+                idx = self._index(local, b.device)
+                parts.append(b.index_select(dim, idx).to(device))
+        return cat(parts, dim)
+
+    def _index(self, runs, device) -> torch.Tensor:
+        """The indices of `runs` as a tensor on `device` (kept)."""
+        key = (tuple(runs), torch.device(device))
+        if key not in self._indices:
+            with _uncounted():
+                self._indices[key] = torch.cat(
+                    [torch.arange(s, s + n) for s, n in key[0]]).to(device)
+        return self._indices[key]
+
+    def _foreign_bytes(self, x, dim: int, runs) -> int:
+        """The bytes of `runs` held by model blocks other than the running
+        slot's."""
+        if not isinstance(x, TPLeaf):
+            return 0
+        own = self.at[1] if self._fans is not None else 0
+        row = x.blocks[0].element_size()
+        for i, s in enumerate(x.blocks[0].shape):
+            if i not in (dim, x.mdim):
+                row *= s
+        if x.mdim != dim:
+            size = x.shape[x.mdim] // self.M
+            return sum(n for _, n in runs) * size * row * (self.M - 1)
+        return sum(n for k, _, n in self._pieces(x, runs) if k != own) * row
+
+    def _read(self, nbytes: int, x):
+        """`x`, read by the running slot with `nbytes` from other slots'
+        blocks: counted, and marked for its gradient's way back. The D
+        data indices each read the same (one line counts the mesh's; in
+        the replicated mode ``per_slot`` runs every data index)."""
+        if not nbytes:
+            return x
+        if self.line is not None:
+            self.count("all_gather", nbytes, over=self.M, per_line=True)
+            return self._mark("reduce_scatter", nbytes, x, over=self.M,
+                              per_line=True)
+        nbytes *= self.w if self._fans is not None else self.D
+        self.count("all_gather", nbytes, over=self.M)
+        return self._mark("reduce_scatter", nbytes, x, over=self.M)
 
     def part(self, x, dim: int, m: int, device):
         """Part m of M equal parts of `x` along `dim` (model slot m's)."""
         size = x.shape[dim] // self.M
         return self.narrow(x, dim, m * size, size, device)
+
+    def columns(self, fn: Callable, x: torch.Tensor, w):
+        """``fn(x, w)`` for an `fn` that acts on w's last dim column by
+        column (``x @ w``, ``w[idx]``): where the model axis splits that
+        dim (a TPLeaf), model slot m computes its column block from its
+        own block of w and the blocks are all-gathered on the line's
+        device; else ``fn(x, w)`` there."""
+        if not isinstance(w, TPLeaf):
+            return fn(x, w)
+        if w.mdim != w.ndim - 1:
+            raise ValueError(f"columns of a leaf split on dim {w.mdim}")
+        out = self.per_slot(lambda m, dev, xs: fn(xs, self.part(
+            w, w.mdim, m, dev)), (x,), lambda line: torch.cat(line, dim=-1))
+        self.count("all_gather", self.M * _nbytes(out) * self.D, over=self.M)
+        return out
+
+    def rows(self, x: torch.Tensor, w) -> torch.Tensor:
+        """``x @ w`` (``layers.matmul``): row-parallel where the model axis
+        splits w's rows (slot m's block of x's last dim against its rows,
+        the float32 partials summed); else on the line's device."""
+        from repro_torch.models.layers import dot_f32, matmul
+
+        if not isinstance(w, TPLeaf):
+            return matmul(x, w)
+        if w.mdim != 0:
+            raise ValueError(f"rows of a leaf split on dim {w.mdim}")
+        size = w.shape[0] // self.M
+        return self.row_parallel(
+            lambda m, dev, xs: dot_f32(xs[..., m * size:(m + 1) * size],
+                                       self.part(w, 0, m, dev)),
+            (x,), x.dtype)
 
     # -- tensor-parallel points -------------------------------------------------
     def lines(self) -> list:
@@ -832,6 +948,13 @@ class Executor:
             return None
         region[0] = slice(lo - d * rows, hi - d * rows)
         return region, t.narrow(0, lo - first, hi - lo)
+
+    def slot_block(self, leaf: ShardLeaf) -> tuple:
+        """``(region, tensor)`` of the running slot's block of a cache leaf
+        (batch dim 0; ``_line_view``), the region's slices made explicit."""
+        region, t = self._line_view(leaf, *self.at)
+        return [slice(r.start or 0, n if r.stop is None else r.stop)
+                for r, n in zip(region, t.shape[:1] + leaf.shape[1:])], t
 
     def blocks_of(self, leaf: ShardLeaf) -> list:
         """``[(region, tensor)]``: every distinct block tensor of a leaf;

@@ -33,7 +33,7 @@ import torch
 
 from .layers import (Init, _dense_init, apply_rope, dot_f32, einsum_f32,
                      matmul, qk_norm, remat)
-from .shard_ctx import constrain, executor, model_size
+from .shard_ctx import columns, constrain, executor, model_size, rows
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -72,6 +72,10 @@ def init_mla(init: Init, d_model: int, n_heads: int, mla, dtype) -> dict:
 
 
 # -- shared helpers ---------------------------------------------------------------
+def _nbytes(t: Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _split_heads(x: Tensor, n: int) -> Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, n, -1)
@@ -497,26 +501,71 @@ def cross_decode(q: Tensor, cache: dict, scale: float) -> Tensor:
     return (acc / l).reshape(q.shape[0], 1, q.shape[2], -1).to(q.dtype)
 
 
+def cross_attention_decode(params: dict, cache: dict, x: Tensor, *,
+                           n_heads: int, d_head: int) -> Tensor:
+    """One new token per row against a precomputed cross-attention cache
+    (whisper's decoder): q from `x`, the scores (``cross_decode``), ``wo``.
+    On a bound mesh where the model axis splits the cache's kv heads each
+    slot projects its q heads (its columns of ``wq``) against its block;
+    else q is column-parallel and gathered. ``wo`` is row-parallel where
+    the model axis splits its rows."""
+    b = x.shape[0]
+    scale = 1.0 / np.sqrt(d_head)
+    ex = executor()
+    ck, cv = cache["k"], cache["v"]
+    if ex is not None and ck.mdim == 2 and ck.ddim in (None, 0, 1) \
+            and (cv.ddim, cv.mdim) == (ck.ddim, ck.mdim):
+        hl = n_heads // ex.M
+
+        def slot(m, dev, blocks, start, xs):
+            q = matmul(xs, ex.narrow(params["wq"], 1, m * hl * d_head,
+                                     hl * d_head, dev))
+            if "bq" in params:
+                q = q + ex.narrow(params["bq"], 0, m * hl * d_head,
+                                  hl * d_head, dev)
+            return _partial(q.reshape(xs.shape[0], 1, hl, d_head),
+                            blocks[0], blocks[1], None, scale)
+
+        _, l, acc = ex.cache_partials((ck, cv), (x,), slot, heads_dim=1)
+        o = (acc / l).reshape(b, 1, n_heads * d_head).to(x.dtype)
+    else:
+        q = columns(matmul, x, params["wq"])
+        if "bq" in params:
+            q = q + params["bq"]
+        o = cross_decode(q.reshape(b, 1, n_heads, d_head), cache, scale)
+        o = o.reshape(b, 1, n_heads * d_head)
+    out = rows(o, params["wo"])
+    return out + params["bo"] if "bo" in params else out
+
+
 # -- MLA (deepseek-v2) -------------------------------------------------------------
-def mla_train(params: dict, x: Tensor, positions: Tensor, *, n_heads: int,
-              mla, q_chunk: int = 512) -> Tensor:
-    b, s, _ = x.shape
+def _mla_latents(params, x) -> tuple:
+    """The query and kv latents (B, S, q_lora), (B, S, kv_lora + rope):
+    column-parallel on a bound mesh, gathered whole on the line's device
+    (the up-projections contract them)."""
+    return (columns(matmul, x, params["w_dq"]),
+            columns(matmul, x, params["w_dkv"]))
+
+
+def _mla_heads(ex, n_heads: int) -> bool:
+    """Do MLA's heads split over the bound mesh's model slots?"""
+    return ex is not None and n_heads % ex.M == 0
+
+
+def _mla_attend(w_uq, w_uk, w_uv, cq_lat, c_kv, k_pe, positions, *,
+                n_heads: int, mla, q_chunk: int) -> Tensor:
+    """`n_heads` heads of MLA from the latents, query-chunked: (B, S,
+    n_heads · v_dim); ``w_uq``/``w_uk``/``w_uv`` those heads' columns."""
+    b, s, _ = cq_lat.shape
     nope, rope, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_dim
-    qk = nope + rope
-    cq_lat = matmul(x, params["w_dq"])
-    q = _split_heads(matmul(cq_lat, params["w_uq"]), n_heads)  # (B,S,H,qk)
+    q = _split_heads(matmul(cq_lat, w_uq), n_heads)         # (B,S,H,qk)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, positions, 10_000.0)
-
-    ckv = matmul(x, params["w_dkv"])
-    c_kv, k_pe = ckv[..., : mla.kv_lora_rank], ckv[..., mla.kv_lora_rank:]
-    k_pe = apply_rope(k_pe[:, :, None, :], positions, 10_000.0)  # (B,S,1,rope)
-    k_nope = _split_heads(matmul(c_kv, params["w_uk"]), n_heads)
-    v = _split_heads(matmul(c_kv, params["w_uv"]), n_heads)
-
+    k_nope = _split_heads(matmul(c_kv, w_uk), n_heads)
+    v = _split_heads(matmul(c_kv, w_uv), n_heads)
     k = torch.cat([k_nope, k_pe.expand(b, s, n_heads, rope)], dim=-1)
     qq = torch.cat([q_nope, q_pe], dim=-1)
-    scale = 1.0 / np.sqrt(qk)
+    scale = 1.0 / np.sqrt(nope + rope)
     cqs, nch = _chunks(s, q_chunk)
 
     def chunk_body(qs, qp):
@@ -525,34 +574,93 @@ def mla_train(params: dict, x: Tensor, positions: Tensor, *, n_heads: int,
 
     outs = [remat(chunk_body, qq[:, i * cqs:(i + 1) * cqs],
                   positions[:, i * cqs:(i + 1) * cqs]) for i in range(nch)]
-    out = torch.cat(outs, dim=1).reshape(b, s, n_heads * vd)
-    return matmul(out, params["wo"])
+    return torch.cat(outs, dim=1).reshape(b, s, n_heads * vd)
+
+
+def mla_train(params: dict, x: Tensor, positions: Tensor, *, n_heads: int,
+              mla, q_chunk: int = 512) -> Tensor:
+    """MLA over the full sequence. On a bound mesh where the heads divide
+    the model axis each slot runs its block of the heads (``w_uq``,
+    ``w_uk``, ``w_uv`` are head-major) from the whole latents and
+    multiplies by its rows of ``wo``, the float32 partials summed."""
+    ex = executor()
+    split = _mla_heads(ex, n_heads)
+    if ex is not None and not split:
+        params = ex.replicate_tree(params)     # the heads do not divide
+    cq_lat, ckv = _mla_latents(params, x)
+    c_kv, k_pe = ckv[..., :mla.kv_lora_rank], ckv[..., mla.kv_lora_rank:]
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, 10_000.0)  # (B,S,1,r)
+    kw = dict(mla=mla, q_chunk=q_chunk)
+    if not split:
+        return matmul(_mla_attend(params["w_uq"], params["w_uk"],
+                                  params["w_uv"], cq_lat, c_kv, k_pe,
+                                  positions, n_heads=n_heads, **kw),
+                      params["wo"])
+    hl = n_heads // ex.M
+
+    def slot(m, dev, cq, ck, kp, ps):
+        w = [ex.part(params[n], 1, m, dev) for n in ("w_uq", "w_uk", "w_uv")]
+        o = _mla_attend(*w, cq, ck, kp, ps, n_heads=hl, **kw)
+        return dot_f32(o, ex.part(params["wo"], 0, m, dev))
+
+    return ex.row_parallel(slot, (cq_lat, c_kv, k_pe, positions), x.dtype)
+
+
+def _mla_query(w_uq, w_uk, cq_lat, positions, n_heads: int, mla,
+               dtype) -> tuple:
+    """One new token's absorbed query of `n_heads` heads: (q_lat (B, 1,
+    H, kv_lora), q_pe (B, 1, H, rope)), W_uk absorbed into q."""
+    nope, lat = mla.qk_nope_dim, mla.kv_lora_rank
+    q = _split_heads(matmul(cq_lat, w_uq), n_heads)         # (B,1,H,qk)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = apply_rope(q_pe, positions[:, None], 10_000.0)
+    q_lat = einsum_f32("bqhn,lhn->bqhl", q_nope,
+                       w_uk.reshape(lat, n_heads, nope)).to(dtype)
+    return q_lat, q_pe
+
+
+def _mla_value(w_uv, o_lat, n_heads: int, mla, dtype) -> Tensor:
+    """The heads' values from their latent outputs: (B, 1, H · v_dim)."""
+    o = einsum_f32("bqhl,lhv->bqhv", o_lat,
+                   w_uv.reshape(mla.kv_lora_rank, n_heads, mla.v_dim))
+    return o.to(dtype).reshape(o_lat.shape[0], 1, n_heads * mla.v_dim)
 
 
 def mla_decode(params: dict, cache: dict, x: Tensor, positions: Tensor, *,
                n_heads: int, mla) -> tuple:
     """Absorbed-matrix MLA decode: the cache holds only the latent
     (kv_lora + rope) per token, written in place at each row's position.
+    On a bound mesh where the heads divide the model axis each slot forms
+    its heads' absorbed queries (gathered for the scores against the
+    latent cache, ``_mla_mesh``) and their values times its rows of
+    ``wo``.
 
     cache: {"ckv": (B, S, kv_lora), "kpe": (B, S, rope)}.
     """
-    b = x.shape[0]
-    nope, rope, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_dim
     lat = mla.kv_lora_rank
-    cq_lat = matmul(x, params["w_dq"])
-    q = _split_heads(matmul(cq_lat, params["w_uq"]), n_heads)  # (B,1,H,qk)
-    q_nope, q_pe = q[..., :nope], q[..., nope:]
-    q_pe = apply_rope(q_pe, positions[:, None], 10_000.0)
-
-    ckv_new = matmul(x, params["w_dkv"])
+    ex = executor()
+    split = _mla_heads(ex, n_heads)
+    if ex is not None and not split:
+        params = ex.replicate_tree(params)     # the heads do not divide
+    cq_lat, ckv_new = _mla_latents(params, x)
     c_new, kpe_new = ckv_new[..., :lat], ckv_new[..., lat:]
     kpe_new = apply_rope(kpe_new[:, :, None, :], positions[:, None],
                          10_000.0)[:, :, 0, :]
-    # absorb W_uk into q: q_lat (B,1,H,lat)
-    w_uk = params["w_uk"].reshape(lat, n_heads, nope)
-    q_lat = einsum_f32("bqhn,lhn->bqhl", q_nope, w_uk).to(x.dtype)
-    denom = np.sqrt(nope + rope)
-    ex = executor()
+    if split:
+        hl = n_heads // ex.M
+        q_lat, q_pe = ex.per_slot(
+            lambda m, dev, cq, ps: _mla_query(
+                ex.part(params["w_uq"], 1, m, dev),
+                ex.part(params["w_uk"], 1, m, dev), cq, ps, hl, mla,
+                x.dtype),
+            (cq_lat, positions),
+            lambda line: tuple(torch.cat(z, dim=2) for z in zip(*line)))
+        ex.count("all_gather", ex.M * (_nbytes(q_lat) + _nbytes(q_pe))
+                 * ex.D, over=ex.M)
+    else:
+        q_lat, q_pe = _mla_query(params["w_uq"], params["w_uk"], cq_lat,
+                                 positions, n_heads, mla, x.dtype)
+    denom = np.sqrt(mla.qk_nope_dim + mla.qk_rope_dim)
     native = ex is not None and all(
         cache[n].ddim in (None, 0, 1) and cache[n].mdim in (None, 1)
         and (cache[n].ddim, cache[n].mdim) == (cache["ckv"].ddim,
@@ -578,10 +686,15 @@ def mla_decode(params: dict, cache: dict, x: Tensor, positions: Tensor, *,
         scores = torch.where(visible, scores, NEG_INF)
         p = torch.softmax(scores, dim=-1)
         o_lat = einsum_f32("bhqk,bkl->bqhl", p.to(x.dtype), ckv).to(x.dtype)
-    w_uv = params["w_uv"].reshape(lat, n_heads, vd)
-    o = einsum_f32("bqhl,lhv->bqhv", o_lat, w_uv).to(x.dtype)
-    out = matmul(o.reshape(b, 1, n_heads * vd), params["wo"])
-    return out, cache
+    if not split:
+        return matmul(_mla_value(params["w_uv"], o_lat, n_heads, mla,
+                                 x.dtype), params["wo"]), cache
+    return ex.row_parallel(
+        lambda m, dev, ol: dot_f32(_mla_value(
+            ex.part(params["w_uv"], 1, m, dev),
+            ol[:, :, m * hl:(m + 1) * hl], hl, mla, x.dtype),
+            ex.part(params["wo"], 0, m, dev)),
+        (o_lat,), x.dtype), cache
 
 
 def _mla_mesh(ex, cache, q_lat, q_pe, c_new, kpe_new, positions,

@@ -23,7 +23,6 @@ import dataclasses
 import math
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -51,7 +50,7 @@ from .transformer import (
     layer_plan,
     moe_aux_total,
 )
-from .shard_ctx import executor, gather_fsdp, line_stats, replicate
+from .shard_ctx import columns, executor, gather_fsdp, line_stats
 from .tree import tree_leaves, tree_map, tree_stack
 
 Tensor = torch.Tensor
@@ -59,6 +58,13 @@ Tensor = torch.Tensor
 
 def padded_vocab(v: int) -> int:
     return ((v + 127) // 128) * 128
+
+
+def _pos_rows(table, idx: Tensor) -> Tensor:
+    """Rows `idx` of a position table (whisper's ``pos_embed``): on a
+    bound mesh each model slot reads them from its own column block, and
+    the rows are gathered (not the table)."""
+    return columns(lambda i, t: t[i.long()], idx, table)
 
 
 def _positions(b: int, s: int, device) -> Tensor:
@@ -137,8 +143,8 @@ class Model:
         cfg = self.cfg
         h = self._embed_tokens(params, batch["tokens"])
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
-            pe = matmul(batch["patch_embeds"].to(h.dtype),
-                        replicate(params["frontend"]))
+            pe = columns(matmul, batch["patch_embeds"].to(h.dtype),
+                         params["frontend"])
             h = torch.cat([pe, h], dim=1)
         b, s = h.shape[0], h.shape[1]
         return h, _positions(b, s, h.device)
@@ -345,7 +351,8 @@ class Model:
         tokens = batch["tokens"]
         sd = tokens.shape[1]
         h = embed(params["embed"], tokens).to(enc_out.dtype)
-        h = h + replicate(params["pos_embed"])[None, :sd]
+        h = h + _pos_rows(params["pos_embed"],
+                          torch.arange(sd, device=h.device))[None]
         pos = _positions(b, sd, h.device)
         return self._whisper_decode_stack(params, h, pos, enc_out, enc_pos)
 
@@ -400,12 +407,10 @@ class Model:
 
     def _whisper_serve(self, params, cache, tokens, positions):
         cfg = self.cfg
-        b = tokens.shape[0]
         h = embed(params["embed"], tokens).to(self.act_dtype)
-        pos_emb = replicate(params["pos_embed"])[
-            torch.clamp(positions, max=cfg.encoder.max_target - 1).long()]
+        pos_emb = _pos_rows(params["pos_embed"], torch.clamp(
+            positions, max=cfg.encoder.max_target - 1))
         h = h + pos_emb[:, None, :]
-        scale = 1.0 / np.sqrt(cfg.head_dim)
         for i, lp in enumerate(params["dec"]):
             hn = rmsnorm(lp["norm1"], h, cfg.norm_eps)
             y, _ = attn.attention_decode(
@@ -415,17 +420,9 @@ class Model:
             h = h + y
             # cross attention against the precomputed encoder cache
             hx = rmsnorm(lp["norm_x"], h, cfg.norm_eps)
-            ca = replicate(lp["cross_attn"])
-            q = matmul(hx, ca["wq"])
-            if "bq" in ca:
-                q = q + ca["bq"]
-            q = q.reshape(b, 1, cfg.n_heads, cfg.head_dim)
-            o = attn.cross_decode(q, cache["cross"][i], scale)
-            o = matmul(o.reshape(b, 1, cfg.n_heads * cfg.head_dim),
-                       ca["wo"])
-            if "bo" in ca:
-                o = o + ca["bo"]
-            h = h + o
+            h = h + attn.cross_attention_decode(
+                lp["cross_attn"], cache["cross"][i], hx,
+                n_heads=cfg.n_heads, d_head=cfg.head_dim)
             h = h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h, cfg.norm_eps),
                         act=cfg.act, glu=cfg.glu)
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)

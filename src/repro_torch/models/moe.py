@@ -18,7 +18,8 @@ aux loss; the routing and the drops are discrete.
 
 On a bound mesh (``shard_ctx``) the experts split over the model slots
 (expert parallelism: each slot's one-hot einsums over its experts, the
-partials summed over the slots); the router runs replicated.
+partials summed over the slots); the router's logits are
+column-parallel over the experts and gathered before the softmax.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from .layers import (Init, _dense_init, einsum_f32, init_mlp, matmul, mlp,
                      remat)
-from .shard_ctx import executor
+from .shard_ctx import columns, executor
 
 Tensor = torch.Tensor
 
@@ -63,12 +64,12 @@ def _dispatch_chunk(params: dict, x: Tensor, moe_cfg, capacity: int) -> tuple:
     b, g, d = x.shape
     ex = executor()
     experts_tp = ex is not None and e % ex.M == 0
-    if ex is not None:
-        # the router replicated; the experts too where they do not split
-        params = dict(params, **{
-            n: ex.full(params[n]) for n in ("router", "gate", "up", "down")
-            if n == "router" or not experts_tp})
-    logits = matmul(x, params["router"]).float()               # (B, g, E)
+    if ex is not None and not experts_tp:
+        # the experts replicated where they do not split
+        params = dict(params, **{n: ex.full(params[n])
+                                 for n in ("gate", "up", "down")})
+    # column-parallel over the experts on a mesh, the logits gathered
+    logits = columns(matmul, x, params["router"]).float()      # (B, g, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)       # (B, g, k)
     gate_vals = gate_vals / torch.clamp(

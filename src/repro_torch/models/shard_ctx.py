@@ -10,12 +10,13 @@ runs its one-slot path.
 port's sharded executor (``distributed/executor.py``), whose hooks these
 calls then are. ``gather_fsdp`` all-gathers each leaf's FSDP blocks into
 its model-axis blocks; the tensor-parallel branches of ``attention``,
-``layers`` and ``moe`` run each model slot at its local sizes through
-``executor()``; ``replicate`` gathers the model blocks of a layer kind
-that computes replicated. ``constrain`` stays the identity: the
-executor places every activation itself, each line's rows on its own
-slots (GSPMD's batch over the data axes), so a constraint has nothing
-left to move. ``clear()`` unbinds.
+``layers``, ``moe`` and ``ssm`` run each model slot at its local sizes through
+``executor()``; ``columns`` and ``rows`` are a product with a weight's
+column or row blocks per model slot; ``replicate`` gathers the model
+blocks of a leaf that computes replicated. ``constrain`` stays the
+identity: the executor places every activation itself, each line's
+rows on its own slots (GSPMD's batch over the data axes), so a
+constraint has nothing left to move. ``clear()`` unbinds.
 
 ``line_stats(fn, *args)`` is the loss's cross-line reduction: with no
 mesh ``fn(*args)``; on a mesh whose lines hold the batch's rows, ``fn``
@@ -135,6 +136,25 @@ def replicate(param_tree):
     compute replicated over the model axis (the identity with no mesh)."""
     ex = _CTX["executor"]
     return param_tree if ex is None else ex.replicate_tree(param_tree)
+
+
+def columns(fn, x, w):
+    """``fn(x, w)`` for an `fn` acting on w's columns one by one (``x @
+    w``, ``w[idx]``): column-parallel on a bound mesh where the model axis
+    splits them, the column blocks all-gathered (``Executor.columns``)."""
+    ex = _CTX["executor"]
+    return fn(x, w) if ex is None else ex.columns(fn, x, w)
+
+
+def rows(x, w):
+    """``layers.matmul(x, w)``: row-parallel on a bound mesh where the
+    model axis splits w's rows (``Executor.rows``)."""
+    ex = _CTX["executor"]
+    if ex is None:
+        from .layers import matmul
+
+        return matmul(x, w)
+    return ex.rows(x, w)
 
 
 def line_stats(fn, *args):

@@ -20,8 +20,10 @@ the scan body): only the group's input is kept for the backward, and the
 chunk checkpoints of its attention, MoE and scans nest inside.
 
 On a bound mesh ``gather_fsdp`` hands each group its gathered weights
-inside the group's checkpoint; the mixers of ``REPLICATED_MIXERS``
-compute replicated over the model axis.
+inside the group's checkpoint, and every mixer runs its own
+tensor-parallel form (``attention``, ``ssm``); a decode step's recurrent
+state is written back into its cache blocks (``Executor.store_tree``)
+where the mixer did not write it in place.
 """
 from __future__ import annotations
 
@@ -35,8 +37,8 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import Init, init_mlp, init_rmsnorm, mlp, remat, rmsnorm
-from .shard_ctx import executor, gather_fsdp, replicate
-from .tree import tree_index, tree_map, tree_store
+from .shard_ctx import executor, gather_fsdp
+from .tree import tree_index, tree_store
 
 Tensor = torch.Tensor
 
@@ -142,11 +144,6 @@ def _init_shared_block(init: Init, cfg: ArchConfig, dtype) -> dict:
 
 
 # ============================ train-path blocks ==================================
-# mixers that compute replicated over the model axis of a bound mesh: their
-# weights' model blocks are gathered whole (ROADMAP.md, divergences)
-REPLICATED_MIXERS = ("mla", "mamba", "mlstm", "slstm")
-
-
 def _shared_block(cfg: ArchConfig, shared: dict, h: Tensor,
                   y: Tensor) -> Tensor:
     """zamba2's shared block after its attention output `y`: the MLP on
@@ -157,8 +154,6 @@ def _shared_block(cfg: ArchConfig, shared: dict, h: Tensor,
 
 def _mixer_train(cfg: ArchConfig, slot: Slot, p: dict, shared: Optional[dict],
                  h: Tensor, positions: Tensor) -> Tensor:
-    if slot.mixer in REPLICATED_MIXERS:
-        p = replicate(p)     # no tensor-parallel form on a mesh
     if slot.mixer in ("global", "local"):
         window = cfg.sliding_window if slot.mixer == "local" else None
         return attn.attention_train(
@@ -294,14 +289,6 @@ def init_slot_cache(cfg: ArchConfig, slot: Slot, batch: int, s_max: int,
 
 def _mixer_decode(cfg: ArchConfig, slot: Slot, p: dict, shared, cache,
                   h: Tensor, positions: Tensor):
-    ex = executor()
-    if ex is not None and slot.mixer in REPLICATED_MIXERS:
-        # no tensor-parallel form: the weights gathered whole, and a
-        # recurrent state too (written back into its blocks by
-        # ``_slot_decode``)
-        p = replicate(p)
-        if slot.mixer != "mla":
-            cache = tree_map(ex.gather_leaf, cache)
     if slot.mixer in ("global", "local"):
         window = cfg.sliding_window if slot.mixer == "local" else None
         return attn.attention_decode(

@@ -17,7 +17,10 @@ to the JAX package on the CPU.
   within 1e-5.
 * The JAX package's own ``make_prefill_step`` / ``make_serve_step`` on
   ``make_host_mesh()`` (one CPU device) against the port's steps on a
-  (2, 2) mesh, within 1e-5, for gemma3-4b and deepseek-v2 (MLA, MoE).
+  (2, 2) mesh, within 1e-5, for gemma3-4b, deepseek-v2 (MLA, MoE),
+  zamba2 (Mamba2: the state's channels over the model slots, stepped in
+  place) and xlstm (mLSTM: C split on q·k's dim, in place; n and m,
+  which ``cache_specs`` lays out otherwise, gathered and written back).
 * The layout each mesh reaches (``Executor.cache_partials``'s branches).
 """
 import jax
@@ -158,7 +161,8 @@ def _jax_steps(name, params_np, batch_np, toks, positions):
         jshard_ctx.clear()
 
 
-@pytest.mark.parametrize("name", ["gemma3-4b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("name", ["gemma3-4b", "deepseek-v2-236b",
+                                  "zamba2-7b", "xlstm-1.3b"])
 def test_mesh_steps_equal_the_jax_packages(name):
     cfg = get_arch(name).reduced()
     params = build_model(cfg).init_params(torch.Generator().manual_seed(0),
